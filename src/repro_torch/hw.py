@@ -1,0 +1,75 @@
+"""Target hardware constants (NVIDIA H100 SXM) + paper-cluster calibration.
+
+Kernel bounds in the port read from here. The device figures are the
+published H100 SXM data-sheet peaks; where a card is present, its SM count,
+memory and L2 size are read from ``torch.cuda.get_device_properties``
+instead. HBM bandwidth is not among the device properties, so bounds always
+use the data-sheet rate.
+
+``resolve_device`` is the one place that turns a ``device=`` argument into
+a ``torch.device``: entry points default to ``"cuda"`` and refuse to fall
+back to the CPU silently.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+# --- NVIDIA H100 SXM (data sheet; dense rates, 700 W power limit) ------------
+HBM_BW = 3.35e12               # bytes/s
+HBM_BYTES = 80 * 10**9         # device memory
+L2_BYTES = 50 * 2**20          # L2 cache
+NUM_SMS = 132
+SMEM_PER_BLOCK_MAX = 232_448   # bytes (227 KB), dynamic shared memory only
+# Peak of the CUDA cores outside the tensor cores: 67 TFLOP/s fp32. The
+# port's kernels do 32-bit integer ALU work (hash mixing, ARX rounds, DFA
+# stepping); it is counted against this rate, which no integer pipe of the
+# card exceeds, so a bound from it is a true lower bound on time.
+PEAK_ALU_OPS = 67e12
+
+# --- Meili paper cluster calibration (§8 methodology, Figs 2/9/15) -----------
+NIC_LINK_GBPS = 100.0
+TO_CORE_GBPS_1500B = 100.0
+PKT_BYTES = 1500
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSpec:
+    name: str
+    sms: int
+    mem_bytes: int
+    l2_bytes: int
+
+
+def device_spec(index: int = 0) -> DeviceSpec:
+    """The card's own SM count, memory and L2 when one is present, else the
+    H100 SXM data sheet."""
+    if torch.cuda.is_available():
+        p = torch.cuda.get_device_properties(index)
+        return DeviceSpec(name=p.name, sms=p.multi_processor_count,
+                          mem_bytes=p.total_memory,
+                          l2_bytes=getattr(p, "L2_cache_size", L2_BYTES))
+    return DeviceSpec(name="H100 SXM (data sheet)", sms=NUM_SMS,
+                      mem_bytes=HBM_BYTES, l2_bytes=L2_BYTES)
+
+
+def bound_seconds(nbytes: float, ops: float = 0.0) -> tuple:
+    """Least time for a function on the H100: the larger of its bytes over
+    HBM bandwidth and its operations over the peak rate. Returns
+    ``(seconds, "bytes" | "operations")``."""
+    t_bytes = nbytes / HBM_BW
+    t_ops = ops / PEAK_ALU_OPS
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def resolve_device(device: Optional[object] = "cuda") -> torch.device:
+    """``device=`` argument -> ``torch.device``. Asking for CUDA on a machine
+    without a GPU raises; the port never drops to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available on this machine; pass device='cpu' to run "
+            "the port's plain PyTorch path on the CPU")
+    return dev

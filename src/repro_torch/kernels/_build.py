@@ -1,0 +1,168 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by one ``nvcc`` call
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at
+first use, never at import, into ``build/kernels/<hash>/`` under the
+checkout, where ``<hash>`` covers the sources and the flags, so an edited
+source rebuilds and an unchanged one is loaded as it is. A missing ``nvcc``
+or a failed compile raises; nothing falls back to the plain versions.
+
+Each kernel wrapper calls ``launch(name, ...)``, which counts one launch of
+``name``, runs the C launcher on the current stream and raises when the
+launcher reports a CUDA error (a refused launch never runs, and a later
+synchronize would not report it).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+LIB_NAME = "libmeili_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+# C launcher -> argument types; every launcher returns a cudaError_t code.
+SIGNATURES = {
+    "meili_flow_lookup": [_P, _P, _P, _P, _I64, _P, _P, _I64, _I32, _I32,
+                          _P, _P, _P, _P],
+    "meili_dfa_regex": [_P, _I64, _I64, _P, _P, _P, _I32, _P, _P],
+    "meili_arx_cipher": [_P, _I64, _I64, _P, _P, _P],
+    "meili_keyed_hash": [_P, _I64, _I64, _P, _P, _P],
+}
+# Kernel name (as counted and reported) -> C launcher.
+KERNELS = {
+    "flow_lookup": "meili_flow_lookup",
+    "dfa_regex": "meili_dfa_regex",
+    "arx_cipher": "meili_arx_cipher",
+    "keyed_hash": "meili_keyed_hash",
+}
+
+_lib: Optional[ctypes.CDLL] = None
+_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / _digest() / LIB_NAME
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the port's CUDA kernels are built from "
+            f"{CSRC} at first use and need the CUDA toolkit on PATH")
+    return nvcc
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library with one nvcc call;
+    returns its path. A no-op when it already exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / LIB_NAME),
+             *map(str, sources())],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        (out.parent / "build.log").write_text(proc.stdout)
+        os.replace(tmp / LIB_NAME, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def build_log() -> str:
+    """nvcc's output of the last build (``-Xptxas -v``: registers, shared
+    memory and spills of each kernel)."""
+    path = library_path().parent / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for fn, argtypes in SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.meili_error_string.argtypes = [ctypes.c_int]
+        lib.meili_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Count and run one launch of kernel ``name`` on ``device``'s current
+    stream; pointers are passed as Python ints (``tensor.data_ptr()``)."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _launches[name] += 1
+        err = getattr(lib, KERNELS[name])(*args, stream)
+    if err != 0:
+        msg = lib.meili_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """Every tensor on one CUDA device and contiguous; returns the device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: every tensor must be on one CUDA "
+                             f"device, got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return dev
+
+
+def require_dtype(name: str, what: str, t: torch.Tensor,
+                  dtype: torch.dtype) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
