@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Drives the port's main path — ``ParallelDataPlane.process`` with the flow
-cache on — through the IPsec Gateway (all four NIC kernels: flow_lookup,
-dfa_regex, keyed_hash, arx_cipher) and the Intrusion Detection app
-(flow_lookup, dfa_regex) at full data size: 8 pipelines, 16,384-packet
-batches of 1,500-byte packets over 10,000 flows, 4,096-slot rings per
-pipeline, the 2^17-slot flow cache. Every batch's output is held bit for
-bit against the port's ``run_pipeline`` with the plain PyTorch versions
-(``impl="torch"``) on the same card, and each kernel is checked against its
-plain version at the shapes the main path gave it and timed.
+Two paths, each driven with the launch counts set to 0 just before it and
+read just after:
+
+1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
+   through the IPsec Gateway (all four NIC kernels: flow_lookup, dfa_regex,
+   keyed_hash, arx_cipher) and the Intrusion Detection app (flow_lookup,
+   dfa_regex) at full data size: 8 pipelines, 16,384-packet batches of
+   1,500-byte packets over 10,000 flows, 4,096-slot rings per pipeline, the
+   2^17-slot flow cache. Every batch's output is held bit for bit against
+   the port's ``run_pipeline`` with the plain PyTorch versions
+   (``impl="torch"``) on the same card.
+2. LM serving on gemma3-1b at full width (26 layers, d_model 1152, 4 query
+   heads over 1 KV head of 256, vocab 262,144; f32 parameters from a seeded
+   generator): ``Model.prefill`` of 4 prompts of 1,024 tokens into a
+   1,536-deep bf16 cache (flash_attention on every layer, 22 of them with
+   the 512-token window) and 32 greedy ``decode_step``s (decode_attention
+   on the 4 global layers), held against the same prefill and decode with
+   the plain versions; then ``repro_torch.launch.serve`` at its reference
+   defaults (16 requests x 16 tokens, 8 slots, max_len 64), held against
+   the same engine with the plain versions.
+
+Each kernel is then checked against its plain version at the shapes its
+path gave it and timed.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
 (into ``build/kernels/``), needs one CUDA device, and exits non-zero on any
 failure. The last line of its output is ``{"ok": true, "device": {...}}``;
-the line before it lists every kernel with its launches on the main path,
-its error against the plain version, and its times beside its bound.
+the line before it lists every kernel with its launches on its path, its
+error against the plain version, and its times beside its bound.
 """
 from __future__ import annotations
 
@@ -37,11 +51,18 @@ from repro_torch import hw  # noqa: E402
 from repro_torch.apps import (intrusion_detection, ipsec_gateway,  # noqa: E402
                               synth_packets)
 from repro_torch.apps.nf import SNORT_RULES  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.executor import ParallelDataPlane, _bucket  # noqa: E402
 from repro_torch.core.graph import bits, run_pipeline, tree_leaves  # noqa: E402
 from repro_torch.core.orchestrator import flow_ids  # noqa: E402
 from repro_torch.kernels import _build, crypto, dfa_regex, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flow_lookup as fl  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 
 BATCH = 16384
 FLOWS = 10_000
@@ -56,17 +77,42 @@ PLAIN_REPS = 10
 FLUSH_BYTES = 64 << 20   # > the 50 MB L2: each timed launch starts cold
 SLEEP_CYCLES = 2_000_000  # ~1 ms of device time ahead of each timed call
 
+# LM serving phase (gemma3-1b at full width)
+ARCH = "gemma3-1b"
+SERVE_BATCH = 4
+PROMPT_LEN = 1024         # twice the 512-token window: the band mask bites
+CACHE_LEN = 1536          # a multiple of 512, as the reference's decode block
+DECODE_STEPS = 32
+# Tolerances of the kernel run against the plain run (both f32 math, sums
+# in other orders). Attention outputs differ by ~1e-6 relative; through 26
+# residual layers (activations of RMS up to ~3) that reaches the O(1)
+# logits at ~1e-4, so prefill logits, and the engine's logits (f32 cache),
+# are held to PREFILL_TOL = 1e-3. Decode reads a bf16 cache: the two runs'
+# f32 keys and values differ by ~1e-6 relative from layer 1 on, so a few in
+# 10^4 of them round to the other bf16 neighbour (2**-8 relative); those
+# flips move decode logits by up to ~1e-3, held to DECODE_TOL = 2e-3. A
+# greedy token must be equal wherever the top-1/top-2 margin exceeds twice
+# the tolerance (then no error within the tolerance can reorder the two).
+PREFILL_TOL = 1e-3
+DECODE_TOL = 2e-3
+# A kernel against its plain version on the same inputs: f32 outputs.
+ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
+
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
     "dfa_regex": "src/repro/kernels/dfa_regex.py:30",
     "arx_cipher": "src/repro/kernels/crypto.py:25",
     "keyed_hash": "src/repro/kernels/crypto.py:29",
+    "flash_attention": "src/repro/kernels/flash_attention.py:33",
+    "decode_attention": "src/repro/kernels/decode_attention.py:29",
 }
 SOURCES = {
     "flow_lookup": "src/repro_torch/kernels/csrc/flow_lookup.cu",
     "dfa_regex": "src/repro_torch/kernels/csrc/dfa_regex.cu",
     "arx_cipher": "src/repro_torch/kernels/csrc/crypto.cu",
     "keyed_hash": "src/repro_torch/kernels/csrc/crypto.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
 }
 
 
@@ -292,6 +338,297 @@ def kernel_checks(dp, last_batch, launches_isg, launches_id):
     return kernels
 
 
+# -- LM serving ---------------------------------------------------------------
+
+def _check_logits(name, got, want, tol, ref_margin=None, ref_tokens=None):
+    """max |got - want| within tol (atol = rtol = tol); where ``ref_margin``
+    exceeds 2 tol, argmax(want) must equal ``ref_tokens``. Returns the max
+    abs error and the number of greedy tokens checked."""
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: logits differ from the plain run by "
+                             f"{err} (tolerance {tol})")
+    checked = 0
+    if ref_margin is not None:
+        sure = ref_margin > 2 * tol
+        if not torch.equal(want.argmax(-1)[sure], ref_tokens[sure]):
+            raise AssertionError(f"{name}: greedy tokens differ where the "
+                                 f"margin exceeds {2 * tol}")
+        checked = int(sure.sum())
+    return err, checked
+
+
+def _profile(fn):
+    """One call of ``fn`` under ``torch.profiler``: its wall ms (profiler
+    on), the device ms summed over the kernels and copies it ran, and the
+    five kernels that took most device time, as (name, ms, calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms_profiled": wall,
+            "device_ms": sum(ms for ms, _ in by_name.values()),
+            "device_launches": sum(n for _, n in by_name.values()),
+            "top_kernels": [(name[:80], ms, n) for name, (ms, n) in top]}
+
+
+def _margin(lg):
+    top2 = lg.topk(2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def prefill_decode(model, params, prompts):
+    """The serving path: prefill + DECODE_STEPS greedy decode steps with the
+    kernels (counts reset just before, read just after), then the same
+    prefill and the same decode inputs with the plain versions."""
+    dev = prompts.device
+    model.prefill(params, {"tokens": prompts[:, :64]}, max_len=128)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg0, cache = model.prefill(params, {"tokens": prompts},
+                               max_len=CACHE_LEN)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    after_prefill = _build.launch_counts()
+    toks, lgs, step_ms = [lg0.argmax(-1)], [], []
+    for _ in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, toks[-1])
+        toks.append(lg.argmax(-1))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        lgs.append(lg)
+    launches = _build.launch_counts()
+    decode_launches = {k: launches[k] - after_prefill[k] for k in launches}
+    profiles = {
+        "prefill": _profile(lambda: model.prefill(
+            params, {"tokens": prompts}, max_len=CACHE_LEN)),
+        "decode_step": _profile(lambda: model.decode_step(
+            params, cache, toks[-1])),
+    }
+
+    t0 = time.perf_counter()
+    plg0, pcache = model.prefill(params, {"tokens": prompts},
+                                 max_len=CACHE_LEN, impl="torch")
+    torch.cuda.synchronize()
+    plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    p_err, p_checked = _check_logits("prefill", lg0, plg0, PREFILL_TOL,
+                                     _margin(lg0), toks[0])
+    d_err, d_checked, plain_step_ms = 0.0, 0, []
+    for i in range(DECODE_STEPS):          # the kernel run's tokens as input
+        t0 = time.perf_counter()
+        plg, pcache = model.decode_step(params, pcache, toks[i], impl="torch")
+        torch.cuda.synchronize()
+        plain_step_ms.append((time.perf_counter() - t0) * 1e3)
+        err, n = _check_logits(f"decode step {i}", lgs[i], plg, DECODE_TOL,
+                               _margin(lgs[i]), toks[i + 1])
+        d_err, d_checked = max(d_err, err), d_checked + n
+    if not all(bool(torch.isfinite(x).all()) for x in [lg0] + lgs):
+        raise AssertionError("non-finite logits on the serving path")
+    for k, n in (("flash_attention", model.cfg.n_layers),
+                 ("decode_attention", 0)):
+        if after_prefill[k] != n:
+            raise AssertionError(f"prefill launched {k} "
+                                 f"{after_prefill[k]} times, not {n}")
+    n_global = sum(1 for *_, layer in params.all_layers()
+                   if layer.spec.mixer == "attn")
+    want = {"flash_attention": 0, "decode_attention": n_global * DECODE_STEPS}
+    for k, n in want.items():
+        if decode_launches[k] != n:
+            raise AssertionError(f"{DECODE_STEPS} decode steps launched {k} "
+                                 f"{decode_launches[k]} times, not {n}")
+    report = {
+        "arch": ARCH, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
+        "cache_len": CACHE_LEN, "decode_steps": DECODE_STEPS,
+        "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
+        "decode_ms_per_step": statistics.median(step_ms[1:]),
+        "decode_ms_first_step": step_ms[0],
+        "plain_decode_ms_per_step": statistics.median(plain_step_ms[1:]),
+        "launches": launches,
+        "launches_per_prefill": {k: after_prefill[k] for k in want},
+        "launches_per_decode_step": {k: decode_launches[k] / DECODE_STEPS
+                                     for k in want},
+        "prefill_logit_max_abs_err": p_err,
+        "decode_logit_max_abs_err": d_err,
+        "greedy_tokens_checked": p_checked + d_checked,
+        "greedy_tokens_total": SERVE_BATCH * (DECODE_STEPS + 1),
+        "profiles": profiles,
+    }
+    return report, cache
+
+
+def _requests_agree(got, want, tol):
+    """Same requests in the same order; each request's tokens equal up to a
+    first difference, where the kernel run's margin must be under 2 tol.
+    Returns the number of tokens compared equal."""
+    if [r.rid for r in got] != [r.rid for r in want]:
+        raise AssertionError("engine runs completed different requests")
+    same = 0
+    for g, w in zip(got, want):
+        for i, (a, b) in enumerate(zip(g.out, w.out)):
+            if a != b:
+                if g.margins[i] >= 2 * tol:
+                    raise AssertionError(
+                        f"request {g.rid} token {i}: {a} != {b} at margin "
+                        f"{g.margins[i]}")
+                break
+            same += 1
+    return same
+
+
+def engine_run():
+    """``repro_torch.launch.serve`` at its reference defaults with the
+    kernels (counts reset just before, read just after), then the same
+    requests through the same plan with the plain versions."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    rep = serve.run(["--arch", ARCH])
+    launches = _build.launch_counts()
+    if launches["decode_attention"] < 1:
+        raise AssertionError("the engine never launched decode_attention")
+    if len(rep.done) != rep.requests:
+        raise AssertionError(f"{len(rep.done)}/{rep.requests} requests done")
+    plain = ServingEngine(rep.model, rep.params,
+                          num_pipelines=rep.plan.num_pipelines,
+                          slots_per_pipeline=8, max_len=64, impl="torch")
+    for req in serve.make_requests(rep.model.cfg, rep.requests, 16):
+        plain.submit(req)
+    t0 = time.perf_counter()
+    done = plain.run(max_steps=64 - 8)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = _requests_agree(rep.done, done, PREFILL_TOL)
+    return rep.engine, {
+        "pipelines": rep.plan.num_pipelines, "R": rep.plan.R,
+        "latencies_s": rep.plan.latencies, "requests": rep.requests,
+        "tokens": rep.tokens, "seconds": rep.seconds,
+        "tokens_per_s": rep.tokens_per_s,
+        "plain_tokens_per_s": sum(len(r.out) for r in done) / plain_s,
+        "tokens_equal_to_plain": same, "launches": launches,
+    }
+
+
+def attention_checks(model, cache, engine, launches_pd, launches_engine):
+    """B5 and B6 at the shapes the serving path gave them, against their
+    plain versions, timed beside their bounds and SDPA: B6 both over the
+    prefilled bf16 cache and over the engine's f32 cache."""
+    cfg = model.cfg
+    dev = model.device
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, S, Hq, Hkv, D = (SERVE_BATCH, PROMPT_LEN, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim)
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    band = torch.arange(S, device=dev)
+    local = ((band[None, :] <= band[:, None])
+             & (band[None, :] > band[:, None] - cfg.window))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kt, vt = (x.expand(B, Hq, S, D) for x in (kt, vt))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    el = lambda t: t.numel() * t.element_size()
+    specs = []
+    for window, label in ((cfg.window, "local"), (None, "global")):
+        specs.append(dict(
+            name="flash_attention", label=label,
+            run=lambda w=window: fa.flash_attention_cuda(q, k, v, window=w),
+            plain=lambda w=window: fa.flash_attention_torch(q, k, v,
+                                                            window=w),
+            lib=(lambda: sdpa(qt, kt, vt, attn_mask=local)) if window
+            else (lambda: sdpa(qt, kt, vt, is_causal=True)),
+            lib_out=lambda o: o.transpose(1, 2),
+            shape=f"B={B} Sq=Sk={S} Hq={Hq} Hkv={Hkv} D={D} f32 "
+                  f"window={window}",
+            nbytes=el(q) * 2 + el(k) + el(v),
+            ops=fa.work(q.shape, k.shape, True, window) * 4 * D,
+            peak=hw.peak_flops(q.dtype, k.dtype)))
+    # decode: a query against a global layer's cache, with kv_len as the
+    # path left it: the prefilled bf16 cache (PROMPT_LEN + DECODE_STEPS
+    # valid rows) and the f32 cache of the engine instance that ran most
+    # steps (its shared position)
+    bpos = [x.mixer for x in lm.build_schedule(cfg)[0].body].index("attn")
+    eng_cache = max((p.cache for p in engine.pipelines),
+                    key=lambda c: c["pos"])
+    for label, c, n_valid in (
+            ("global", cache, PROMPT_LEN + DECODE_STEPS),
+            ("engine", eng_cache, eng_cache["pos"])):
+        ck = c["segments"][0][bpos]["k"][0]
+        cv = c["segments"][0][bpos]["v"][0]
+        Bd, Sd = ck.shape[:2]
+        dq = torch.randn((Bd, Hq, D), generator=g, device=dev)
+        kv_len = torch.full((Bd,), n_valid, dtype=torch.int32, device=dev)
+        ckf, cvf = (x.float().transpose(1, 2).expand(Bd, Hq, Sd, D)
+                    for x in (ck, cv))
+        dmask = (torch.arange(Sd, device=dev)[None, :]
+                 < kv_len[:, None])[:, None, None, :]
+        valid_rows = int(kv_len.clamp(0, Sd).sum())
+        specs.append(dict(
+            name="decode_attention", label=label,
+            run=lambda a=(dq, ck, cv, kv_len): da.decode_attention_cuda(*a),
+            plain=lambda a=(dq, ck, cv, kv_len): da.decode_attention_torch(
+                *a),
+            lib=lambda a=(dq[:, :, None], ckf, cvf), m=dmask: sdpa(
+                *a, attn_mask=m),
+            lib_out=lambda o: o[:, :, 0],
+            shape=f"B={Bd} S={Sd} kv_len={n_valid} Hq={Hq} Hkv={Hkv} D={D} "
+                  f"q f32, cache {str(ck.dtype).split('.')[-1]}",
+            nbytes=el(dq) * 2 + el(kv_len)
+            + valid_rows * Hkv * D * 2 * ck.element_size(),
+            ops=da.work(kv_len, Sd, Hq) * 4 * D,
+            peak=hw.peak_flops(dq.dtype, ck.dtype)))
+
+    rows = {}
+    for s in specs:
+        got, want = s["run"](), s["plain"]()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, **ATTN_TOL):
+            raise AssertionError(f"{s['name']} ({s['label']}): kernel "
+                                 f"differs from its plain version by {err}")
+        lib_err = float((s["lib_out"](s["lib"]()) - want).abs().max())
+        bound_s, bound_by = hw.bound_seconds(s["nbytes"], s["ops"], s["peak"])
+        name = s["name"]
+        by_path = ({"prefill": launches_pd[name]} if name == "flash_attention"
+                   else {"prefill_decode": launches_pd[name],
+                         "engine": launches_engine[name]})
+        launches = (launches_engine if s["label"] == "engine"
+                    else launches_pd)[name]
+        row = {
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches,
+            "launches_by_path": by_path, "variant": s["label"],
+            "shape": s["shape"], "max_abs_err": err,
+            "ms": _time_ms(s["run"], KERNEL_REPS, flush),
+            "plain_ms": _time_ms(s["plain"], PLAIN_REPS, flush),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": int(s["nbytes"]), "ops": int(s["ops"]),
+            "peak_flops": s["peak"],
+            "library_ms": _time_ms(s["lib"], KERNEL_REPS, flush),
+            "library_call": "torch.nn.functional.scaled_dot_product_attention",
+            "library_max_abs_err": lib_err,
+        }
+        if name in rows:        # another shape of the same kernel's launches
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            rows[name].setdefault("variants", {})[s["label"]] = row
+        else:
+            rows[name] = row
+    return list(rows.values())
+
+
 def main() -> int:
 
     if not torch.cuda.is_available():
@@ -313,7 +650,7 @@ def main() -> int:
           f"({len(_build.sources())} sources, sm_90a) -> "
           f"{_build.library_path().relative_to(ROOT)}")
     for line in _build.build_log().splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or "entry function" in line:
             print("  " + line.strip())
 
     t0 = time.perf_counter()
@@ -337,6 +674,47 @@ def main() -> int:
 
     kernels = kernel_checks(dp, batches[-1], isg["launches"],
                             ids["launches"])
+    del dp, batches
+    torch.cuda.empty_cache()
+
+    # LM serving: gemma3-1b at full width, f32 parameters
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = build(get_arch(ARCH), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        2, model.cfg.vocab, size=(SERVE_BATCH, PROMPT_LEN))).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serving: {ARCH} at full width, {n_params} parameters (f32) made "
+          f"on the card in {time.perf_counter() - t0:.2f} s")
+    pd, cache = prefill_decode(model, params, prompts)
+    print(f"prefill ms: {pd['prefill_ms']:.3f} (B={SERVE_BATCH} x "
+          f"{PROMPT_LEN} tokens; plain versions {pd['plain_prefill_ms']:.3f})")
+    print(f"decode ms per step: {pd['decode_ms_per_step']:.3f} "
+          f"(B={SERVE_BATCH}, median of steps 2-{DECODE_STEPS}; plain "
+          f"versions {pd['plain_decode_ms_per_step']:.3f})")
+    print("serving launches: per prefill "
+          + json.dumps(pd["launches_per_prefill"]) + ", per decode step "
+          + json.dumps(pd["launches_per_decode_step"]))
+    for k, prof in pd["profiles"].items():
+        busy = prof["device_ms"] / (pd["prefill_ms"] if k == "prefill"
+                                    else pd["decode_ms_per_step"])
+        print(f"{k} profile: device {prof['device_ms']:.3f} ms over "
+              f"{prof['device_launches']} launches; busy share of the "
+              f"unprofiled wall time {busy:.3f}; top "
+              + json.dumps(prof["top_kernels"]))
+    print("serving path " + json.dumps(pd))
+    engine, eng = engine_run()
+    print(f"engine tokens/s: {eng['tokens_per_s']:.1f} ({eng['tokens']} "
+          f"tokens, {eng['requests']} requests over {eng['pipelines']} "
+          f"pipelines; plain versions {eng['plain_tokens_per_s']:.1f})")
+    print("engine launches: " + json.dumps(eng["launches"]))
+    print("engine " + json.dumps(eng))
+    kernels += attention_checks(model, cache, engine, pd["launches"],
+                                eng["launches"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

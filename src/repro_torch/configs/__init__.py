@@ -1,0 +1,32 @@
+"""Architecture configs the port runs. ``--arch <id>`` resolves here.
+
+Only the dense configs whose every module is ported are known; every other
+architecture of the JAX package raises ``KeyError`` naming the ROADMAP item
+that ports what it needs.
+"""
+from repro_torch.configs import gemma3_1b, olmo_1b
+from repro_torch.configs.base import ArchConfig
+
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (gemma3_1b, olmo_1b)}
+
+# Architectures of the JAX package that wait for a later slice.
+PENDING = {
+    "mamba2-370m": "ROADMAP A18 (ssm family: models/ssm.py and the ssd_scan "
+                   "kernel, B7)",
+    "jamba-1.5-large-398b": "ROADMAP A20 (hybrid family: ssm and MoE layers)",
+    "moonshot-v1-16b-a3b": "ROADMAP A20 (MoE family: models/moe.py)",
+    "phi3.5-moe-42b-a6.6b": "ROADMAP A20 (MoE family: models/moe.py)",
+    "minicpm-2b": "ROADMAP A21 (remaining dense, vlm and encdec configs)",
+    "qwen2.5-32b": "ROADMAP A21 (remaining dense, vlm and encdec configs)",
+    "llava-next-34b": "ROADMAP A21 (remaining dense, vlm and encdec configs)",
+    "seamless-m4t-medium": "ROADMAP A21 (remaining dense, vlm and encdec "
+                           "configs)",
+}
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name in ARCHS:
+        return ARCHS[name]
+    if name in PENDING:
+        raise KeyError(f"arch {name!r} is not ported yet: {PENDING[name]}")
+    raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")

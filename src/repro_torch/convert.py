@@ -1,12 +1,15 @@
 """State carried across from the JAX package, and outputs carried back.
 
-The system runs no model, so its "weights" are its data and state: packet
-batches, the flow cache's planes and epoch, and each accelerator stage's
-constants (DFA table, out_count, keys). Everything crosses as numpy arrays:
-take ``np.asarray`` of the JAX package's arrays, hand them to the loaders
-here, and compare the port's outputs through ``batch_to_numpy`` /
-``leaves_to_numpy``, which list leaves in the reference's order (fields in
-declaration order, ``meta`` keys sorted — ``jax.tree.leaves``'s order).
+The data plane's "weights" are its data and state: packet batches, the
+flow cache's planes and epoch, and each accelerator stage's constants (DFA
+table, out_count, keys). The LM's are its parameter tree and KV cache.
+Everything crosses as numpy arrays: take ``np.asarray`` of the JAX
+package's arrays, hand them to the loaders here, and compare the port's
+outputs through ``batch_to_numpy`` / ``leaves_to_numpy``, which list leaves
+in the reference's order (fields in declaration order, ``meta`` keys sorted
+— ``jax.tree.leaves``'s order), or ``lm_cache_to_numpy``, which rebuilds
+the reference's cache tree. bfloat16 arrays cross as float32 (numpy has no
+bfloat16 of its own); the widening is exact.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 from repro_torch.core.flowcache import FlowCache
 from repro_torch.core.graph import MeiliApp, PacketBatch, tree_leaves
 from repro_torch.hw import resolve_device
+from repro_torch.models import lm as lm_mod
 
 _FIELDS = ("payload", "length", "five_tuple", "mask")
 
@@ -111,3 +115,62 @@ def load_accel_state(app: MeiliApp,
                   for k, v in arrays.items()}
         consts.set(**pinned)
     return app
+
+
+# -- LM parameters and KV cache -----------------------------------------------------
+
+def _lm_tensor(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return _tensor(a, device)
+
+
+def _map_tree(tree: Any, fn) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def lm_params_from_jax(cfg, params: Mapping, device="cuda") -> lm_mod.LM:
+    """The port's LM holding the JAX package's dense-LM parameters.
+
+    ``params`` is the tree of ``repro.models.lm.init_lm`` with numpy leaves.
+    Each segment's leaves are stacked over its repetitions on axis 0; they
+    are unstacked into one ``DecoderLayer`` per (repetition, body
+    position), repetition-major. Projections keep their stored layouts,
+    (D, H, dh) for q/k/v and (H, dh, D) for o."""
+    dev = resolve_device(device)
+    to_t = lambda a: _lm_tensor(a, dev)
+    segments = []
+    for seg, seg_p in zip(lm_mod.build_schedule(cfg), params["segments"]):
+        layers = []
+        for rep in range(seg.count):
+            for bpos in range(len(seg.body)):
+                layers.append(_map_tree(seg_p[bpos],
+                                        lambda a: to_t(np.asarray(a)[rep])))
+        segments.append(layers)
+    head = _map_tree(params["head"], to_t) if "head" in params else None
+    return lm_mod.LM(cfg, _map_tree(params["embed"], to_t), segments,
+                     _map_tree(params.get("final_norm", {}), to_t), head)
+
+
+def lm_cache_from_jax(cache: Mapping, device="cuda") -> Dict[str, Any]:
+    """A port cache from the JAX package's cache tree (numpy leaves)."""
+    dev = resolve_device(device)
+    return {"pos": int(np.asarray(cache["pos"])),
+            "segments": [[_map_tree(c, lambda a: _lm_tensor(a, dev))
+                          for c in seg] for seg in cache["segments"]]}
+
+
+def lm_cache_to_numpy(cache: Mapping) -> Dict[str, Any]:
+    """The port's cache as the reference's tree: ``pos`` an int32 scalar,
+    k/v stacked (count, B, max_len, Hkv, dh) numpy arrays (bfloat16 ones
+    widened to float32)."""
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return {"pos": np.int32(cache["pos"]),
+            "segments": [[_map_tree(c, leaf) for c in seg]
+                         for seg in cache["segments"]]}

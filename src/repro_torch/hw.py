@@ -24,10 +24,16 @@ L2_BYTES = 50 * 2**20          # L2 cache
 NUM_SMS = 132
 SMEM_PER_BLOCK_MAX = 232_448   # bytes (227 KB), dynamic shared memory only
 # Peak of the CUDA cores outside the tensor cores: 67 TFLOP/s fp32. The
-# port's kernels do 32-bit integer ALU work (hash mixing, ARX rounds, DFA
-# stepping); it is counted against this rate, which no integer pipe of the
-# card exceeds, so a bound from it is a true lower bound on time.
+# port's NIC kernels do 32-bit integer ALU work (hash mixing, ARX rounds,
+# DFA stepping); it is counted against this rate, which no integer pipe of
+# the card exceeds, so a bound from it is a true lower bound on time. f32
+# floating-point work is counted against it too: exact f32 products do not
+# run on the tensor cores.
 PEAK_ALU_OPS = 67e12
+# Dense tensor-core peaks: bf16 (and fp16) operands, and TF32 (f32 operands
+# rounded to a 10-bit mantissa; the port's f32 math never does that).
+PEAK_BF16_TENSOR_FLOPS = 989e12
+PEAK_TF32_TENSOR_FLOPS = 495e12
 
 # --- Meili paper cluster calibration (§8 methodology, Figs 2/9/15) -----------
 NIC_LINK_GBPS = 100.0
@@ -55,12 +61,23 @@ def device_spec(index: int = 0) -> DeviceSpec:
                       mem_bytes=HBM_BYTES, l2_bytes=L2_BYTES)
 
 
-def bound_seconds(nbytes: float, ops: float = 0.0) -> tuple:
+def peak_flops(*dtypes: torch.dtype) -> float:
+    """The peak that holds for a product of operands of these dtypes: the
+    bf16 tensor-core rate when every operand is bfloat16 or float16, else
+    the f32 rate of the CUDA cores (an f32 operand keeps the math in f32)."""
+    if dtypes and all(d in (torch.bfloat16, torch.float16) for d in dtypes):
+        return PEAK_BF16_TENSOR_FLOPS
+    return PEAK_ALU_OPS
+
+
+def bound_seconds(nbytes: float, ops: float = 0.0,
+                  peak: float = PEAK_ALU_OPS) -> tuple:
     """Least time for a function on the H100: the larger of its bytes over
-    HBM bandwidth and its operations over the peak rate. Returns
-    ``(seconds, "bytes" | "operations")``."""
+    HBM bandwidth and its operations over ``peak`` (default the 32-bit ALU
+    rate; ``peak_flops`` gives the rate for floating-point operands).
+    Returns ``(seconds, "bytes" | "operations")``."""
     t_bytes = nbytes / HBM_BW
-    t_ops = ops / PEAK_ALU_OPS
+    t_ops = ops / peak
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

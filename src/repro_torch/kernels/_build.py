@@ -1,8 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by one ``nvcc`` call
-into one shared library with a plain C interface, loaded with ``ctypes``.
-The build runs at
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, never at import, into ``build/kernels/<hash>/`` under the
 checkout, where ``<hash>`` covers the sources and the flags, so an edited
 source rebuilds and an unchanged one is loaded as it is. A missing ``nvcc``
@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # C launcher -> argument types; every launcher returns a cudaError_t code.
 SIGNATURES = {
     "meili_flow_lookup": [_P, _P, _P, _P, _I64, _P, _P, _I64, _I32, _I32,
@@ -42,6 +43,10 @@ SIGNATURES = {
     "meili_dfa_regex": [_P, _I64, _I64, _P, _P, _P, _I32, _P, _P],
     "meili_arx_cipher": [_P, _I64, _I64, _P, _P, _P],
     "meili_keyed_hash": [_P, _I64, _I64, _P, _P, _P],
+    "meili_flash_attention": [_P, _P, _P, _P] + [_I32] * 8 + [_F32]
+                             + [_I32] * 3 + [_P],
+    "meili_decode_attention": [_P] * 7 + [_I32] * 7 + [_F32] + [_I32] * 3
+                              + [_P],
 }
 # Kernel name (as counted and reported) -> C launcher.
 KERNELS = {
@@ -49,6 +54,8 @@ KERNELS = {
     "dfa_regex": "meili_dfa_regex",
     "arx_cipher": "meili_arx_cipher",
     "keyed_hash": "meili_keyed_hash",
+    "flash_attention": "meili_flash_attention",
+    "decode_attention": "meili_decode_attention",
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -82,9 +89,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds: List[List[str]]) -> List[str]:
+    """Run the commands concurrently; their combined output in order.
+    Raises, naming the command, if any fails (after all have ended)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(c)}\n{o}")
+    return outs
+
+
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library with one nvcc call;
-    returns its path. A no-op when it already exists."""
+    """Compile each ``csrc/*.cu`` with its own nvcc process, all at once,
+    and link the objects into the shared library; returns its path. A no-op
+    when it already exists."""
     out = library_path()
     if out.exists():
         return out
@@ -92,14 +113,13 @@ def build() -> Path:
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / LIB_NAME),
-             *map(str, sources())],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}")
+        objs = [tmp / (src.stem + ".o") for src in sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources(), objs)])
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o",
+                          str(tmp / LIB_NAME), *map(str, objs)]])
         out.parent.mkdir(parents=True, exist_ok=True)
-        (out.parent / "build.log").write_text(proc.stdout)
+        (out.parent / "build.log").write_text("".join(log))
         os.replace(tmp / LIB_NAME, out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

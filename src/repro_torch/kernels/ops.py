@@ -1,4 +1,5 @@
-"""Public NIC-kernel API with backend dispatch.
+"""Public kernel API with backend dispatch: the NIC ops of the data plane
+and the attention ops of the LM stack.
 
 Two implementations per op:
   * the hand-written CUDA kernel — taken for tensors on a CUDA device;
@@ -12,8 +13,12 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.kernels import crypto as _crypto
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dfa_regex as _dfa
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 
 build_aho_corasick = _ref.build_aho_corasick
@@ -46,3 +51,40 @@ def digest(words, key, *, impl: Optional[str] = None):
     if impl == "torch":
         return _crypto.keyed_hash_torch(words, key)
     return _crypto.keyed_hash(words, key)
+
+
+# ---------------------------------------------------------------------------
+# Attention (prefill) and decode attention (one token vs a KV cache).
+# ---------------------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              scale: Optional[float] = None, impl: Optional[str] = None,
+              block_k: int = 256) -> torch.Tensor:
+    """Flash attention. q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D).
+    ``block_k`` is the plain version's key block."""
+    _check_impl(impl)
+    scale_v = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if impl == "torch" or not q.is_cuda:
+        return _fa.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window, scale=scale_v,
+                                         block_k=block_k)
+    return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal=causal,
+                                    window=window, scale=scale_v)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, *, scale: Optional[float] = None,
+                     impl: Optional[str] = None,
+                     block_k: int = 512) -> torch.Tensor:
+    """q: (B, Hq, D); k, v: (B, S, Hkv, D); kv_len: (B,) int32.
+    ``block_k`` is the plain version's key block."""
+    _check_impl(impl)
+    scale_v = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    if impl == "torch" or not q.is_cuda:
+        return _da.decode_attention_torch(q, k, v, kv_len, scale=scale_v,
+                                          block_k=block_k)
+    return _da.decode_attention_cuda(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), kv_len.contiguous(),
+                                     scale=scale_v)

@@ -1,0 +1,105 @@
+"""GQA attention layer: init, full-sequence apply (prefill, with cache
+emission) and single-token decode apply. The flash and decode kernels are
+reached through ``kernels/ops.py``.
+
+Parameters keep the reference's layout: q/k/v projections stored as
+(D, H, dh) and the output projection as (H, dh, D), so heads stay a
+separate dimension.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, dense_init
+
+Tree = dict
+
+
+def attn_init(gen: torch.Generator, cfg, dtype, device) -> Tree:
+    H, Hkv, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    p = {}
+    for name, h in (("q", H), ("k", Hkv), ("v", Hkv)):
+        pp = dense_init(gen, D, h * dh, dtype, device, bias=cfg.qkv_bias)
+        pp["w"] = pp["w"].reshape(D, h, dh)
+        if cfg.qkv_bias:
+            pp["b"] = pp["b"].reshape(h, dh)
+        p[name] = pp
+    po = dense_init(gen, H * dh, D, dtype, device)
+    po["w"] = po["w"].reshape(H, dh, D)
+    p["o"] = po
+    return p
+
+
+def _proj(p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    y = torch.einsum("bsd,dhe->bshe", x, p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def attn_apply(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor,
+               causal: bool = True, window: Optional[int] = None,
+               impl: Optional[str] = None, return_kv: bool = False):
+    """Full-sequence self-attention. x: (B, S, D); positions: (B, S)."""
+    q = apply_rope(_proj(p["q"], x), positions, cfg.rope_theta)
+    k = apply_rope(_proj(p["k"], x), positions, cfg.rope_theta)
+    v = _proj(p["v"], x)
+    out = ops.attention(q, k, v, causal=causal, window=window, impl=impl)
+    y = torch.einsum("bshe,hed->bsd", out, p["o"]["w"])
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attn_decode(p: Mapping, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
+                cache_v: torch.Tensor, pos: int,
+                window: Optional[int] = None, impl: Optional[str] = None
+                ) -> torch.Tensor:
+    """One-token decode. x: (B, D); cache_k/v: (B, S, Hkv, dh), written in
+    place at ``pos`` (the tokens so far). As ``dynamic_update_slice`` does
+    in the reference, the write is clamped to S - 1 when ``pos >= S``,
+    while the valid length stays ``pos + 1``. Returns y (B, D)."""
+    B = x.shape[0]
+    S = cache_k.shape[1]
+    q = torch.einsum("bd,dhe->bhe", x, p["q"]["w"])
+    k_new = torch.einsum("bd,dhe->bhe", x, p["k"]["w"])
+    v_new = torch.einsum("bd,dhe->bhe", x, p["v"]["w"])
+    if "b" in p["q"]:
+        q = q + p["q"]["b"]
+        k_new = k_new + p["k"]["b"]
+        v_new = v_new + p["v"]["b"]
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
+    k_new = apply_rope(k_new[:, None], posv, cfg.rope_theta)[:, 0]
+    at = min(pos, S - 1)
+    cache_k[:, at] = k_new.to(cache_k.dtype)
+    cache_v[:, at] = v_new.to(cache_v.dtype)
+    kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    if window is not None:
+        lo = torch.clamp(kv_len - window, min=0)
+        out = _window_decode(q, cache_k, cache_v, lo, kv_len)
+    else:
+        out = ops.decode_attention(q, cache_k, cache_v, kv_len, impl=impl)
+    return torch.einsum("bhe,hed->bd", out, p["o"]["w"])
+
+
+def _window_decode(q: torch.Tensor, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor, lo: torch.Tensor,
+                   kv_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention over [lo, kv_len): a masked softmax over the whole
+    cache in plain PyTorch, as the reference computes it outside any
+    kernel (O(S) memory — decode is cheap)."""
+    B, S, Hkv, dh = cache_k.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    s = torch.arange(S, device=q.device)[None, :]
+    valid = (s >= lo[:, None]) & (s < kv_len[:, None])
+    qf = q.float().reshape(B, Hkv, G, dh) * dh ** -0.5
+    logits = torch.einsum("bhgd,bshd->bhgs", qf, cache_k.float())
+    logits = torch.where(valid[:, None, None], logits, -1e30)
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", pr, cache_v.float())
+    return out.reshape(B, Hq, dh).to(q.dtype)

@@ -1,0 +1,140 @@
+"""Shared model layers: initializers, norms, RoPE, MLP, embedding.
+
+Plain functions on tensors, as in the JAX package's ``models/layers.py``.
+Parameters are dictionaries keyed as the reference's trees (``{"w", "b"}``
+for a dense layer, ``{"scale"}`` for RMSNorm, ``{"gate", "up", "down"}`` for
+the MLP), so the functions take a plain ``dict`` as well as the
+``nn.ModuleDict``/``nn.ParameterDict`` the modules hold. The init functions
+draw the reference's distributions from an explicit ``torch.Generator``;
+they build plain dictionaries of tensors, which ``to_module`` turns into
+parameters.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tree = Dict
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype,
+            device) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
+               device, bias: bool = False, scale: Optional[float] = None
+               ) -> Tree:
+    s = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    p = {"w": _normal(gen, (in_dim, out_dim), s, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((out_dim,), dtype=dtype, device=device)
+    return p
+
+
+def dense(p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def rmsnorm_init(dim: int, dtype, device) -> Tree:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Optional[Mapping], x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if p is not None:
+        y = y * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def layernorm_nonparam(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: no scale, no bias."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def make_norm(cfg):
+    """(init(dtype, device) -> params, apply(params, x)) for the arch's norm:
+    parametric RMSNorm, or OLMo's non-parametric LayerNorm."""
+    if cfg.nonparam_ln:
+        return (lambda dtype, device: {}), (
+            lambda p, x: layernorm_nonparam(x, cfg.norm_eps))
+    return (lambda dtype, device: rmsnorm_init(cfg.d_model, dtype, device)), (
+        lambda p, x: rmsnorm(p, x, cfg.norm_eps))
+
+
+# -- RoPE ---------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (..., S). f32 math, cast back."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (D/2,)
+    ang = positions[..., None].float() * freqs                # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]                        # (..., S, 1, D/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- SwiGLU MLP ----------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+             device) -> Tree:
+    return {"gate": dense_init(gen, d_model, d_ff, dtype, device),
+            "up": dense_init(gen, d_model, d_ff, dtype, device),
+            "down": dense_init(gen, d_ff, d_model, dtype, device)}
+
+
+def mlp(p: Mapping, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(dense(p["gate"], x)) * dense(p["up"], x)
+    return dense(p["down"], h)
+
+
+# -- Embedding -------------------------------------------------------------------
+
+def pad_vocab(vocab: int, multiple: int = 256) -> int:
+    """Embedding tables are padded to a multiple of 256 rows, as in the
+    reference; pad logits are masked to NEG_INF by ``lm.vocab_bias``."""
+    return ((vocab + multiple - 1) // multiple) * multiple
+
+
+def embed_init(gen: torch.Generator, vocab: int, d_model: int, dtype,
+               device) -> Tree:
+    vp = pad_vocab(vocab)
+    return {"table": _normal(gen, (vp, d_model), 1.0 / math.sqrt(d_model),
+                             dtype, device)}
+
+
+def embed(p: Mapping, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+# -- Parameter trees as modules ------------------------------------------------------
+
+def to_module(tree: Mapping) -> nn.Module:
+    """A nested dict of tensors as nested ``ModuleDict``/``ParameterDict``:
+    a dict whose values are all tensors becomes a ``ParameterDict``, any
+    other dict a ``ModuleDict``. Keys and nesting are kept, so the functions
+    above index the module as they index the dict."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in tree.items()})
+    return nn.ModuleDict({k: to_module(v) for k, v in tree.items()})

@@ -1,0 +1,307 @@
+"""Decoder LM over a *layer schedule*, dense family.
+
+A schedule is a list of Segments; each Segment has a ``body`` (an ordered
+tuple of LayerSpec — mixer x ffn kinds) repeated ``count`` times. The
+reference scans each segment over stacked parameters; here the layers are
+``DecoderLayer`` modules held in one ``nn.ModuleList`` per segment, in the
+order the scan visits them: repetition, then body position. gemma3's 5:1
+local:global pattern is a 6-layer body x4 plus a 2-layer tail.
+
+Each Segment is a Meili pipeline *stage* with its own profiled latency
+(``serving/planner.py``). The KV cache keeps the reference's layout — per
+segment, per body position, ``{"k", "v"}`` stacked over the repetitions,
+(count, B, max_len, Hkv, dh) — and ``decode_step`` updates it in place;
+``cache["pos"]`` is a Python int shared by every row, as the reference's
+scalar is.
+
+The mamba and MoE mixers wait for later slices and raise
+``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.hw import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (dense_init, embed, embed_init,
+                                       make_norm, mlp, mlp_init, pad_vocab,
+                                       to_module)
+
+Tree = Dict
+
+_PENDING = {"mamba": "ROADMAP A18 (models/ssm.py and the ssd_scan kernel)",
+            "moe": "ROADMAP A20 (models/moe.py)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    mixer: str          # "attn" | "attn_local" | "mamba"
+    ffn: str            # "mlp" | "moe" | "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    body: Tuple[LayerSpec, ...]
+    count: int
+
+
+def build_schedule(cfg) -> List[Segment]:
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return [Segment((LayerSpec("mamba", "none"),), L)]
+    if cfg.family == "hybrid":
+        period, body = cfg.attn_period, []
+        for i in range(period):
+            mixer = "attn" if i == period // 2 else "mamba"
+            ffn = "moe" if (i % cfg.moe_period == 1) else "mlp"
+            body.append(LayerSpec(mixer, ffn))
+        assert L % period == 0, (L, period)
+        return [Segment(tuple(body), L // period)]
+    if cfg.family == "moe":
+        segs = []
+        if cfg.first_dense:
+            segs.append(Segment((LayerSpec("attn", "mlp"),), cfg.first_dense))
+        segs.append(Segment((LayerSpec("attn", "moe"),), L - cfg.first_dense))
+        return segs
+    # dense / vlm
+    if cfg.local_global_period:
+        per = cfg.local_global_period
+        body = tuple([LayerSpec("attn_local", "mlp")] * (per - 1)
+                     + [LayerSpec("attn", "mlp")])
+        segs = [Segment(body, L // per)]
+        if L % per:
+            segs.append(Segment((LayerSpec("attn_local", "mlp"),), L % per))
+        return segs
+    return [Segment((LayerSpec("attn", "mlp"),), L)]
+
+
+def _require_ported(spec: LayerSpec) -> None:
+    for kind in (spec.mixer, spec.ffn):
+        if kind in _PENDING:
+            raise NotImplementedError(
+                f"{kind} layers are not ported yet: {_PENDING[kind]}")
+
+
+# ---------------------------------------------------------------------------
+# Modules + init
+# ---------------------------------------------------------------------------
+
+class DecoderLayer(nn.Module):
+    """One pre-norm decoder layer: norm1 -> attention -> residual, then
+    norm2 -> MLP -> residual. Parameters are nested dicts keyed as the
+    reference's layer tree (``norm1``, ``attn``, ``norm2``, ``mlp``)."""
+
+    def __init__(self, cfg, spec: LayerSpec, params: Mapping):
+        super().__init__()
+        _require_ported(spec)
+        self.spec = spec
+        self.norm1 = to_module(params["norm1"])
+        self.attn = to_module(params["attn"])
+        self.norm2 = to_module(params["norm2"])
+        self.mlp = to_module(params["mlp"])
+
+
+def layer_init(gen: torch.Generator, cfg, spec: LayerSpec, dtype,
+               device) -> Tree:
+    _require_ported(spec)
+    norm_init, _ = make_norm(cfg)
+    return {"norm1": norm_init(dtype, device),
+            "attn": attn_mod.attn_init(gen, cfg, dtype, device),
+            "norm2": norm_init(dtype, device),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)}
+
+
+class LM(nn.Module):
+    """Embedding, the schedule's layers, final norm (and an untied head).
+    ``segments[i]`` lists segment i's layers repetition-major."""
+
+    def __init__(self, cfg, embed: Mapping, segments: List[List[Mapping]],
+                 final_norm: Mapping, head: Optional[Mapping] = None):
+        super().__init__()
+        self.cfg = cfg
+        schedule = build_schedule(cfg)
+        self.embed = to_module(embed)
+        self.head = to_module(head) if head is not None else None
+        self.segments = nn.ModuleList()
+        for seg, seg_ps in zip(schedule, segments):
+            specs = [seg.body[i % len(seg.body)]
+                     for i in range(seg.count * len(seg.body))]
+            self.segments.append(nn.ModuleList(
+                DecoderLayer(cfg, spec, p) for spec, p in zip(specs, seg_ps)))
+        self.final_norm = to_module(final_norm)
+
+    def layers(self, seg: int, rep: int) -> List[DecoderLayer]:
+        """Segment ``seg``'s layers of repetition ``rep``, in body order."""
+        n = len(build_schedule(self.cfg)[seg].body)
+        return list(self.segments[seg][rep * n:(rep + 1) * n])
+
+    def all_layers(self) -> Iterator[Tuple[int, int, int, DecoderLayer]]:
+        """(segment, repetition, body position, layer) in scan order."""
+        for si, seg in enumerate(build_schedule(self.cfg)):
+            for rep in range(seg.count):
+                for bpos, layer in enumerate(self.layers(si, rep)):
+                    yield si, rep, bpos, layer
+
+
+def init_lm(cfg, generator: Optional[torch.Generator] = None,
+            dtype=torch.bfloat16, device="cuda") -> LM:
+    """Parameters drawn as the reference draws them (normal, 1/sqrt(fan-in)
+    scale; norms at 1) from ``generator`` (a fresh one seeded 0 on the
+    device when None)."""
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    table = embed_init(gen, cfg.vocab, cfg.d_model, dtype, dev)
+    head = None
+    if not cfg.tie_embeddings:
+        head = dense_init(gen, cfg.d_model, pad_vocab(cfg.vocab), dtype, dev)
+    segments = []
+    for seg in build_schedule(cfg):
+        segments.append([layer_init(gen, cfg, seg.body[i % len(seg.body)],
+                                    dtype, dev)
+                         for i in range(seg.count * len(seg.body))])
+    norm_init, _ = make_norm(cfg)
+    return LM(cfg, table, segments, norm_init(dtype, dev), head)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _apply_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
+                 positions: torch.Tensor, impl: Optional[str],
+                 collect_kv: bool = False):
+    _, norm_apply = make_norm(cfg)
+    spec = layer.spec
+    h = norm_apply(layer.norm1, x)
+    window = cfg.window if spec.mixer == "attn_local" else None
+    out = attn_mod.attn_apply(layer.attn, h, cfg, positions=positions,
+                              causal=True, window=window, impl=impl,
+                              return_kv=collect_kv)
+    y, kv = out if collect_kv else (out, None)
+    x = x + y
+    h = norm_apply(layer.norm2, x)
+    x = x + mlp(layer.mlp, h)
+    return x, kv
+
+
+def _embed_inputs(params: LM, tokens: Optional[torch.Tensor],
+                  extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    parts = []
+    if extra_embeds is not None:
+        parts.append(extra_embeds)
+    if tokens is not None:
+        parts.append(embed(params.embed, tokens))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([parts[0].to(parts[1].dtype), parts[1]], dim=1)
+
+
+@torch.no_grad()
+def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
+            extra_embeds: Optional[torch.Tensor] = None,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """Returns final hidden states (B, S, D)."""
+    x = _embed_inputs(params, tokens, extra_embeds)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    for _, _, _, layer in params.all_layers():
+        x, _ = _apply_layer(cfg, layer, x, positions, impl)
+    _, norm_apply = make_norm(cfg)
+    return norm_apply(params.final_norm, x)
+
+
+def vocab_bias(cfg, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(pad_vocab,) additive mask: 0 for real tokens, NEG_INF for padding."""
+    vp = pad_vocab(cfg.vocab)
+    ids = torch.arange(vp, device=device)
+    return torch.where(ids < cfg.vocab, 0.0, -1e30).to(dtype)
+
+
+def logits(cfg, params: LM, x: torch.Tensor) -> torch.Tensor:
+    w = params.embed["table"].T if cfg.tie_embeddings else params.head["w"]
+    return (x @ w).float() + vocab_bias(cfg, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Decode + cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cuda") -> Tree:
+    """Stacked per-segment caches, zeros, ``pos`` 0."""
+    dev = resolve_device(device)
+    cache: Tree = {"pos": 0, "segments": []}
+    for seg in build_schedule(cfg):
+        seg_c = []
+        for spec in seg.body:
+            _require_ported(spec)
+            kshape = (seg.count, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            seg_c.append({"k": torch.zeros(kshape, dtype=dtype, device=dev),
+                          "v": torch.zeros(kshape, dtype=dtype, device=dev)})
+        cache["segments"].append(seg_c)
+    return cache
+
+
+def decode_layer(cfg, layer: DecoderLayer, h: torch.Tensor,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                 impl: Optional[str]) -> torch.Tensor:
+    """One layer of one decode step; cache_k/v (B, S, Hkv, dh) are
+    written in place."""
+    _, norm_apply = make_norm(cfg)
+    hn = norm_apply(layer.norm1, h)
+    window = cfg.window if layer.spec.mixer == "attn_local" else None
+    h = h + attn_mod.attn_decode(layer.attn, hn, cfg, cache_k=cache_k,
+                                 cache_v=cache_v, pos=pos, window=window,
+                                 impl=impl)
+    hn = norm_apply(layer.norm2, h)
+    return h + mlp(layer.mlp, hn)
+
+
+@torch.no_grad()
+def decode_step(cfg, params: LM, cache: Tree, tokens: torch.Tensor,
+                impl: Optional[str] = None) -> Tuple[torch.Tensor, Tree]:
+    """One decode step. tokens: (B,) int. Writes the new keys and values
+    into ``cache`` in place, advances ``cache["pos"]`` and returns
+    (logits (B, V), cache)."""
+    _, norm_apply = make_norm(cfg)
+    x = embed(params.embed, tokens)                          # (B, D)
+    pos = int(cache["pos"])
+    for si, rep, bpos, layer in params.all_layers():
+        c = cache["segments"][si][bpos]
+        x = decode_layer(cfg, layer, x, c["k"][rep], c["v"][rep], pos, impl)
+    cache["pos"] = pos + 1
+    x = norm_apply(params.final_norm, x)
+    return logits(cfg, params, x), cache
+
+
+@torch.no_grad()
+def prefill(cfg, params: LM, tokens: Optional[torch.Tensor],
+            extra_embeds: Optional[torch.Tensor] = None, max_len: int = 0,
+            impl: Optional[str] = None, cache_dtype=torch.bfloat16):
+    """Full-sequence forward that also fills a decode cache of ``max_len``
+    positions (default S) in ``cache_dtype``. Returns (last-position logits
+    (B, V), cache)."""
+    x = _embed_inputs(params, tokens, extra_embeds)
+    B, S, _ = x.shape
+    max_len = max_len or S
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    cache = init_cache(cfg, B, max_len, cache_dtype, x.device)
+    cache["pos"] = S
+    for si, rep, bpos, layer in params.all_layers():
+        x, (k, v) = _apply_layer(cfg, layer, x, positions, impl,
+                                 collect_kv=True)
+        c = cache["segments"][si][bpos]
+        c["k"][rep, :, :S] = k.to(cache_dtype)
+        c["v"][rep, :, :S] = v.to(cache_dtype)
+    _, norm_apply = make_norm(cfg)
+    x = norm_apply(params.final_norm, x)
+    return logits(cfg, params, x[:, -1]), cache

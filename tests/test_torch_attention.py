@@ -1,0 +1,235 @@
+"""Port attention (flash B5, decode B6) held against the JAX package.
+
+The same seeded numpy inputs go through the JAX Pallas kernels in interpret
+mode (``ops.attention(impl="interpret")``, ``ops.decode_attention(
+impl="interpret")``), the JAX oracles (``ref.mha_ref``, ``ref.decode_ref``)
+and the port's plain PyTorch versions — the CUDA kernels' oracles on the
+card (``test_torch_cuda_kernels.py``). Tolerances, from the arithmetic:
+
+* float32 outputs: atol = rtol = 1e-5. Both sides do f32 math with sums in
+  another order (blocked vs whole-row softmax, other einsum orders); over
+  at most 256-term dots of O(1) values that moves the last few f32 bits.
+* bfloat16 outputs: atol = 2**-8, rtol = 2**-6, about two bf16 ulps (a
+  bf16 ulp is 2**-8 to 2**-7 of the value): both sides compute in f32 and
+  round once; f32 differences can flip that rounding by one ulp.
+
+Inputs in bf16 are rounded from the same f32 numpy arrays on both sides
+(round to nearest even in both), so both packages see identical values.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch import hw
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -6)
+
+DTYPES = {"f32": (torch.float32, torch.float32),
+          "bf16": (torch.bfloat16, torch.bfloat16),
+          "f32q_bf16kv": (torch.float32, torch.bfloat16)}
+
+
+def _jdt(dt):
+    return jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32
+
+
+def _pair(x: np.ndarray, dt):
+    """The same values as a JAX array and a torch tensor of dtype ``dt``."""
+    return jnp.asarray(x, _jdt(dt)), torch.from_numpy(x).to(dt)
+
+
+def _np(t):
+    return np.asarray(t, np.float32) if not isinstance(t, torch.Tensor) \
+        else t.float().numpy()
+
+
+def _tol(dt):
+    return BF16_TOL if dt == torch.bfloat16 else F32_TOL
+
+
+# -- B5: flash attention -------------------------------------------------------
+
+FLASH_CASES = [
+    # (Hq, Hkv, D, Sq, Sk, window)
+    (4, 4, 16, 32, 32, None),      # MHA
+    (4, 4, 64, 32, 64, 16),
+    (4, 2, 64, 64, 64, None),      # GQA
+    (4, 2, 16, 32, 128, 40),
+    (4, 1, 256, 64, 64, 24),       # MQA, gemma's head dim
+    (4, 1, 256, 32, 96, None),
+    (4, 1, 64, 128, 128, 48),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("Hq,Hkv,D,Sq,Sk,window", FLASH_CASES)
+def test_flash_plain_equals_pallas_and_reference(Hq, Hkv, D, Sq, Sk, window,
+                                                 dtype):
+    q_dt, kv_dt = DTYPES[dtype]
+    rng = np.random.default_rng(Hq * 1000 + Hkv * 100 + D + Sq + Sk)
+    B = 2
+    q = rng.standard_normal((B, Sq, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, Sk, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, Sk, Hkv, D)).astype(np.float32)
+    jq, tq = _pair(q, q_dt)
+    jk, tk = _pair(k, kv_dt)
+    jv, tv = _pair(v, kv_dt)
+    got = ops.attention(tq, tk, tv, causal=True, window=window, block_k=32)
+    assert got.dtype == q_dt and got.shape == (B, Sq, Hq, D)
+    pallas = jops.attention(jq, jk, jv, causal=True, window=window,
+                            impl="interpret")
+    oracle = jref.mha_ref(jq, jk, jv, causal=True, window=window)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(q_dt))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(q_dt))
+    # the port's own naive oracle agrees with the reference's
+    np.testing.assert_allclose(
+        _np(ref.mha_ref(tq, tk, tv, causal=True, window=window)),
+        _np(oracle), **_tol(q_dt))
+
+
+def test_flash_rows_without_keys_output_zero():
+    """Sq > Sk: the first Sq - Sk query rows sit before every key, so no
+    key is valid. Pallas and the plain version give 0 there (the naive
+    oracle gives NaN); the other rows still match the oracle."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((1, 64, 2, 16)).astype(np.float32)
+    k = rng.standard_normal((1, 32, 1, 16)).astype(np.float32)
+    v = rng.standard_normal((1, 32, 1, 16)).astype(np.float32)
+    got = _np(ops.attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                            causal=True))
+    pallas = _np(jops.attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True,
+                                impl="interpret"))
+    np.testing.assert_allclose(got, pallas, **F32_TOL)
+    assert np.all(got[:, :32] == 0.0)
+    np.testing.assert_allclose(
+        got[:, 32:], _np(jref.mha_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                      causal=True))[:, 32:], **F32_TOL)
+
+
+@pytest.mark.parametrize("block_k", [16, 48, 256])
+def test_flash_plain_block_size_does_not_change_result(block_k):
+    """Ragged last block (Sk = 80 is no multiple of 48) and tiles skipped
+    outside the window band give the same result as one block."""
+    rng = np.random.default_rng(block_k)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 80, 2, 16))
+                                .astype(np.float32)) for _ in range(3))
+    want = fa.flash_attention_torch(q, k, v, window=20, block_k=80)
+    got = fa.flash_attention_torch(q, k, v, window=20, block_k=block_k)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
+
+
+def test_key_range_and_work_count_the_band():
+    # causal + window 4 over 8 rows: row i sees min(i + 1, 4) keys
+    assert fa.key_range(0, 8, 8, 8, True, 4) == (0, 8)
+    assert fa.key_range(6, 8, 8, 8, True, 4) == (3, 8)
+    assert fa.key_range(0, 2, 8, 8, True, None) == (0, 2)
+    assert fa.work((1, 8, 1, 16), (1, 8, 1, 16), True, 4) == \
+        1 + 2 + 3 + 4 * 5
+    assert fa.work((2, 8, 3, 16), (2, 8, 1, 16), True, None) == 2 * 3 * 36
+    assert fa.work((1, 4, 1, 16), (1, 8, 1, 16), False, None) == 32
+
+
+# -- B6: decode attention ------------------------------------------------------
+
+DECODE_CASES = [
+    # (Hq, Hkv, D, S, block_k)
+    (4, 4, 16, 64, 32),      # MHA
+    (4, 2, 64, 64, 16),      # GQA
+    (4, 1, 256, 128, 64),    # MQA, gemma's head dim
+    (8, 1, 64, 96, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("Hq,Hkv,D,S,block_k", DECODE_CASES)
+def test_decode_plain_equals_pallas_and_reference(Hq, Hkv, D, S, block_k,
+                                                  dtype):
+    q_dt, kv_dt = DTYPES[dtype]
+    rng = np.random.default_rng(Hq * 100 + Hkv * 10 + D + S)
+    kv_len = np.array([1, S // 2 + 1, S], np.int32)    # 1, mid, S
+    B = kv_len.size
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    jq, tq = _pair(q, q_dt)
+    jk, tk = _pair(k, kv_dt)
+    jv, tv = _pair(v, kv_dt)
+    got = ops.decode_attention(tq, tk, tv, torch.from_numpy(kv_len),
+                               block_k=block_k)
+    assert got.dtype == q_dt and got.shape == (B, Hq, D)
+    pallas = jops.decode_attention(jq, jk, jv, jnp.asarray(kv_len),
+                                   impl="interpret", block_k=block_k)
+    oracle = jref.decode_ref(jq, jk, jv, jnp.asarray(kv_len))
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(q_dt))
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(q_dt))
+    np.testing.assert_allclose(
+        _np(ref.decode_ref(tq, tk, tv, torch.from_numpy(kv_len))),
+        _np(oracle), **_tol(q_dt))
+
+
+def test_decode_kv_len_past_cache_reads_whole_cache():
+    """kv_len > S (the reference's clamped write at pos >= S) keeps every
+    cache position, as the reference's ``arange(S) < kv_len`` does."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 2, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 32, 1, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 32, 1, 16)).astype(np.float32)
+    kv_len = np.array([40, 32], np.int32)
+    got = ops.decode_attention(*(torch.from_numpy(a) for a in (q, k, v,
+                                                               kv_len)))
+    want = jref.decode_ref(*(jnp.asarray(a) for a in (q, k, v, kv_len)))
+    np.testing.assert_allclose(got.numpy(), _np(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("S,nsplit,chunk", [(64, 1, 64), (1536, 24, 64),
+                                            (1537, 25, 64), (4096, 32, 128),
+                                            (32768, 32, 1024)])
+def test_decode_splits_cover_the_cache(S, nsplit, chunk):
+    assert da.splits(S) == (nsplit, chunk)
+    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+
+
+def test_impl_must_be_known():
+    x = torch.zeros((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.attention(x, x, x, impl="blocked")
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.decode_attention(x[:, 0], x, x, torch.ones(1, dtype=torch.int32),
+                             impl="pallas")
+
+
+# -- bounds ---------------------------------------------------------------------
+
+def test_peak_flops_follows_operand_dtype():
+    assert hw.peak_flops(torch.bfloat16, torch.bfloat16) == 989e12
+    assert hw.peak_flops(torch.float32, torch.float32) == 67e12
+    assert hw.peak_flops(torch.float32, torch.bfloat16) == 67e12
+    assert hw.PEAK_TF32_TENSOR_FLOPS == 495e12
+
+
+def test_bound_seconds_takes_the_larger_of_bytes_and_operations():
+    # 3.35 MB at 3.35 TB/s = 1 us; 67 MFLOP at 67 TFLOP/s = 1 us
+    t, by = hw.bound_seconds(3.35e6 * 2, 67e6)
+    assert by == "bytes" and t == pytest.approx(2e-6)
+    t, by = hw.bound_seconds(3.35e6, 67e6 * 3)
+    assert by == "operations" and t == pytest.approx(3e-6)
+    t, by = hw.bound_seconds(3.35e6, 989e6 * 3,
+                             hw.peak_flops(torch.bfloat16))
+    assert by == "operations" and t == pytest.approx(3e-6)
+    # gemma3-1b's windowed prefill layer: B 4, S 1024, 4 heads, D 256,
+    # window 512 -> 4 * 4 * (512 * 513 / 2 + 512 * 512) pairs at 4 * D flops
+    pairs = fa.work((4, 1024, 4, 256), (4, 1024, 1, 256), True, 512)
+    assert pairs == 16 * (512 * 513 // 2 + 512 * 512)
+    t, by = hw.bound_seconds(0, pairs * 4 * 256)
+    assert by == "operations" and t == pytest.approx(
+        pairs * 1024 / 67e12)
+    assert da.work(torch.tensor([5, 40, 0], dtype=torch.int32), 32, 4) == \
+        (5 + 32 + 0) * 4

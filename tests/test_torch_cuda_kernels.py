@@ -5,9 +5,15 @@ These tests need a CUDA device and skip without one (the ``cuda`` fixture
 decides at run time). They import no JAX, so they run where the port runs:
 ``python -m pytest -q tests/test_torch_cuda_kernels.py`` on a machine with
 an H100 and nvcc. The plain versions are pinned to the JAX package by the
-other ``test_torch_*`` files; here every kernel output (integer, bool or
+other ``test_torch_*`` files. Here every NIC kernel output (integer, bool or
 uint32 words) must equal its plain version bit for bit (tolerance 0), and
-the data plane on the card must equal the same data plane on the CPU.
+the data plane on the card must equal the same data plane on the CPU. The
+attention kernels do f32 math in another order than their plain versions
+(f32 matmuls on the card run in full f32: TF32 is switched off here), so
+f32 outputs are held to atol = rtol = 1e-5 and bf16 outputs to two bf16
+ulps (atol 2**-8, rtol 2**-6); a reduced model on the card is held to the
+same model on the CPU at atol = rtol = 1e-4 on its logits (f32 through 4
+layers, see ``test_torch_lm.py``).
 """
 import numpy as np
 import pytest
@@ -15,11 +21,15 @@ import torch
 
 from repro_torch import convert
 from repro_torch.apps import ALL_APPS, synth_packets
+from repro_torch.configs import get_arch
 from repro_torch.core.executor import ParallelDataPlane
 from repro_torch.core.graph import run_pipeline
 from repro_torch.kernels import _build, crypto, dfa_regex
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flow_lookup as fl
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
+from repro_torch.models import build
 
 SNORT = ["attack", "GET /admin", "cmd.exe", "/etc/passwd", "SELECT *"]
 
@@ -29,7 +39,23 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: compares a CUDA kernel with its "
                     "plain version on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -6)
+PAIRINGS = {"f32": (torch.float32, torch.float32),
+            "bf16": (torch.bfloat16, torch.bfloat16),
+            "f32q_bf16kv": (torch.float32, torch.bfloat16)}
+
+
+def _close(got, want, dtype):
+    assert got.dtype == want.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(BF16_TOL if dtype == torch.bfloat16
+                                  else F32_TOL))
 
 
 def _u32(rng, shape):
@@ -150,3 +176,119 @@ def test_dataplane_on_card_equals_cpu(cuda, name):
                     convert.leaves_to_numpy(plain)):
         np.testing.assert_array_equal(x, y)
     assert _build.launch_counts()["flow_lookup"] >= 2   # cache hits after 1
+
+
+# -- attention (B5, B6) ------------------------------------------------------------
+
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+@pytest.mark.parametrize("D,Hq,Hkv,Sq,Sk,window", [
+    (256, 4, 1, 1024, 1024, 512),      # gemma3-1b's local layers
+    (256, 4, 1, 1024, 1024, None),     # gemma3-1b's global layers
+    (128, 4, 4, 200, 330, None),       # MHA, ragged tiles, Sq < Sk
+    (128, 8, 2, 130, 130, 40),         # GQA, window shorter than a tile
+    (64, 2, 1, 64, 32, None),          # Sq > Sk: rows with no key give 0
+])
+def test_flash_kernel_equals_plain(cuda, D, Hq, Hkv, Sq, Sk, window,
+                                   pairing):
+    q_dt, kv_dt = PAIRINGS[pairing]
+    g = torch.Generator(device=cuda).manual_seed(D + Sq + Sk)
+    q = torch.randn((2, Sq, Hq, D), generator=g, device=cuda).to(q_dt)
+    k = torch.randn((2, Sk, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    v = torch.randn((2, Sk, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    before = _build.launch_counts()["flash_attention"]
+    got = ops.attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == before + 1
+    _close(got, fa.flash_attention_torch(q, k, v, causal=True,
+                                         window=window), q_dt)
+    if Sq > Sk:
+        assert not bool(got[:, :Sq - Sk].any())
+
+
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+@pytest.mark.parametrize("D,Hq,Hkv,S,kv_len", [
+    (256, 4, 1, 1536, [1025, 1056, 1, 1536]),   # gemma3-1b after prefill
+    (256, 4, 1, 64, [17, 17, 64, 70]),          # the engine's cache; pos >= S
+    (128, 8, 1, 1000, [0, 999, 500, 1000]),     # ragged S, an empty row
+    (128, 4, 4, 4096, [4096, 3000, 129, 64]),   # MHA, 128-key splits
+])
+def test_decode_kernel_equals_plain(cuda, D, Hq, Hkv, S, kv_len, pairing):
+    q_dt, kv_dt = PAIRINGS[pairing]
+    g = torch.Generator(device=cuda).manual_seed(D + S)
+    B = len(kv_len)
+    q = torch.randn((B, Hq, D), generator=g, device=cuda).to(q_dt)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    before = _build.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["decode_attention"] == before + 1
+    _close(got, da.decode_attention_torch(q, k, v, lens), q_dt)
+    if 0 in kv_len:
+        assert not bool(got[kv_len.index(0)].any())
+
+
+def test_attention_wrappers_reject_bad_input(cuda):
+    x = torch.zeros((1, 64, 4, 128), device=cuda)
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(x.cpu(), x, x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(x.half(), x, x)
+    with pytest.raises(ValueError, match="head dim"):
+        d96 = x[..., :96].contiguous()
+        fa.flash_attention_cuda(d96, d96, d96)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(x.transpose(1, 2), x, x)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_cuda(x, x, x, window=0)
+    q = torch.zeros((1, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_cuda(q, x, x, lens.cpu())
+    with pytest.raises(TypeError, match="kv_len"):
+        da.decode_attention_cuda(q, x, x, lens.long())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        da.decode_attention_cuda(q, x.half(), x, lens)
+    with pytest.raises(ValueError, match="outputs per block"):
+        big = torch.zeros((1, 32, 128), device=cuda)
+        kv1 = torch.zeros((1, 64, 1, 128), device=cuda)
+        da.decode_attention_cuda(big, kv1, kv1, lens)
+    with pytest.raises(ValueError, match="head dim"):
+        d80 = torch.zeros((1, 64, 4, 80), device=cuda)
+        da.decode_attention_cuda(torch.zeros((1, 4, 80), device=cuda), d80,
+                                 d80, lens)
+
+
+@pytest.mark.parametrize("name", ["gemma3-1b", "olmo-1b"])
+def test_reduced_model_on_card_equals_cpu(cuda, name):
+    """Prefill (B5 on every layer) and 8 decode steps (B6 on the global
+    layers) of a reduced model with the kernels' head dim 128, on the card
+    against the same parameters on the CPU."""
+    cfg = get_arch(name).reduced().replace(remat=False, d_head=128)
+    cpu_model, card_model = build(cfg, "cpu"), build(cfg, cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0), torch.float32)
+    card_params = cpu_model.init(torch.Generator().manual_seed(0),
+                                 torch.float32).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(3, 40)))
+    _build.reset_launch_counts()
+    lg_card, c_card = card_model.prefill(card_params,
+                                         {"tokens": toks.to(cuda)},
+                                         max_len=64,
+                                         cache_dtype=torch.float32)
+    lg_cpu, c_cpu = cpu_model.prefill(params, {"tokens": toks}, max_len=64,
+                                      cache_dtype=torch.float32)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    for t in range(8):
+        nxt = toks[:, t]
+        lg_card, c_card = card_model.decode_step(card_params, c_card,
+                                                 nxt.to(cuda))
+        lg_cpu, c_cpu = cpu_model.decode_step(params, c_cpu, nxt)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4,
+                                   rtol=1e-4)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    n_global = sum(1 for *_, layer in card_params.all_layers()
+                   if layer.spec.mixer == "attn")
+    assert counts["decode_attention"] == 8 * n_global

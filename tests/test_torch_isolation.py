@@ -62,19 +62,35 @@ def test_port_imports_with_jax_unimportable():
 
 def test_entry_points_default_to_cuda():
     from repro_torch.apps import ALL_APPS, synth_packets
+    from repro_torch.configs import get_arch
     from repro_torch.core.executor import ParallelDataPlane
     from repro_torch.core.flowcache import FlowCache
     from repro_torch.core.graph import make_packets
+    from repro_torch.models import Model, build
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_arch("gemma3-1b").reduced()
 
     z = np.zeros((2, 5), np.int32)
     calls = [lambda: synth_packets(batch=4, num_flows=2, pkt_bytes=64),
              lambda: make_packets(torch.zeros((2, 8), dtype=torch.uint8),
                                   torch.zeros(2), torch.from_numpy(z)),
              lambda: FlowCache(),
-             lambda: ParallelDataPlane(ALL_APPS()["FW"], num_pipelines=2)]
+             lambda: ParallelDataPlane(ALL_APPS()["FW"], num_pipelines=2),
+             lambda: build(cfg),
+             lambda: init_lm(cfg),
+             lambda: ServingEngine(Model(cfg, torch.device("cuda")), None,
+                                   num_pipelines=1)]
     if torch.cuda.is_available():
         assert synth_packets(batch=4, num_flows=2, pkt_bytes=64).payload.is_cuda
         assert FlowCache().device.type == "cuda"
+        model = build(cfg)
+        assert model.device.type == "cuda"
+        params = model.init(dtype=torch.float32)
+        assert params.embed["table"].is_cuda
+        engine = ServingEngine(model, params, num_pipelines=1)
+        assert engine.pipelines[0].cache["segments"][0][0]["k"].is_cuda
         return
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,0 +1,127 @@
+"""Port LM serving (planner, engine, serve entry point) held against the JAX
+package.
+
+* ``plan_serving`` gives the same replication factors R and pipeline count
+  as the reference for the same latency dict, and the stage names agree.
+* ``ServingEngine.run`` on reduced gemma3-1b, with the reference's ``init``
+  parameters carried across, completes the same requests in the same order
+  with the same tokens. Greedy tokens may differ only where the choice was a
+  near tie: the rule is that a request's tokens agree up to its first
+  difference, and there the port's top-1/top-2 logit margin is under
+  MARGIN_TOL = 2e-4, twice the logit tolerance of ``test_torch_lm.py``
+  (1e-4, from f32 sums in other orders through 4 layers): a larger margin
+  cannot be reordered by that error. After a difference the two runs feed
+  the request different tokens, so its later tokens are not compared.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS
+from repro.models import build as jbuild
+from repro.serving import engine as jengine
+from repro.serving import planner as jplanner
+from repro_torch import convert
+from repro_torch.configs import get_arch
+from repro_torch.launch import serve
+from repro_torch.models import build
+from repro_torch.serving import engine, planner
+
+MARGIN_TOL = 2e-4
+
+
+@pytest.mark.parametrize("name,latencies", [
+    ("gemma3-1b", [2.4e-3, 2.1e-4]),
+    ("gemma3-1b", [1e-3, 1e-3]),
+    ("olmo-1b", [5e-3]),
+])
+def test_plan_serving_equals_reference(name, latencies):
+    jcfg, tcfg = ARCHS[name], get_arch(name)
+    names = planner.segment_stage_names(tcfg)
+    assert names == jplanner.segment_stage_names(jcfg)
+    assert len(names) == len(latencies)
+    lat = dict(zip(names, latencies))
+    got = planner.plan_serving(build(tcfg, "cpu"), lat)
+    want = jplanner.plan_serving(jbuild(jcfg), lat)
+    assert got.R == want.R
+    assert got.num_pipelines == want.num_pipelines
+    assert got.throughput_gain == pytest.approx(want.throughput_gain)
+    assert got.summary() == want.summary()
+
+
+def test_plan_serving_pool_waits_for_allocation():
+    cfg = get_arch("gemma3-1b")
+    lat = dict(zip(planner.segment_stage_names(cfg), [1.0, 0.5]))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        planner.plan_serving(build(cfg, "cpu"), lat, pool=object())
+
+
+def assert_tokens_agree(got, want, margin_tol):
+    """``got``/``want``: requests in completion order. Same ids in the same
+    order; each request's tokens equal up to a first difference, where the
+    port's margin must be under ``margin_tol``. Returns the number of
+    tokens compared."""
+    assert [r.rid for r in got] == [r.rid for r in want]
+    compared = 0
+    for g, w in zip(got, want):
+        assert len(g.out) == len(w.out) == len(g.margins)
+        for i, (a, b) in enumerate(zip(g.out, w.out)):
+            if a != b:
+                assert g.margins[i] < margin_tol, (g.rid, i, g.margins[i])
+                break
+            compared += 1
+    return compared
+
+
+@pytest.mark.parametrize("pipelines,slots,requests", [(1, 8, 16), (3, 4, 10)])
+def test_engine_run_equals_reference(pipelines, slots, requests):
+    jcfg = ARCHS["gemma3-1b"].reduced().replace(remat=False)
+    tcfg = get_arch("gemma3-1b").reduced().replace(remat=False)
+    jmodel = jbuild(jcfg)
+    jparams, _ = jmodel.init(jax.random.PRNGKey(0), jnp.float32)
+    params = convert.lm_params_from_jax(
+        tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, tcfg.vocab, size=4).tolist()
+               for _ in range(requests)]
+    max_new = [8 + (i % 5) for i in range(requests)]
+
+    jeng = jengine.ServingEngine(jmodel, jparams, num_pipelines=pipelines,
+                                 slots_per_pipeline=slots, max_len=40)
+    eng = engine.ServingEngine(build(tcfg, "cpu"), params,
+                               num_pipelines=pipelines,
+                               slots_per_pipeline=slots, max_len=40)
+    for i, p in enumerate(prompts):
+        jeng.submit(jengine.Request(rid=i, prompt=p,
+                                    max_new_tokens=max_new[i]))
+        eng.submit(engine.Request(rid=i, prompt=p,
+                                  max_new_tokens=max_new[i]))
+    want = jeng.run(max_steps=32)
+    got = eng.run(max_steps=32)
+    assert len(got) == requests
+    assert assert_tokens_agree(got, want, MARGIN_TOL) >= sum(max_new) // 2
+    assert [p.cache["pos"] for p in eng.pipelines] == \
+        [int(p.cache["pos"]) for p in jeng.pipelines]
+
+
+def test_serve_main_on_cpu(capsys):
+    """The serve entry point end to end on the CPU at the reference's
+    defaults (reduced gemma3-1b): every request completes with its
+    tokens."""
+    rep = serve.run(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
+                     "--requests", "6", "--tokens", "5"])
+    assert len(rep.done) == 6 and rep.tokens == 30
+    assert rep.plan.num_pipelines >= 1
+    out = capsys.readouterr().out
+    assert "[serve] Meili plan:" in out and "6/6 requests" in out
+    assert serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu",
+                       "--requests", "2", "--tokens", "2"]) == 0
+
+
+def test_serve_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a card")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.run(["--reduced"])
