@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Two paths, each driven with the launch counts set to 0 just before it and
-read just after:
+Three paths, each driven with the launch counts set to 0 just before it
+and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
    through the IPsec Gateway (all four NIC kernels: flow_lookup, dfa_regex,
@@ -21,6 +21,14 @@ read just after:
    the plain versions; then ``repro_torch.launch.serve`` at its reference
    defaults (16 requests x 16 tokens, 8 slots, max_len 64), held against
    the same engine with the plain versions.
+3. LM serving on mamba2-370m at full width (48 mamba layers, d_model 1024,
+   d_inner 2048, state 128, head dim 64, vocab 50,280; f32 parameters from
+   a seeded generator): ``Model.prefill`` of 4 prompts of 1,024 tokens
+   (ssd_scan on every layer, 8 chunks each) and 32 greedy ``decode_step``s
+   (the one-token recurrence in plain PyTorch, as in the reference: no
+   kernel), held against the same run with the plain versions (logits and
+   every layer's SSM state); then ``launch.serve`` at its reference
+   defaults, held against a plain-impl engine on the same plan.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -59,9 +67,10 @@ from repro_torch.kernels import _build, crypto, dfa_regex, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flow_lookup as fl  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import lm, ssm  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 BATCH = 16384
@@ -98,6 +107,27 @@ DECODE_TOL = 2e-3
 # A kernel against its plain version on the same inputs: f32 outputs.
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 
+# LM serving phase (mamba2-370m at full width)
+MAMBA_ARCH = "mamba2-370m"
+MAMBA_PROMPT_LEN = 1024   # 8 chunks of 128 per layer
+# The SSD kernel and its plain version both take each decay as exp of a
+# difference of two f32 cumulative sums of log a, summed in other orders;
+# at Mamba-2's decays the sums reach ~110 (ulp 7.6e-6), so a decay differs
+# by ~1e-5 relative, and y (a sum of such terms) by up to ~1e-5 relative
+# to its scale (a chunked f32 scan at the path's widths lies within 5.3e-5
+# of an f64 recurrence on |y| up to 15): the kernel is held to its plain
+# version at SSD_TOL. Through 48 layers the differences grow: a CPU proxy
+# (48 layers at width 256, S 512, the plain scan against one whose cumsum
+# follows the kernel's order) moved the logits by 2.3e-4 (prefill and 8
+# decode steps) and each layer's state by 6.8e-5 of its largest entry.
+# Logits (prefill, decode, engine) are held to MAMBA_LOGIT_TOL, about 9x
+# that, and every layer's final state h, after prefill and after decode,
+# to MAMBA_STATE_TOL of its largest entry, about 15x. Decode and the
+# engine run no kernel; they differ only through the prefilled state.
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)
+MAMBA_LOGIT_TOL = 2e-3
+MAMBA_STATE_TOL = 1e-3
+
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
     "dfa_regex": "src/repro/kernels/dfa_regex.py:30",
@@ -105,6 +135,7 @@ REPLACES = {
     "keyed_hash": "src/repro/kernels/crypto.py:29",
     "flash_attention": "src/repro/kernels/flash_attention.py:33",
     "decode_attention": "src/repro/kernels/decode_attention.py:29",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:27",
 }
 SOURCES = {
     "flow_lookup": "src/repro_torch/kernels/csrc/flow_lookup.cu",
@@ -113,6 +144,7 @@ SOURCES = {
     "keyed_hash": "src/repro_torch/kernels/csrc/crypto.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 
 
@@ -388,20 +420,45 @@ def _margin(lg):
     return top2[..., 0] - top2[..., 1]
 
 
-def prefill_decode(model, params, prompts):
+def _states(cache):
+    """Copies of every SSM-state leaf (``h``) of a cache: none for
+    attention models."""
+    return [c["h"].clone() for seg in cache["segments"] for c in seg
+            if "h" in c]
+
+
+def _check_states(name, got, want, tol):
+    """Each layer stack's max |got - want| over its largest |want| within
+    ``tol``; returns the largest such ratio."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        worst = max(worst, float((g - w).abs().max())
+                    / max(float(w.abs().max()), 1e-30))
+    if worst > tol:
+        raise AssertionError(f"{name}: SSM state differs from the plain run "
+                             f"by {worst} of its scale (tolerance {tol})")
+    return worst
+
+
+def prefill_decode(model, params, prompts, cache_len, expect, prefill_tol,
+                   decode_tol, state_tol=None):
     """The serving path: prefill + DECODE_STEPS greedy decode steps with the
     kernels (counts reset just before, read just after), then the same
-    prefill and the same decode inputs with the plain versions."""
+    prefill and the same decode inputs with the plain versions. ``expect``
+    maps each kernel to its launches (per prefill, per decode step); SSM
+    states, where the model has them, are held to ``state_tol``."""
     dev = prompts.device
+    batch, prompt_len = prompts.shape
     model.prefill(params, {"tokens": prompts[:, :64]}, max_len=128)  # warm-up
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     lg0, cache = model.prefill(params, {"tokens": prompts},
-                               max_len=CACHE_LEN)
+                               max_len=cache_len)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = _build.launch_counts()
+    states = {"prefill": _states(cache)}
     toks, lgs, step_ms = [lg0.argmax(-1)], [], []
     for _ in range(DECODE_STEPS):
         t0 = time.perf_counter()
@@ -411,62 +468,107 @@ def prefill_decode(model, params, prompts):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         lgs.append(lg)
     launches = _build.launch_counts()
+    states["decode"] = _states(cache)
     decode_launches = {k: launches[k] - after_prefill[k] for k in launches}
     profiles = {
         "prefill": _profile(lambda: model.prefill(
-            params, {"tokens": prompts}, max_len=CACHE_LEN)),
+            params, {"tokens": prompts}, max_len=cache_len)),
         "decode_step": _profile(lambda: model.decode_step(
             params, cache, toks[-1])),
     }
 
     t0 = time.perf_counter()
     plg0, pcache = model.prefill(params, {"tokens": prompts},
-                                 max_len=CACHE_LEN, impl="torch")
+                                 max_len=cache_len, impl="torch")
     torch.cuda.synchronize()
     plain_prefill_ms = (time.perf_counter() - t0) * 1e3
-    p_err, p_checked = _check_logits("prefill", lg0, plg0, PREFILL_TOL,
+    p_err, p_checked = _check_logits("prefill", lg0, plg0, prefill_tol,
                                      _margin(lg0), toks[0])
+    plain_states = {"prefill": _states(pcache)}
     d_err, d_checked, plain_step_ms = 0.0, 0, []
     for i in range(DECODE_STEPS):          # the kernel run's tokens as input
         t0 = time.perf_counter()
         plg, pcache = model.decode_step(params, pcache, toks[i], impl="torch")
         torch.cuda.synchronize()
         plain_step_ms.append((time.perf_counter() - t0) * 1e3)
-        err, n = _check_logits(f"decode step {i}", lgs[i], plg, DECODE_TOL,
+        err, n = _check_logits(f"decode step {i}", lgs[i], plg, decode_tol,
                                _margin(lgs[i]), toks[i + 1])
         d_err, d_checked = max(d_err, err), d_checked + n
+    plain_states["decode"] = _states(pcache)
+    state_err = {k: _check_states(f"{k} state", states[k], plain_states[k],
+                                  state_tol)
+                 for k in states if states[k]}
     if not all(bool(torch.isfinite(x).all()) for x in [lg0] + lgs):
         raise AssertionError("non-finite logits on the serving path")
-    for k, n in (("flash_attention", model.cfg.n_layers),
-                 ("decode_attention", 0)):
-        if after_prefill[k] != n:
-            raise AssertionError(f"prefill launched {k} "
-                                 f"{after_prefill[k]} times, not {n}")
-    n_global = sum(1 for *_, layer in params.all_layers()
-                   if layer.spec.mixer == "attn")
-    want = {"flash_attention": 0, "decode_attention": n_global * DECODE_STEPS}
-    for k, n in want.items():
-        if decode_launches[k] != n:
+    for k, (per_prefill, per_step) in expect.items():
+        if after_prefill[k] != per_prefill:
+            raise AssertionError(f"prefill launched {k} {after_prefill[k]} "
+                                 f"times, not {per_prefill}")
+        if decode_launches[k] != per_step * DECODE_STEPS:
             raise AssertionError(f"{DECODE_STEPS} decode steps launched {k} "
-                                 f"{decode_launches[k]} times, not {n}")
+                                 f"{decode_launches[k]} times, not "
+                                 f"{per_step * DECODE_STEPS}")
     report = {
-        "arch": ARCH, "batch": SERVE_BATCH, "prompt_len": PROMPT_LEN,
-        "cache_len": CACHE_LEN, "decode_steps": DECODE_STEPS,
+        "arch": model.cfg.name, "batch": batch, "prompt_len": prompt_len,
+        "cache_len": cache_len, "decode_steps": DECODE_STEPS,
         "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
         "decode_ms_per_step": statistics.median(step_ms[1:]),
         "decode_ms_first_step": step_ms[0],
         "plain_decode_ms_per_step": statistics.median(plain_step_ms[1:]),
         "launches": launches,
-        "launches_per_prefill": {k: after_prefill[k] for k in want},
+        "launches_per_prefill": {k: after_prefill[k] for k in expect},
         "launches_per_decode_step": {k: decode_launches[k] / DECODE_STEPS
-                                     for k in want},
+                                     for k in expect},
         "prefill_logit_max_abs_err": p_err,
         "decode_logit_max_abs_err": d_err,
+        "state_max_rel_err": state_err,
         "greedy_tokens_checked": p_checked + d_checked,
-        "greedy_tokens_total": SERVE_BATCH * (DECODE_STEPS + 1),
+        "greedy_tokens_total": batch * (DECODE_STEPS + 1),
         "profiles": profiles,
     }
     return report, cache
+
+
+def every_position(model, params, prompts, tol):
+    """``model.forward`` over the prompts with the kernels and with the
+    plain versions, the logits held to ``tol`` at every position. Prefill
+    returns only the last position's logits, and at the reference's init
+    decays a chunk's last rows and final state forget what was carried
+    into it; the first rows of every chunk after the first read that state
+    through exp(cl_t), so a fault in the carry shows here. Launches made
+    here compare a kernel with its plain version and are not counted."""
+    cfg = model.cfg
+    got = lm.logits(cfg, params, model.forward(params, {"tokens": prompts}))
+    want = lm.logits(cfg, params, model.forward(params, {"tokens": prompts},
+                                                impl="torch"))
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite logits over the prompts")
+    err, _ = _check_logits("forward, every position", got, want, tol)
+    del got, want
+    return err
+
+
+def print_serving(tag, pd):
+    """The serving path's lines: prefill ms, decode ms per step, launch
+    counts and the profiles of one prefill and one decode step."""
+    print(f"{tag}prefill ms: {pd['prefill_ms']:.3f} (B={pd['batch']} x "
+          f"{pd['prompt_len']} tokens; plain versions "
+          f"{pd['plain_prefill_ms']:.3f})")
+    print(f"{tag}decode ms per step: {pd['decode_ms_per_step']:.3f} "
+          f"(B={pd['batch']}, median of steps 2-{DECODE_STEPS}; plain "
+          f"versions {pd['plain_decode_ms_per_step']:.3f})")
+    print(f"{tag}serving launches: per prefill "
+          + json.dumps(pd["launches_per_prefill"]) + ", per decode step "
+          + json.dumps(pd["launches_per_decode_step"]))
+    for k, prof in pd["profiles"].items():
+        busy = prof["device_ms"] / (pd["prefill_ms"] if k == "prefill"
+                                    else pd["decode_ms_per_step"])
+        print(f"{tag}{k} profile: device {prof['device_ms']:.3f} ms over "
+              f"{prof['device_launches']} launches; busy share of the "
+              f"unprofiled wall time {busy:.3f}; top "
+              + json.dumps(prof["top_kernels"]))
+    print(f"{tag}serving path " + json.dumps(pd))
 
 
 def _requests_agree(got, want, tol):
@@ -488,16 +590,22 @@ def _requests_agree(got, want, tol):
     return same
 
 
-def engine_run():
+def engine_run(arch, tol, launched, not_launched):
     """``repro_torch.launch.serve`` at its reference defaults with the
     kernels (counts reset just before, read just after), then the same
-    requests through the same plan with the plain versions."""
+    requests through the same plan with the plain versions. Each kernel of
+    ``launched`` must have run, none of ``not_launched``."""
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    rep = serve.run(["--arch", ARCH])
+    rep = serve.run(["--arch", arch])
     launches = _build.launch_counts()
-    if launches["decode_attention"] < 1:
-        raise AssertionError("the engine never launched decode_attention")
+    for k in launched:
+        if launches[k] < 1:
+            raise AssertionError(f"the {arch} engine never launched {k}")
+    for k in not_launched:
+        if launches[k] != 0:
+            raise AssertionError(f"the {arch} engine launched {k} "
+                                 f"{launches[k]} times, not 0")
     if len(rep.done) != rep.requests:
         raise AssertionError(f"{len(rep.done)}/{rep.requests} requests done")
     plain = ServingEngine(rep.model, rep.params,
@@ -509,7 +617,7 @@ def engine_run():
     done = plain.run(max_steps=64 - 8)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    same = _requests_agree(rep.done, done, PREFILL_TOL)
+    same = _requests_agree(rep.done, done, tol)
     return rep.engine, {
         "pipelines": rep.plan.num_pipelines, "R": rep.plan.R,
         "latencies_s": rep.plan.latencies, "requests": rep.requests,
@@ -629,6 +737,74 @@ def attention_checks(model, cache, engine, launches_pd, launches_engine):
     return list(rows.values())
 
 
+def ssd_checks(model, params, prompts, launches_pd, launches_engine):
+    """B7 at the shape the prefill gave it, on the real inputs of the first
+    and the last layer, against its plain version, timed beside its
+    bound. At the reference's init a 128-step chunk sums -log a to ~105,
+    so exp(cl) underflows and no chunk's output or final state depends on
+    the state carried into it; a third variant takes layer 0's inputs with
+    the decays raised to the power 1/100 (a trained Mamba-2 head's slow
+    decay), where the carry across chunks counts."""
+    cfg = model.cfg
+    dev = model.device
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    _, norm_apply = lm.make_norm(cfg)
+    layers = [layer for *_, layer in params.all_layers()]
+    x = lm.embed(params.embed, prompts)
+    inputs = {}
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            if i in (0, len(layers) - 1):
+                h = norm_apply(layer.norm1, x)
+                inputs[f"layer{i}"] = ssm.ssd_inputs(layer.mamba, h, cfg)[3:]
+            x, _ = lm._apply_layer(cfg, layer, x, None, None)
+    xh, a, b, c = inputs["layer0"]
+    inputs["layer0-slow-decay"] = (xh, a ** 0.01, b, c)
+    chunk = 128
+    row = None
+    for label, (xh, a, b, c) in inputs.items():
+        run = lambda a_=(xh, a, b, c): ss.ssd_scan_cuda(*a_, chunk)
+        plain = lambda a_=(xh, a, b, c): ss.ssd_scan_torch(*a_, chunk)
+        (y, h), (py, ph) = run(), plain()
+        torch.cuda.synchronize()
+        err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
+        if not (torch.allclose(y, py, **SSD_TOL)
+                and torch.allclose(h, ph, **SSD_TOL)):
+            raise AssertionError(f"ssd_scan ({label}): kernel differs from "
+                                 f"its plain version by {err}")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"ssd_scan ({label}): non-finite output")
+        B, S, H, P = xh.shape
+        N = b.shape[-1]
+        flops, nbytes = ss.work(xh, b, c)
+        peak = hw.peak_flops(xh.dtype, b.dtype, c.dtype)
+        bound_s, bound_by = hw.bound_seconds(nbytes, flops, peak)
+        r = {
+            "name": "ssd_scan", "route": "cuda", "source": SOURCES["ssd_scan"],
+            "replaces": REPLACES["ssd_scan"],
+            "launches": launches_pd["ssd_scan"],
+            "launches_by_path": {"prefill_decode": launches_pd["ssd_scan"],
+                                 "engine": launches_engine["ssd_scan"]},
+            "variant": label,
+            "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} f32, "
+                     f"c broadcast over H (stride {c.stride(2)})",
+            "max_abs_err": err,
+            "plain_max_abs_y": float(py.abs().max()),
+            "plain_max_abs_h": float(ph.abs().max()),
+            "ms": _time_ms(run, KERNEL_REPS, flush),
+            "plain_ms": _time_ms(plain, PLAIN_REPS, flush),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": int(nbytes), "ops": int(flops), "peak_flops": peak,
+            "library_ms": None,
+        }
+        if row is None:
+            row = r
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row.setdefault("variants", {})[label] = r
+    return [row]
+
+
 def main() -> int:
 
     if not torch.cuda.is_available():
@@ -690,24 +866,16 @@ def main() -> int:
     n_params = sum(p.numel() for p in params.parameters())
     print(f"serving: {ARCH} at full width, {n_params} parameters (f32) made "
           f"on the card in {time.perf_counter() - t0:.2f} s")
-    pd, cache = prefill_decode(model, params, prompts)
-    print(f"prefill ms: {pd['prefill_ms']:.3f} (B={SERVE_BATCH} x "
-          f"{PROMPT_LEN} tokens; plain versions {pd['plain_prefill_ms']:.3f})")
-    print(f"decode ms per step: {pd['decode_ms_per_step']:.3f} "
-          f"(B={SERVE_BATCH}, median of steps 2-{DECODE_STEPS}; plain "
-          f"versions {pd['plain_decode_ms_per_step']:.3f})")
-    print("serving launches: per prefill "
-          + json.dumps(pd["launches_per_prefill"]) + ", per decode step "
-          + json.dumps(pd["launches_per_decode_step"]))
-    for k, prof in pd["profiles"].items():
-        busy = prof["device_ms"] / (pd["prefill_ms"] if k == "prefill"
-                                    else pd["decode_ms_per_step"])
-        print(f"{k} profile: device {prof['device_ms']:.3f} ms over "
-              f"{prof['device_launches']} launches; busy share of the "
-              f"unprofiled wall time {busy:.3f}; top "
-              + json.dumps(prof["top_kernels"]))
-    print("serving path " + json.dumps(pd))
-    engine, eng = engine_run()
+    n_global = sum(1 for *_, layer in params.all_layers()
+                   if layer.spec.mixer == "attn")
+    pd, cache = prefill_decode(
+        model, params, prompts, CACHE_LEN,
+        {"flash_attention": (model.cfg.n_layers, 0),
+         "decode_attention": (0, n_global), "ssd_scan": (0, 0)},
+        PREFILL_TOL, DECODE_TOL)
+    print_serving("", pd)
+    engine, eng = engine_run(ARCH, PREFILL_TOL, ("decode_attention",),
+                             ("flash_attention", "ssd_scan"))
     print(f"engine tokens/s: {eng['tokens_per_s']:.1f} ({eng['tokens']} "
           f"tokens, {eng['requests']} requests over {eng['pipelines']} "
           f"pipelines; plain versions {eng['plain_tokens_per_s']:.1f})")
@@ -715,6 +883,41 @@ def main() -> int:
     print("engine " + json.dumps(eng))
     kernels += attention_checks(model, cache, engine, pd["launches"],
                                 eng["launches"])
+    del model, params, cache, engine, prompts
+    torch.cuda.empty_cache()
+
+    # LM serving: mamba2-370m at full width, f32 parameters
+    t0 = time.perf_counter()
+    model = build(get_arch(MAMBA_ARCH), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        2, model.cfg.vocab, size=(SERVE_BATCH, MAMBA_PROMPT_LEN))).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serving: {MAMBA_ARCH} at full width, {n_params} parameters (f32) "
+          f"made on the card in {time.perf_counter() - t0:.2f} s")
+    mpd, _ = prefill_decode(
+        model, params, prompts, MAMBA_PROMPT_LEN + DECODE_STEPS,
+        {"ssd_scan": (model.cfg.n_layers, 0), "flash_attention": (0, 0),
+         "decode_attention": (0, 0)},
+        MAMBA_LOGIT_TOL, MAMBA_LOGIT_TOL, MAMBA_STATE_TOL)
+    mpd["forward_logit_max_abs_err"] = every_position(model, params, prompts,
+                                                      MAMBA_LOGIT_TOL)
+    print_serving("mamba ", mpd)
+    print(f"mamba forward logits at every position: max abs err "
+          f"{mpd['forward_logit_max_abs_err']} from the plain run "
+          f"(tolerance {MAMBA_LOGIT_TOL})")
+    _, meng = engine_run(MAMBA_ARCH, MAMBA_LOGIT_TOL, (),
+                         ("ssd_scan", "flash_attention", "decode_attention"))
+    print(f"mamba engine tokens/s: {meng['tokens_per_s']:.1f} "
+          f"({meng['tokens']} tokens, {meng['requests']} requests over "
+          f"{meng['pipelines']} pipelines; plain versions "
+          f"{meng['plain_tokens_per_s']:.1f})")
+    print("mamba engine launches: " + json.dumps(meng["launches"]))
+    print("mamba engine " + json.dumps(meng))
+    kernels += ssd_checks(model, params, prompts, mpd["launches"],
+                          meng["launches"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,18 +1,16 @@
 """Architecture configs the port runs. ``--arch <id>`` resolves here.
 
-Only the dense configs whose every module is ported are known; every other
-architecture of the JAX package raises ``KeyError`` naming the ROADMAP item
-that ports what it needs.
+Only the configs whose every module is ported are known (dense gemma3-1b
+and olmo-1b, ssm mamba2-370m); every other architecture of the JAX package
+raises ``KeyError`` naming the ROADMAP item that ports what it needs.
 """
-from repro_torch.configs import gemma3_1b, olmo_1b
+from repro_torch.configs import gemma3_1b, mamba2_370m, olmo_1b
 from repro_torch.configs.base import ArchConfig
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (gemma3_1b, olmo_1b)}
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (gemma3_1b, olmo_1b, mamba2_370m)}
 
 # Architectures of the JAX package that wait for a later slice.
 PENDING = {
-    "mamba2-370m": "ROADMAP A18 (ssm family: models/ssm.py and the ssd_scan "
-                   "kernel, B7)",
     "jamba-1.5-large-398b": "ROADMAP A20 (hybrid family: ssm and MoE layers)",
     "moonshot-v1-16b-a3b": "ROADMAP A20 (MoE family: models/moe.py)",
     "phi3.5-moe-42b-a6.6b": "ROADMAP A20 (MoE family: models/moe.py)",

@@ -2,7 +2,8 @@
 
 The data plane's "weights" are its data and state: packet batches, the
 flow cache's planes and epoch, and each accelerator stage's constants (DFA
-table, out_count, keys). The LM's are its parameter tree and KV cache.
+table, out_count, keys). The LM's are its parameter tree and decode cache
+(KV rows, or a mamba layer's conv tails and SSM state).
 Everything crosses as numpy arrays: take ``np.asarray`` of the JAX
 package's arrays, hand them to the loaders here, and compare the port's
 outputs through ``batch_to_numpy`` / ``leaves_to_numpy``, which list leaves
@@ -134,13 +135,16 @@ def _map_tree(tree: Any, fn) -> Any:
 
 
 def lm_params_from_jax(cfg, params: Mapping, device="cuda") -> lm_mod.LM:
-    """The port's LM holding the JAX package's dense-LM parameters.
+    """The port's LM holding the JAX package's LM parameters (dense or
+    ssm family).
 
     ``params`` is the tree of ``repro.models.lm.init_lm`` with numpy leaves.
     Each segment's leaves are stacked over its repetitions on axis 0; they
     are unstacked into one ``DecoderLayer`` per (repetition, body
-    position), repetition-major. Projections keep their stored layouts,
-    (D, H, dh) for q/k/v and (H, dh, D) for o."""
+    position), repetition-major, whatever the leaf: a projection, a norm
+    scale, or a mamba layer's bare ``A_log``/``dt_bias``/``D_skip`` (H,)
+    and conv weights. Projections keep their stored layouts, (D, H, dh)
+    for q/k/v and (H, dh, D) for o."""
     dev = resolve_device(device)
     to_t = lambda a: _lm_tensor(a, dev)
     segments = []
@@ -157,7 +161,9 @@ def lm_params_from_jax(cfg, params: Mapping, device="cuda") -> lm_mod.LM:
 
 
 def lm_cache_from_jax(cache: Mapping, device="cuda") -> Dict[str, Any]:
-    """A port cache from the JAX package's cache tree (numpy leaves)."""
+    """A port cache from the JAX package's cache tree (numpy leaves), leaf
+    by leaf with each leaf's dtype kept (a mamba layer's f32 state next to
+    bf16 conv tails)."""
     dev = resolve_device(device)
     return {"pos": int(np.asarray(cache["pos"])),
             "segments": [[_map_tree(c, lambda a: _lm_tensor(a, dev))
@@ -166,8 +172,9 @@ def lm_cache_from_jax(cache: Mapping, device="cuda") -> Dict[str, Any]:
 
 def lm_cache_to_numpy(cache: Mapping) -> Dict[str, Any]:
     """The port's cache as the reference's tree: ``pos`` an int32 scalar,
-    k/v stacked (count, B, max_len, Hkv, dh) numpy arrays (bfloat16 ones
-    widened to float32)."""
+    each leaf stacked over repetitions as a numpy array — k/v (count, B,
+    max_len, Hkv, dh), or a mamba layer's conv tails and f32 state h
+    (count, B, H, N, P) — bfloat16 leaves widened to float32."""
     def leaf(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

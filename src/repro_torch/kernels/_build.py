@@ -47,6 +47,7 @@ SIGNATURES = {
                              + [_I32] * 3 + [_P],
     "meili_decode_attention": [_P] * 7 + [_I32] * 7 + [_F32] + [_I32] * 3
                               + [_P],
+    "meili_ssd_scan": [_P] * 6 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [_P],
 }
 # Kernel name (as counted and reported) -> C launcher.
 KERNELS = {
@@ -56,6 +57,7 @@ KERNELS = {
     "keyed_hash": "meili_keyed_hash",
     "flash_attention": "meili_flash_attention",
     "decode_attention": "meili_decode_attention",
+    "ssd_scan": "meili_ssd_scan",
 }
 
 _lib: Optional[ctypes.CDLL] = None

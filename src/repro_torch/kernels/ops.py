@@ -1,5 +1,5 @@
 """Public kernel API with backend dispatch: the NIC ops of the data plane
-and the attention ops of the LM stack.
+and the attention and SSD ops of the LM stack.
 
 Two implementations per op:
   * the hand-written CUDA kernel — taken for tensors on a CUDA device;
@@ -20,6 +20,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dfa_regex as _dfa
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 build_aho_corasick = _ref.build_aho_corasick
 
@@ -88,3 +89,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _da.decode_attention_cuda(q.contiguous(), k.contiguous(),
                                      v.contiguous(), kv_len.contiguous(),
                                      scale=scale_v)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD.
+# ---------------------------------------------------------------------------
+
+def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+        *, chunk: int = 128, impl: Optional[str] = None):
+    """Mamba-2 SSD from a zero state. x: (B, S, H, P), a: (B, S, H) in
+    (0, 1], b/c: (B, S, H, N) (c may be a view broadcast over H). Returns
+    (y (B, S, H, P), h_final (B, H, N, P) f32)."""
+    _check_impl(impl)
+    if impl == "torch" or not x.is_cuda:
+        return _ssd.ssd_scan_torch(x, a, b, c, chunk)
+    return _ssd.ssd_scan_cuda(x.contiguous(), a.contiguous(), b.contiguous(),
+                              c, chunk)

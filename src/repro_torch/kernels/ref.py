@@ -6,7 +6,8 @@ state for state, as the JAX package builds). The plain versions of the NIC
 kernels live beside their kernels' wrappers (``dfa_regex``, ``crypto``) and
 are re-exported here under the reference's names. ``mha_ref`` and
 ``decode_ref`` are the reference's naive softmax attention (full logits,
-no blocking), the oracles of the flash and decode kernels.
+no blocking), the oracles of the flash and decode kernels; ``ssd_ref`` is
+the step-by-step SSM recurrence, the oracle of the SSD chunked scan.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.kernels.crypto import keyed_hash_torch as keyed_hash
 from repro_torch.kernels.dfa_regex import dfa_scan_torch as dfa_scan
 
 __all__ = ["build_aho_corasick", "dfa_scan", "arx_cipher", "keyed_hash",
-           "mha_ref", "decode_ref"]
+           "mha_ref", "decode_ref", "ssd_ref"]
 
 
 def build_aho_corasick(patterns) -> tuple[np.ndarray, np.ndarray]:
@@ -118,3 +119,26 @@ def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD oracle (scalar-decay SSM, per-step recurrence).
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, h0: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, H, P), a: (B, S, H) decays in (0, 1], b/c: (B, S, H, N),
+    h0: (B, H, N, P) initial state (zeros when None). Returns
+    (y (B, S, H, P) in x's dtype, h_final (B, H, N, P) f32) of
+    h_t = a_t h_{t-1} + b_t ⊗ x_t, y_t = c_t · h_t, one step at a time."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    h = (torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        h = (a[:, t].float()[..., None, None] * h
+             + b[:, t].float()[..., :, None] * x[:, t].float()[..., None, :])
+        ys.append(torch.einsum("bhn,bhnp->bhp", c[:, t].float(), h))
+    return torch.stack(ys, dim=1).to(x.dtype), h

@@ -7,7 +7,7 @@ requests with flow-sticky admission.
 Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
       --requests 16 --tokens 16
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --reduced --device cpu
 """
 from __future__ import annotations
@@ -35,12 +35,13 @@ def _sync(device: torch.device) -> None:
 
 def _decode_body_fn(cfg):
     """One repetition of a segment's body for one decode step:
-    ``fn(layers, caches, x, pos) -> x``, caches a (k, v) pair per body
-    position, written in place."""
+    ``fn(layers, caches, x, pos) -> x``, caches one layer-cache slice per
+    body position (``lm.layer_cache``: k/v, or conv tails and SSM state),
+    written in place."""
     def fn(layers, caches, x, pos):
         h = x
-        for layer, (ck, cv) in zip(layers, caches):
-            h = lm_mod.decode_layer(cfg, layer, h, ck, cv, pos, impl=None)
+        for layer, c in zip(layers, caches):
+            h = lm_mod.decode_layer(cfg, layer, h, c, pos, impl=None)
         return h
     return fn
 
@@ -59,7 +60,7 @@ def measure_segment_latencies(model, params, batch: int,
     lat = {}
     for i, seg in enumerate(lm_mod.build_schedule(cfg)):
         layers = params.layers(i, 0)
-        cs = [(c["k"][0], c["v"][0]) for c in cache["segments"][i]]
+        cs = [lm_mod.layer_cache(c, 0) for c in cache["segments"][i]]
         x = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=dev)
         fn(layers, cs, x, 1)
         _sync(dev)

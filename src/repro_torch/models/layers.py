@@ -4,7 +4,7 @@ Plain functions on tensors, as in the JAX package's ``models/layers.py``.
 Parameters are dictionaries keyed as the reference's trees (``{"w", "b"}``
 for a dense layer, ``{"scale"}`` for RMSNorm, ``{"gate", "up", "down"}`` for
 the MLP), so the functions take a plain ``dict`` as well as the
-``nn.ModuleDict``/``nn.ParameterDict`` the modules hold. The init functions
+``ParamTree`` modules the model holds. The init functions
 draw the reference's distributions from an explicit ``torch.Generator``;
 they build plain dictionaries of tensors, which ``to_module`` turns into
 parameters.
@@ -129,12 +129,30 @@ def embed(p: Mapping, tokens: torch.Tensor) -> torch.Tensor:
 
 # -- Parameter trees as modules ------------------------------------------------------
 
+class ParamTree(nn.Module):
+    """A parameter tree as a module: tensors become parameters and sub-dicts
+    sub-modules, under their own keys, and the module is indexed (``p[k]``,
+    ``k in p``) as the dict was. A mamba mixer's tree mixes both
+    (``{"z": {"w"}, ..., "A_log": T}``)."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+            else:
+                self.add_module(k, ParamTree(v))
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
 def to_module(tree: Mapping) -> nn.Module:
-    """A nested dict of tensors as nested ``ModuleDict``/``ParameterDict``:
-    a dict whose values are all tensors becomes a ``ParameterDict``, any
-    other dict a ``ModuleDict``. Keys and nesting are kept, so the functions
-    above index the module as they index the dict."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                                 for k, v in tree.items()})
-    return nn.ModuleDict({k: to_module(v) for k, v in tree.items()})
+    """A nested dict of tensors as nested ``ParamTree`` modules. Keys and
+    nesting are kept, so the functions above index the module as they
+    index the dict."""
+    return ParamTree(tree)

@@ -1,21 +1,22 @@
-"""Decoder LM over a *layer schedule*, dense family.
+"""Decoder LM over a *layer schedule*: the dense and ssm families.
 
 A schedule is a list of Segments; each Segment has a ``body`` (an ordered
 tuple of LayerSpec — mixer x ffn kinds) repeated ``count`` times. The
 reference scans each segment over stacked parameters; here the layers are
 ``DecoderLayer`` modules held in one ``nn.ModuleList`` per segment, in the
 order the scan visits them: repetition, then body position. gemma3's 5:1
-local:global pattern is a 6-layer body x4 plus a 2-layer tail.
+local:global pattern is a 6-layer body x4 plus a 2-layer tail; mamba2's
+48 mamba layers (no MLP) are one segment.
 
 Each Segment is a Meili pipeline *stage* with its own profiled latency
-(``serving/planner.py``). The KV cache keeps the reference's layout — per
-segment, per body position, ``{"k", "v"}`` stacked over the repetitions,
-(count, B, max_len, Hkv, dh) — and ``decode_step`` updates it in place;
+(``serving/planner.py``). The cache keeps the reference's layout: per
+segment, per body position, a dict of leaves stacked over the repetitions —
+``{"k", "v"}`` (count, B, max_len, Hkv, dh) for attention, ``{"conv_x",
+"conv_BC", "h"}`` for mamba — and ``decode_step`` updates it in place;
 ``cache["pos"]`` is a Python int shared by every row, as the reference's
 scalar is.
 
-The mamba and MoE mixers wait for later slices and raise
-``NotImplementedError``.
+MoE layers wait for a later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,14 +28,14 @@ from torch import nn
 
 from repro_torch.hw import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        make_norm, mlp, mlp_init, pad_vocab,
                                        to_module)
 
 Tree = Dict
 
-_PENDING = {"mamba": "ROADMAP A18 (models/ssm.py and the ssd_scan kernel)",
-            "moe": "ROADMAP A20 (models/moe.py)"}
+_PENDING = {"moe": "ROADMAP A20 (models/moe.py)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,29 +91,43 @@ def _require_ported(spec: LayerSpec) -> None:
 # Modules + init
 # ---------------------------------------------------------------------------
 
+def _is_attn(spec: LayerSpec) -> bool:
+    return spec.mixer in ("attn", "attn_local")
+
+
 class DecoderLayer(nn.Module):
-    """One pre-norm decoder layer: norm1 -> attention -> residual, then
-    norm2 -> MLP -> residual. Parameters are nested dicts keyed as the
-    reference's layer tree (``norm1``, ``attn``, ``norm2``, ``mlp``)."""
+    """One pre-norm decoder layer: norm1 -> mixer (attention or mamba) ->
+    residual, then, unless ``ffn`` is "none", norm2 -> MLP -> residual.
+    Parameters are nested dicts keyed as the reference's layer tree
+    (``norm1``, ``attn`` or ``mamba``, ``norm2``, ``mlp``)."""
 
     def __init__(self, cfg, spec: LayerSpec, params: Mapping):
         super().__init__()
         _require_ported(spec)
         self.spec = spec
         self.norm1 = to_module(params["norm1"])
-        self.attn = to_module(params["attn"])
-        self.norm2 = to_module(params["norm2"])
-        self.mlp = to_module(params["mlp"])
+        if _is_attn(spec):
+            self.attn = to_module(params["attn"])
+        else:
+            self.mamba = to_module(params["mamba"])
+        if spec.ffn != "none":
+            self.norm2 = to_module(params["norm2"])
+            self.mlp = to_module(params["mlp"])
 
 
 def layer_init(gen: torch.Generator, cfg, spec: LayerSpec, dtype,
                device) -> Tree:
     _require_ported(spec)
     norm_init, _ = make_norm(cfg)
-    return {"norm1": norm_init(dtype, device),
-            "attn": attn_mod.attn_init(gen, cfg, dtype, device),
-            "norm2": norm_init(dtype, device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)}
+    p = {"norm1": norm_init(dtype, device)}
+    if _is_attn(spec):
+        p["attn"] = attn_mod.attn_init(gen, cfg, dtype, device)
+    else:
+        p["mamba"] = ssm_mod.mamba_init(gen, cfg, dtype, device)
+    if spec.ffn != "none":
+        p["norm2"] = norm_init(dtype, device)
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
 
 
 class LM(nn.Module):
@@ -177,17 +192,24 @@ def init_lm(cfg, generator: Optional[torch.Generator] = None,
 def _apply_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
                  positions: torch.Tensor, impl: Optional[str],
                  collect_kv: bool = False):
+    """One layer of a full-sequence pass; with ``collect_kv`` also its
+    decode-cache entry: (k, v) for attention, the mamba cache dict."""
     _, norm_apply = make_norm(cfg)
     spec = layer.spec
     h = norm_apply(layer.norm1, x)
-    window = cfg.window if spec.mixer == "attn_local" else None
-    out = attn_mod.attn_apply(layer.attn, h, cfg, positions=positions,
-                              causal=True, window=window, impl=impl,
-                              return_kv=collect_kv)
+    if _is_attn(spec):
+        window = cfg.window if spec.mixer == "attn_local" else None
+        out = attn_mod.attn_apply(layer.attn, h, cfg, positions=positions,
+                                  causal=True, window=window, impl=impl,
+                                  return_kv=collect_kv)
+    else:
+        out = ssm_mod.mamba_apply(layer.mamba, h, cfg, impl=impl,
+                                  return_state=collect_kv)
     y, kv = out if collect_kv else (out, None)
     x = x + y
-    h = norm_apply(layer.norm2, x)
-    x = x + mlp(layer.mlp, h)
+    if spec.ffn != "none":
+        h = norm_apply(layer.norm2, x)
+        x = x + mlp(layer.mlp, h)
     return x, kv
 
 
@@ -236,31 +258,71 @@ def logits(cfg, params: LM, x: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> Tree:
-    """Stacked per-segment caches, zeros, ``pos`` 0."""
-    dev = resolve_device(device)
+    """Stacked per-segment caches, zeros, ``pos`` 0. A mamba layer's SSM
+    state is f32 whatever ``dtype`` is, as in the reference."""
+    return _new_cache(cfg, batch, max_len, dtype, resolve_device(device),
+                      with_mamba=True)
+
+
+def _new_cache(cfg, batch: int, max_len: int, dtype, dev,
+               with_mamba: bool) -> Tree:
+    """``init_cache``'s caches; without ``with_mamba`` a mamba position is
+    an empty dict, for ``prefill`` to fill with the states it computes."""
     cache: Tree = {"pos": 0, "segments": []}
     for seg in build_schedule(cfg):
         seg_c = []
         for spec in seg.body:
             _require_ported(spec)
-            kshape = (seg.count, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            seg_c.append({"k": torch.zeros(kshape, dtype=dtype, device=dev),
-                          "v": torch.zeros(kshape, dtype=dtype, device=dev)})
+            if _is_attn(spec):
+                kshape = (seg.count, batch, max_len, cfg.n_kv_heads,
+                          cfg.head_dim)
+                c = {"k": torch.zeros(kshape, dtype=dtype, device=dev),
+                     "v": torch.zeros(kshape, dtype=dtype, device=dev)}
+            elif with_mamba:
+                c0 = ssm_mod.mamba_cache_init(cfg, batch, dtype, dev)
+                c = {k: t[None].repeat((seg.count,) + (1,) * t.dim())
+                     for k, t in c0.items()}
+            else:
+                c = {}
+            seg_c.append(c)
         cache["segments"].append(seg_c)
     return cache
 
 
+def layer_cache(c: Mapping[str, torch.Tensor], rep: int
+                ) -> Dict[str, torch.Tensor]:
+    """Repetition ``rep``'s slice of a body position's stacked cache: views,
+    so writing them writes the cache."""
+    return {k: t[rep] for k, t in c.items()}
+
+
+def _promote_tails(c: Dict[str, torch.Tensor], dtype: torch.dtype) -> None:
+    """The reference's decode concatenates a conv tail with the new row, so
+    a bf16 tail (``init_cache(dtype=bf16)``) comes back in the promoted
+    dtype (f32 for f32 activations) after one step; the port promotes the
+    stacked leaf once, then writes it in place."""
+    for k in ("conv_x", "conv_BC"):
+        want = torch.promote_types(c[k].dtype, dtype)
+        if c[k].dtype != want:
+            c[k] = c[k].to(want)
+
+
 def decode_layer(cfg, layer: DecoderLayer, h: torch.Tensor,
-                 cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                 cache: Mapping[str, torch.Tensor], pos: int,
                  impl: Optional[str]) -> torch.Tensor:
-    """One layer of one decode step; cache_k/v (B, S, Hkv, dh) are
-    written in place."""
+    """One layer of one decode step; ``cache`` is the layer's slice of the
+    cache (``layer_cache``), written in place."""
     _, norm_apply = make_norm(cfg)
     hn = norm_apply(layer.norm1, h)
-    window = cfg.window if layer.spec.mixer == "attn_local" else None
-    h = h + attn_mod.attn_decode(layer.attn, hn, cfg, cache_k=cache_k,
-                                 cache_v=cache_v, pos=pos, window=window,
-                                 impl=impl)
+    if _is_attn(layer.spec):
+        window = cfg.window if layer.spec.mixer == "attn_local" else None
+        h = h + attn_mod.attn_decode(layer.attn, hn, cfg,
+                                     cache_k=cache["k"], cache_v=cache["v"],
+                                     pos=pos, window=window, impl=impl)
+    else:
+        h = h + ssm_mod.mamba_decode(layer.mamba, hn, cache, cfg)
+    if layer.spec.ffn == "none":
+        return h
     hn = norm_apply(layer.norm2, h)
     return h + mlp(layer.mlp, hn)
 
@@ -269,14 +331,16 @@ def decode_layer(cfg, layer: DecoderLayer, h: torch.Tensor,
 def decode_step(cfg, params: LM, cache: Tree, tokens: torch.Tensor,
                 impl: Optional[str] = None) -> Tuple[torch.Tensor, Tree]:
     """One decode step. tokens: (B,) int. Writes the new keys and values
-    into ``cache`` in place, advances ``cache["pos"]`` and returns
-    (logits (B, V), cache)."""
+    (or conv tails and SSM states) into ``cache`` in place, advances
+    ``cache["pos"]`` and returns (logits (B, V), cache)."""
     _, norm_apply = make_norm(cfg)
     x = embed(params.embed, tokens)                          # (B, D)
     pos = int(cache["pos"])
     for si, rep, bpos, layer in params.all_layers():
         c = cache["segments"][si][bpos]
-        x = decode_layer(cfg, layer, x, c["k"][rep], c["v"][rep], pos, impl)
+        if rep == 0 and not _is_attn(layer.spec):
+            _promote_tails(c, x.dtype)
+        x = decode_layer(cfg, layer, x, layer_cache(c, rep), pos, impl)
     cache["pos"] = pos + 1
     x = norm_apply(params.final_norm, x)
     return logits(cfg, params, x), cache
@@ -288,20 +352,30 @@ def prefill(cfg, params: LM, tokens: Optional[torch.Tensor],
             impl: Optional[str] = None, cache_dtype=torch.bfloat16):
     """Full-sequence forward that also fills a decode cache of ``max_len``
     positions (default S) in ``cache_dtype``. Returns (last-position logits
-    (B, V), cache)."""
+    (B, V), cache). Mamba cache leaves follow the reference's rule: a leaf
+    is cast to ``cache_dtype`` only if it is not f32, so the f32 SSM state,
+    and the conv tails of an f32 model, stay f32."""
     x = _embed_inputs(params, tokens, extra_embeds)
     B, S, _ = x.shape
     max_len = max_len or S
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    cache = init_cache(cfg, B, max_len, cache_dtype, x.device)
+    schedule = build_schedule(cfg)
+    cache = _new_cache(cfg, B, max_len, cache_dtype, x.device,
+                       with_mamba=False)
     cache["pos"] = S
     for si, rep, bpos, layer in params.all_layers():
-        x, (k, v) = _apply_layer(cfg, layer, x, positions, impl,
-                                 collect_kv=True)
+        x, kv = _apply_layer(cfg, layer, x, positions, impl, collect_kv=True)
         c = cache["segments"][si][bpos]
-        c["k"][rep, :, :S] = k.to(cache_dtype)
-        c["v"][rep, :, :S] = v.to(cache_dtype)
+        if _is_attn(layer.spec):
+            c["k"][rep, :, :S] = kv[0].to(cache_dtype)
+            c["v"][rep, :, :S] = kv[1].to(cache_dtype)
+            continue
+        for k, t in kv.items():
+            t = t if t.dtype == torch.float32 else t.to(cache_dtype)
+            if rep == 0:          # the leaf takes the first state's dtype
+                c[k] = t.new_empty((schedule[si].count,) + t.shape)
+            c[k][rep] = t
     _, norm_apply = make_norm(cfg)
     x = norm_apply(params.final_norm, x)
     return logits(cfg, params, x[:, -1]), cache

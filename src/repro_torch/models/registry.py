@@ -2,9 +2,9 @@
 
 ``build(cfg)`` returns a Model exposing ``init`` (an ``lm.LM`` module on a
 device), ``init_cache``, ``forward``, ``prefill`` and ``decode_step`` over
-the dense family. ``loss``, ``param_struct`` and ``input_specs`` wait for
-the training slice (ROADMAP A19); other families raise where their layers
-are built.
+the dense and ssm families. ``loss``, ``param_struct`` and ``input_specs``
+wait for the training slice (ROADMAP A19); encdec raises here, and the MoE
+and hybrid families raise where their MoE layers are built (ROADMAP A20).
 """
 from __future__ import annotations
 

@@ -8,10 +8,13 @@ ring-buffer role (fixed-capacity, single-writer).
 
 As in the reference, every step feeds each active slot the last token of
 its prompt-plus-output, and one cache position (``cache["pos"]``) is shared
-by all slots of an instance, whenever they were admitted. The reference
+by all slots of an instance, whenever they were admitted; a freed slot is
+not reset either, so a mamba model's next request in that slot starts from
+the previous occupant's SSM state and conv tails. The reference
 pins its decode to the blocked jnp path, since its Pallas kernels run only
 on a TPU; here ``impl=None`` runs the decode-attention kernel on the card
-and ``impl="torch"`` the plain version.
+and ``impl="torch"`` the plain version (mamba decode is plain PyTorch
+either way, as the reference's is).
 """
 from __future__ import annotations
 

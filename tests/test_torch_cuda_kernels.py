@@ -13,7 +13,11 @@ attention kernels do f32 math in another order than their plain versions
 f32 outputs are held to atol = rtol = 1e-5 and bf16 outputs to two bf16
 ulps (atol 2**-8, rtol 2**-6); a reduced model on the card is held to the
 same model on the CPU at atol = rtol = 1e-4 on its logits (f32 through 4
-layers, see ``test_torch_lm.py``).
+layers, see ``test_torch_lm.py``). The SSD kernel takes its decays as exp
+of differences of f32 cumulative sums of log a, summed in another order
+than the plain version's ``torch.cumsum``; at Mamba-2's decays those sums
+reach ~110 (ulp 7.6e-6), so f32 outputs are held to atol = rtol = 1e-4
+(see ``test_torch_ssd.py``).
 """
 import numpy as np
 import pytest
@@ -28,6 +32,7 @@ from repro_torch.kernels import _build, crypto, dfa_regex
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flow_lookup as fl
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels import ops, ref
 from repro_torch.models import build
 
@@ -45,6 +50,7 @@ def cuda():
 
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
+SSD_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -6)
 PAIRINGS = {"f32": (torch.float32, torch.float32),
             "bf16": (torch.bfloat16, torch.bfloat16),
@@ -292,3 +298,104 @@ def test_reduced_model_on_card_equals_cpu(cuda, name):
     n_global = sum(1 for *_, layer in card_params.all_layers()
                    if layer.spec.mixer == "attn")
     assert counts["decode_attention"] == 8 * n_global
+
+
+# -- SSD chunked scan (B7) ---------------------------------------------------------
+
+def _ssd_inputs(dev, B, S, H, P, N, dtype, c_broadcast, seed, slow=False):
+    """Mamba-2's decays at the reference's init, a = exp(-softplus(N(0,
+    1))): a 128-step chunk sums -log a past exp's f32 overflow, so a kernel
+    that took exp above the diagonal would give NaN, and the state carried
+    into a chunk is forgotten within it. ``slow`` divides -log a by 100 (a
+    trained head's slow decay): then the carry across chunks counts."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((B, S, H, P), generator=g, device=dev) * 0.5).to(dtype)
+    a = torch.exp(-torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev))
+        * (0.01 if slow else 1.0))
+    b = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.3).to(dtype)
+    if c_broadcast:
+        c = (torch.randn((B, S, 1, N), generator=g, device=dev) * 0.3).to(
+            dtype).expand(B, S, H, N)
+    else:
+        c = (torch.randn((B, S, H, N), generator=g, device=dev) * 0.3).to(
+            dtype)
+    return x, a, b, c
+
+
+@pytest.mark.parametrize("decay", ["init", "slow"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,c_broadcast", [
+    (4, 1024, 32, 64, 128, 128, True),    # mamba2-370m's prefill
+    (2, 256, 3, 8, 16, 64, False),        # the JAX test's shapes
+    (1, 96, 2, 16, 32, 32, True),
+    (2, 12, 16, 8, 16, 128, True),        # reduced mamba: one short chunk
+])
+def test_ssd_kernel_equals_plain(cuda, B, S, H, P, N, chunk, c_broadcast,
+                                 dtype, decay):
+    dt = getattr(torch, dtype)
+    x, a, b, c = _ssd_inputs(cuda, B, S, H, P, N, dt, c_broadcast, S + N,
+                             slow=decay == "slow")
+    before = _build.launch_counts()["ssd_scan"]
+    y, h = ops.ssd(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["ssd_scan"] == before + 1
+    want_y, want_h = ss.ssd_scan_torch(x, a, b, c, chunk)
+    assert bool(torch.isfinite(y.float()).all())
+    if dt == torch.bfloat16:
+        _close(y, want_y, dt)
+    else:
+        torch.testing.assert_close(y, want_y, **SSD_TOL)
+    assert h.dtype == torch.float32
+    torch.testing.assert_close(h, want_h, **SSD_TOL)
+
+
+def test_ssd_wrapper_rejects_bad_input(cuda):
+    x, a, b, c = _ssd_inputs(cuda, 1, 64, 2, 8, 16, torch.float32, True, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan_cuda(x.cpu(), a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssd_scan_cuda(x.transpose(1, 2), a, b, c)
+    with pytest.raises(ValueError, match="contiguous last"):
+        ss.ssd_scan_cuda(x, a, b, c.transpose(-1, -2))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ss.ssd_scan_cuda(x.half(), a, b, c)
+    with pytest.raises(TypeError, match="a must be"):
+        ss.ssd_scan_cuda(x, a.double(), b, c)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ss.ssd_scan_cuda(x, a, b, c, chunk=48)
+    with pytest.raises(ValueError, match="at most"):
+        wide = torch.zeros((1, 64, 2, 80), device=cuda)
+        ss.ssd_scan_cuda(wide, a, b, c)
+    long = _ssd_inputs(cuda, 1, 256, 1, 8, 16, torch.float32, True, 1)
+    with pytest.raises(ValueError, match="at most"):
+        ss.ssd_scan_cuda(*long, chunk=256)
+
+
+def test_reduced_mamba_on_card_equals_cpu(cuda):
+    """Prefill (B7 on every layer, S 256 = two chunks) and 8 decode steps
+    (plain PyTorch, no kernel) of reduced mamba2-370m, on the card against
+    the same parameters on the CPU."""
+    cfg = get_arch("mamba2-370m").reduced().replace(remat=False)
+    cpu_model, card_model = build(cfg, "cpu"), build(cfg, cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0), torch.float32)
+    card_params = cpu_model.init(torch.Generator().manual_seed(0),
+                                 torch.float32).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(3, 256)))
+    _build.reset_launch_counts()
+    lg_card, c_card = card_model.prefill(card_params,
+                                         {"tokens": toks.to(cuda)})
+    lg_cpu, c_cpu = cpu_model.prefill(params, {"tokens": toks})
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    assert _build.launch_counts()["ssd_scan"] == cfg.n_layers
+    for t in range(8):
+        nxt = toks[:, t]
+        lg_card, c_card = card_model.decode_step(card_params, c_card,
+                                                 nxt.to(cuda))
+        lg_cpu, c_cpu = cpu_model.decode_step(params, c_cpu, nxt)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4,
+                                   rtol=1e-4)
+    assert _build.launch_counts()["ssd_scan"] == cfg.n_layers
+    torch.testing.assert_close(c_card["segments"][0][0]["h"].cpu(),
+                               c_cpu["segments"][0][0]["h"], **SSD_TOL)

@@ -52,12 +52,15 @@ def test_port_imports_with_jax_unimportable():
         " 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 18
+    names = set(out.stdout.split())
+    assert len(names) >= 20
+    assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd_scan",
+            "repro_torch.configs.mamba2_370m"} <= names
 
 
 def test_entry_points_default_to_cuda():
@@ -71,6 +74,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.serving import ServingEngine
 
     cfg = get_arch("gemma3-1b").reduced()
+    ssm_cfg = get_arch("mamba2-370m").reduced()
 
     z = np.zeros((2, 5), np.int32)
     calls = [lambda: synth_packets(batch=4, num_flows=2, pkt_bytes=64),
@@ -80,6 +84,8 @@ def test_entry_points_default_to_cuda():
              lambda: ParallelDataPlane(ALL_APPS()["FW"], num_pipelines=2),
              lambda: build(cfg),
              lambda: init_lm(cfg),
+             lambda: build(ssm_cfg),
+             lambda: init_lm(ssm_cfg),
              lambda: ServingEngine(Model(cfg, torch.device("cuda")), None,
                                    num_pipelines=1)]
     if torch.cuda.is_available():

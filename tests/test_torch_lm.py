@@ -2,10 +2,14 @@
 
 Reduced gemma3-1b (local + global layers, MQA, RMSNorm), the same with a
 5th layer (a tail segment), reduced olmo-1b (GQA, non-parametric
-LayerNorm) and olmo with as many KV heads as query heads (MHA). The JAX
-package's ``init`` parameters (float32) cross over through
+LayerNorm), olmo with as many KV heads as query heads (MHA), and reduced
+mamba2-370m (4 mamba layers, no MLP; d_inner 128, H 16, N 16, P 8). The
+JAX package's ``init`` parameters (float32) cross over through
 ``convert.lm_params_from_jax``; the same token arrays go to both packages,
-JAX with ``impl="blocked"`` and the port on the CPU (the plain versions).
+JAX with ``impl="blocked"`` for the attention models and
+``impl="interpret"`` (the Pallas SSD kernel in interpret mode) for mamba,
+whose blocked path is not finite at Mamba-2's decays over a 128-step chunk
+(``test_torch_ssd.py``), and the port on the CPU (the plain versions).
 
 Tolerances, from the arithmetic: both sides do f32 math with sums in other
 orders (blocked vs whole attention, other einsum/matmul orders). Through 4-5
@@ -20,7 +24,15 @@ output projection (weights ~1/8) and the later layers carry into the
 logits at up to ~1e-3, so those logits are held to atol = rtol = 2e-3.
 The port's own
 decode-vs-forward check uses the reference test's tolerance (atol 5e-4,
-rtol 1e-3).
+rtol 1e-3). Mamba's chunked scan takes its decays as exp of differences of
+f32 cumulative sums (relative error ~1e-5 per decay, against the oracle's
+products; ``test_torch_ssd.py``), inside the same 1e-4 through 4 layers.
+A mamba layer's SSM state and, with f32 parameters, its conv tails stay
+f32 in a bf16 cache, so mamba's prefill caches are held to TOL whatever
+the cache dtype. torch's softplus returns x above its threshold of 20
+where JAX's is logaddexp(x, 0); they differ by under 2e-9 there, below
+f32's spacing at 20, and by at most two f32 ulps below it
+(``test_softplus_agrees_with_reference``).
 """
 import jax
 import jax.numpy as jnp
@@ -45,7 +57,13 @@ VARIANTS = {
     "gemma3-1b-tail": ("gemma3-1b", {"n_layers": 5}),
     "olmo-1b": ("olmo-1b", {}),
     "olmo-1b-mha": ("olmo-1b", {"n_kv_heads": 4}),
+    "mamba2-370m": ("mamba2-370m", {}),
 }
+
+
+def _impl(variant):
+    """The JAX path each variant is held against."""
+    return "interpret" if variant.startswith("mamba") else "blocked"
 
 
 def _cfgs(variant):
@@ -69,8 +87,20 @@ def _tokens(rng, cfg, shape):
     return rng.integers(0, cfg.vocab, size=shape).astype(np.int32)
 
 
+def _dtype_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _dtype_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_dtype_tree(v) for v in tree]
+    return str(tree.dtype).split(".")[-1]
+
+
 def _assert_cache_equal(got, want, tol):
+    """Same pos, same leaves in the same order with the same dtypes, and
+    values within ``tol``."""
     assert got["pos"] == int(want["pos"])
+    assert jax.tree.leaves(_dtype_tree(got["segments"])) == \
+        jax.tree.leaves(_dtype_tree(want["segments"]))
     got_np = convert.lm_cache_to_numpy(got)
     a = jax.tree.leaves(got_np)
     b = jax.tree.leaves(jax.tree.map(lambda x: np.asarray(x, np.float32),
@@ -102,7 +132,7 @@ def test_schedule_and_layer_order_follow_the_scan():
 def test_forward_equals_reference(variant):
     jcfg, tcfg, _, jparams, _, params = _setup(variant)
     toks = _tokens(np.random.default_rng(1), tcfg, (2, 24))
-    jx = jlm.forward(jcfg, jparams, jnp.asarray(toks), impl="blocked")
+    jx = jlm.forward(jcfg, jparams, jnp.asarray(toks), impl=_impl(variant))
     want = np.asarray(jlm.logits(jcfg, jparams, jx))
     x = lm.forward(tcfg, params, torch.from_numpy(toks))
     got = lm.logits(tcfg, params, x).numpy()
@@ -115,20 +145,21 @@ def test_forward_equals_reference(variant):
 def test_prefill_then_12_decode_steps_equal_reference(variant, cache_dtype):
     jcfg, tcfg, jmodel, jparams, model, params = _setup(variant)
     jdt, tdt = getattr(jnp, cache_dtype), getattr(torch, cache_dtype)
-    tol = BF16_TOL if cache_dtype == "bfloat16" else TOL
-    lg_tol = BF16_CACHE_LOGIT_TOL if cache_dtype == "bfloat16" else TOL
+    bf16 = cache_dtype == "bfloat16" and tcfg.family != "ssm"
+    tol = BF16_TOL if bf16 else TOL
+    lg_tol = BF16_CACHE_LOGIT_TOL if bf16 else TOL
     rng = np.random.default_rng(2)
     B, S, max_len = 2, 20, 32
     toks = _tokens(rng, tcfg, (B, S))
     jlg, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
-                                 max_len=max_len, impl="blocked",
+                                 max_len=max_len, impl=_impl(variant),
                                  cache_dtype=jdt)
     lg, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)},
                               max_len=max_len, cache_dtype=tdt)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
     _assert_cache_equal(cache, jcache, tol)
     jstep = jax.jit(lambda p, c, t: jmodel.decode_step(p, c, t,
-                                                       impl="blocked"))
+                                                       impl=_impl(variant)))
     for i in range(12):
         t = _tokens(rng, tcfg, (B,))
         jlg, jcache = jstep(jparams, jcache, jnp.asarray(t))
@@ -202,18 +233,19 @@ def test_init_draws_reference_distributions():
 
 
 def test_unported_families_raise():
-    with pytest.raises(KeyError, match="ROADMAP A18"):
-        get_arch("mamba2-370m")
+    with pytest.raises(KeyError, match="ROADMAP A20"):
+        get_arch("jamba-1.5-large-398b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
-    cfg = ARCHS["mamba2-370m"].reduced()
+    cfg = ARCHS["moonshot-v1-16b-a3b"].reduced()
     from repro_torch.configs.base import ArchConfig
     tcfg = ArchConfig(**cfg.__dict__)
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
         lm.init_lm(tcfg, torch.Generator(), torch.float32, "cpu")
 
 
-@pytest.mark.parametrize("variant", ["gemma3-1b", "olmo-1b-mha"])
+@pytest.mark.parametrize("variant", ["gemma3-1b", "olmo-1b-mha",
+                                     "mamba2-370m"])
 def test_decode_continues_from_reference_cache(variant):
     """The reference's prefill cache, carried across by
     ``convert.lm_cache_from_jax``, decodes in the port as in the
@@ -222,7 +254,7 @@ def test_decode_continues_from_reference_cache(variant):
     rng = np.random.default_rng(6)
     toks = _tokens(rng, tcfg, (2, 18))
     _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
-                               max_len=24, impl="blocked",
+                               max_len=24, impl=_impl(variant),
                                cache_dtype=jnp.float32)
     cache = convert.lm_cache_from_jax(jax.tree.map(np.asarray, jcache),
                                       device="cpu")
@@ -230,7 +262,114 @@ def test_decode_continues_from_reference_cache(variant):
     for _ in range(4):
         t = _tokens(rng, tcfg, (2,))
         jlg, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(t),
-                                         impl="blocked")
+                                         impl=_impl(variant))
         lg, cache = model.decode_step(params, cache, torch.from_numpy(t))
         np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
     _assert_cache_equal(cache, jcache, TOL)
+
+
+# -- mamba2-370m (ssm family) ------------------------------------------------------
+
+@pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("S", [12, 256])
+def test_mamba_prefill_and_decode_equal_reference(S, cache_dtype):
+    """Prefill at S = 12 (one short chunk) and S = 256 (the state carried
+    across a 128-step chunk, at decays whose chunk sums pass exp's f32
+    overflow), every cache leaf with its dtype, then 12 decode steps."""
+    jcfg, tcfg, jmodel, jparams, model, params = _setup("mamba2-370m",
+                                                        seed=7)
+    jdt, tdt = getattr(jnp, cache_dtype), getattr(torch, cache_dtype)
+    rng = np.random.default_rng(8)
+    B = 2
+    toks = _tokens(rng, tcfg, (B, S))
+    jlg, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                                 impl="interpret", cache_dtype=jdt)
+    lg, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                              cache_dtype=tdt)
+    assert np.isfinite(np.asarray(jlg)).all()
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
+    c = cache["segments"][0][0]
+    assert {k: (tuple(t.shape), t.dtype) for k, t in c.items()} == {
+        "conv_x": ((4, B, 3, 128), torch.float32),
+        "conv_BC": ((4, B, 3, 32), torch.float32),
+        "h": ((4, B, 16, 16, 8), torch.float32)}
+    _assert_cache_equal(cache, jcache, TOL)
+    jstep = jax.jit(lambda p, c, t: jmodel.decode_step(p, c, t))
+    for i in range(12):
+        t = _tokens(rng, tcfg, (B,))
+        jlg, jcache = jstep(jparams, jcache, jnp.asarray(t))
+        lg, cache = model.decode_step(params, cache, torch.from_numpy(t))
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL,
+                                   err_msg=f"decode step {i}")
+    _assert_cache_equal(cache, jcache, TOL)
+
+
+def test_mamba_bf16_cache_tails_promote_like_reference():
+    """``init_cache(dtype=bf16)`` gives bf16 conv tails beside the f32
+    state; the reference's decode concatenates them with f32 rows, so they
+    come back f32 after one step. The port promotes the stacked leaves
+    once and writes them in place after that: the same values and dtypes
+    over 12 steps."""
+    jcfg, tcfg, jmodel, jparams, model, params = _setup("mamba2-370m",
+                                                        seed=9)
+    jcache, _ = jmodel.init_cache(2, 16, jnp.bfloat16)
+    cache = model.init_cache(2, 16, torch.bfloat16)
+    _assert_cache_equal(cache, jcache, dict(atol=0, rtol=0))
+    assert cache["segments"][0][0]["conv_x"].dtype == torch.bfloat16
+    assert cache["segments"][0][0]["h"].dtype == torch.float32
+    rng = np.random.default_rng(10)
+    for i in range(12):
+        t = _tokens(rng, tcfg, (2,))
+        jlg, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(t))
+        lg, cache = model.decode_step(params, cache, torch.from_numpy(t))
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL,
+                                   err_msg=f"decode step {i}")
+        _assert_cache_equal(cache, jcache, TOL)
+    assert cache["segments"][0][0]["conv_x"].dtype == torch.float32
+
+
+def test_mamba_short_prompt_tails_mirror_reference():
+    """S < K - 1: the reference's tail slice starts at ``S - (K - 1)``, a
+    negative index, so at S = 2 it keeps the last row only; the port
+    mirrors it (not fixed) and, as the reference does, cannot decode from
+    such a cache."""
+    jcfg, tcfg, jmodel, jparams, model, params = _setup("mamba2-370m",
+                                                        seed=11)
+    toks = _tokens(np.random.default_rng(12), tcfg, (2, 2))
+    _, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                               impl="interpret", cache_dtype=jnp.float32)
+    _, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                             cache_dtype=torch.float32)
+    assert cache["segments"][0][0]["conv_x"].shape == (4, 2, 1, 128)
+    _assert_cache_equal(cache, jcache, TOL)
+    with pytest.raises(RuntimeError):
+        model.decode_step(params, cache, torch.zeros(2, dtype=torch.long))
+
+
+def test_to_module_keeps_mixed_trees():
+    """A mamba layer's tree mixes sub-dicts with bare tensors; to_module
+    makes the tensors parameters under their own keys, and indexes and
+    answers ``in`` as the dict did."""
+    from repro_torch.models.layers import to_module
+    tree = {"z": {"w": torch.ones(2, 3)}, "A_log": torch.zeros(4),
+            "norm": {"scale": torch.ones(3)}, "empty": {}}
+    m = to_module(tree)
+    assert sorted(n for n, _ in m.named_parameters()) == [
+        "A_log", "norm.scale", "z.w"]
+    assert torch.equal(m["A_log"], tree["A_log"])
+    assert torch.equal(m["z"]["w"], tree["z"]["w"])
+    assert not m["A_log"].requires_grad
+    assert "A_log" in m and "z" in m and "w" in m["z"]
+    assert "b" not in m["z"] and "w" not in m
+
+
+def test_softplus_agrees_with_reference():
+    """The dt gate: torch's softplus (x itself above 20) against JAX's
+    logaddexp(x, 0) in f32. Above 20 they differ by under 2e-9, below the
+    f32 spacing there, so they are equal; below it the two libraries'
+    exp/log1p differ by up to ~1.3 f32 ulps (held to two, rtol 2**-22)."""
+    x = np.linspace(-40.0, 60.0, 20001, dtype=np.float32)
+    got = torch.nn.functional.softplus(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.nn.softplus(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, atol=0, rtol=2.0 ** -22)
+    np.testing.assert_array_equal(got[x > 20], want[x > 20])

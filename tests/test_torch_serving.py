@@ -3,9 +3,9 @@ package.
 
 * ``plan_serving`` gives the same replication factors R and pipeline count
   as the reference for the same latency dict, and the stage names agree.
-* ``ServingEngine.run`` on reduced gemma3-1b, with the reference's ``init``
-  parameters carried across, completes the same requests in the same order
-  with the same tokens. Greedy tokens may differ only where the choice was a
+* ``ServingEngine.run`` on reduced gemma3-1b and reduced mamba2-370m, with
+  the reference's ``init`` parameters carried across, completes the same
+  requests in the same order with the same tokens. Greedy tokens may differ only where the choice was a
   near tie: the rule is that a request's tokens agree up to its first
   difference, and there the port's top-1/top-2 logit margin is under
   MARGIN_TOL = 2e-4, twice the logit tolerance of ``test_torch_lm.py``
@@ -36,6 +36,7 @@ MARGIN_TOL = 2e-4
     ("gemma3-1b", [2.4e-3, 2.1e-4]),
     ("gemma3-1b", [1e-3, 1e-3]),
     ("olmo-1b", [5e-3]),
+    ("mamba2-370m", [3e-3]),
 ])
 def test_plan_serving_equals_reference(name, latencies):
     jcfg, tcfg = ARCHS[name], get_arch(name)
@@ -75,10 +76,9 @@ def assert_tokens_agree(got, want, margin_tol):
     return compared
 
 
-@pytest.mark.parametrize("pipelines,slots,requests", [(1, 8, 16), (3, 4, 10)])
-def test_engine_run_equals_reference(pipelines, slots, requests):
-    jcfg = ARCHS["gemma3-1b"].reduced().replace(remat=False)
-    tcfg = get_arch("gemma3-1b").reduced().replace(remat=False)
+def _engines_agree(arch, pipelines, slots, requests):
+    jcfg = ARCHS[arch].reduced().replace(remat=False)
+    tcfg = get_arch(arch).reduced().replace(remat=False)
     jmodel = jbuild(jcfg)
     jparams, _ = jmodel.init(jax.random.PRNGKey(0), jnp.float32)
     params = convert.lm_params_from_jax(
@@ -106,6 +106,18 @@ def test_engine_run_equals_reference(pipelines, slots, requests):
         [int(p.cache["pos"]) for p in jeng.pipelines]
 
 
+@pytest.mark.parametrize("pipelines,slots,requests", [(1, 8, 16), (3, 4, 10)])
+def test_engine_run_equals_reference(pipelines, slots, requests):
+    _engines_agree("gemma3-1b", pipelines, slots, requests)
+
+
+@pytest.mark.parametrize("pipelines,slots,requests", [(1, 8, 16), (3, 4, 10)])
+def test_mamba_engine_run_equals_reference(pipelines, slots, requests):
+    """Reduced mamba2-370m. Freed slots are reused without resetting their
+    SSM state and conv tails, in both packages; tokens still agree."""
+    _engines_agree("mamba2-370m", pipelines, slots, requests)
+
+
 def test_serve_main_on_cpu(capsys):
     """The serve entry point end to end on the CPU at the reference's
     defaults (reduced gemma3-1b): every request completes with its
@@ -118,6 +130,32 @@ def test_serve_main_on_cpu(capsys):
     assert "[serve] Meili plan:" in out and "6/6 requests" in out
     assert serve.main(["--arch", "olmo-1b", "--reduced", "--device", "cpu",
                        "--requests", "2", "--tokens", "2"]) == 0
+
+
+def test_serve_mamba_on_cpu(capsys):
+    """``launch.serve --arch mamba2-370m --reduced --device cpu`` at the
+    reference's defaults: the planner profiles the single mamba segment
+    (Algorithm 1 gives R = 1, one pipeline) and the engine serves all 16
+    requests, 16 tokens each."""
+    rep = serve.run(["--arch", "mamba2-370m", "--reduced", "--device", "cpu"])
+    assert rep.plan.stages == ["seg0[mamba/none]x4"]
+    assert rep.plan.R == {"seg0[mamba/none]x4": 1}
+    assert rep.plan.num_pipelines == 1
+    assert len(rep.done) == 16 and rep.tokens == 256
+    assert "16/16 requests" in capsys.readouterr().out
+
+
+def test_segment_latencies_profile_every_layer_cache():
+    """The per-segment profiler hands each layer its own cache slice, so it
+    times a mamba segment (conv tails and SSM state) as it times attention
+    segments: one positive latency per segment."""
+    for arch in ("mamba2-370m", "gemma3-1b"):
+        cfg = get_arch(arch).reduced().replace(remat=False)
+        model = build(cfg, "cpu")
+        params = model.init(torch.Generator().manual_seed(0), torch.float32)
+        lat = serve.measure_segment_latencies(model, params, 2, 8)
+        assert list(lat) == planner.segment_stage_names(cfg)
+        assert all(v > 0 for v in lat.values())
 
 
 def test_serve_defaults_to_the_card():

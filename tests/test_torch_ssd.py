@@ -1,0 +1,180 @@
+"""Port SSD scan (``ops.ssd``'s plain version) held against the JAX package.
+
+The same numpy inputs go to the port on the CPU (``ssd_scan_torch``, the
+chunked algorithm the CUDA kernel computes), to JAX's step-by-step oracle
+``ref.ssd_ref`` and to the Pallas kernel in interpret mode
+(``ops.ssd(impl="interpret")``).
+
+Tolerance, from the arithmetic: the chunked algorithm takes each decay as
+exp(cl_t - cl_s) of two f32 cumulative sums of log a; with Mamba-2's
+decays a chunk's sums reach ~110 (f32 ulp 7.6e-6), so a decay carries a
+relative error of ~1e-5 where the oracle multiplies the a's one by one,
+and the interpret kernel and the port sum in other orders. y is a sum of
+such terms: held to atol = rtol = 1e-4 (a chunked f32 scan at
+mamba2-370m's widths, S 1,024, N 128, P 64, lies within 5.3e-5 of an f64
+recurrence on |y| up to 15). At the JAX test's decays (a in [0.5, 0.999])
+the sums stay under ~90 and the same tolerance holds with room.
+
+Realistic decays are a = exp(-softplus(N(0, 1))), Mamba-2's at init: a
+128-step chunk then sums -log a to ~105-111, past exp's f32 overflow at
+~88.7. There the port must stay finite and equal the oracle and the
+interpret kernel, while the reference's blocked path (which takes exp
+above the diagonal and masks afterwards) is not finite: that test pins
+the caveat.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ss
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _inputs(seed, B, S, H, P, N, realistic, c_broadcast=False, slow=False):
+    """``realistic``: a = exp(-softplus(N(0, 1))), the reference's init;
+    with ``slow`` -log a is divided by 100 (a trained head's slow decay),
+    so the state carried into a chunk is not forgotten within it."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, S, H, P)) * 0.5).astype(np.float32)
+    if realistic:
+        dt = np.log1p(np.exp(rng.standard_normal((B, S, H))))
+        a = np.exp(-dt * (0.01 if slow else 1.0)).astype(np.float32)
+    else:
+        a = rng.uniform(0.5, 0.999, size=(B, S, H)).astype(np.float32)
+    b = (rng.standard_normal((B, S, H, N)) * 0.3).astype(np.float32)
+    if c_broadcast:
+        c = np.broadcast_to((rng.standard_normal((B, S, 1, N)) * 0.3)
+                            .astype(np.float32), (B, S, H, N))
+    else:
+        c = (rng.standard_normal((B, S, H, N)) * 0.3).astype(np.float32)
+    return x, a, b, c
+
+
+def _jax(impl, x, a, b, c, chunk):
+    args = [jnp.asarray(np.ascontiguousarray(v)) for v in (x, a, b, c)]
+    if impl == "ref":
+        y, h = jref.ssd_ref(*args)
+    else:
+        y, h = jops.ssd(*args, impl=impl, chunk=chunk)
+    return np.asarray(y), np.asarray(h)
+
+
+def _port(x, a, b, c, chunk, impl=None):
+    t = [torch.from_numpy(np.ascontiguousarray(v)) for v in (x, a, b, c)]
+    if c.strides[2] == 0:             # keep the broadcast as a view
+        t[3] = torch.from_numpy(c[:, :, :1].copy()).expand(
+            c.shape)
+    y, h = ops.ssd(*t, chunk=chunk, impl=impl)
+    return y.numpy(), h.numpy()
+
+
+CASES = {
+    # the JAX test's shapes and chunks (tests/test_kernels.py::test_ssd_vs_ref)
+    "jax-1": (1, 128, 2, 16, 32, 32, False),
+    "jax-2": (2, 256, 3, 8, 16, 64, False),
+    "jax-3": (1, 64, 1, 32, 64, 64, False),
+    # the state carried across a 128-step chunk
+    "carry-256": (2, 256, 2, 8, 16, 128, False),
+    # Mamba-2's decays: a chunk's summed -log a exceeds 88
+    "realistic-256": (1, 256, 2, 8, 16, 128, True),
+    "realistic-mamba-widths": (1, 256, 2, 64, 128, 128, True),
+    # slow decays: the carried state reaches every row of the next chunk
+    "slow-carry-256": (2, 256, 2, 8, 16, 64, "slow"),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_ssd_plain_equals_reference_and_interpret(case):
+    B, S, H, P, N, chunk, realistic = CASES[case]
+    x, a, b, c = _inputs(list(CASES).index(case), B, S, H, P, N,
+                         bool(realistic), c_broadcast=bool(realistic),
+                         slow=realistic == "slow")
+    got_y, got_h = _port(x, a, b, c, chunk)
+    assert got_y.shape == (B, S, H, P) and got_h.shape == (B, H, N, P)
+    assert got_y.dtype == np.float32 and got_h.dtype == np.float32
+    assert np.isfinite(got_y).all() and np.isfinite(got_h).all()
+    for impl in ("ref", "interpret"):
+        want_y, want_h = _jax(impl, x, a, b, c, chunk)
+        np.testing.assert_allclose(got_y, want_y, **TOL, err_msg=impl)
+        np.testing.assert_allclose(got_h, want_h, **TOL, err_msg=impl)
+    # the port's own oracle agrees too
+    ry, rh = ref.ssd_ref(*(torch.from_numpy(np.ascontiguousarray(v))
+                           for v in (x, a, b, c)))
+    np.testing.assert_allclose(got_y, ry.numpy(), **TOL)
+    np.testing.assert_allclose(got_h, rh.numpy(), **TOL)
+
+
+def test_realistic_decays_overflow_the_reference_blocked_path():
+    """The reference caveat the port designs around: at Mamba-2's decays a
+    128-step chunk's summed -log a passes 88.7, and the reference's blocked
+    path (``ops._ssd_blocked``) returns NaN in y, while the port's plain
+    version (mask before exp) is finite and equal to the oracle."""
+    B, S, H, P, N, chunk = 1, 256, 2, 8, 16, 128
+    x, a, b, c = _inputs(0, B, S, H, P, N, realistic=True)
+    sums = -np.log(a.astype(np.float64)).reshape(B, S // chunk, chunk, H)
+    assert sums.sum(axis=2).max() > 88.7
+    blocked_y, _ = _jax("blocked", x, a, b, c, chunk)
+    assert not np.isfinite(blocked_y).all()
+    got_y, _ = _port(x, a, b, c, chunk)
+    assert np.isfinite(got_y).all()
+    np.testing.assert_allclose(got_y, _jax("ref", x, a, b, c, chunk)[0],
+                               **TOL)
+
+
+def test_ssd_bf16_inputs_widen_like_reference():
+    """bf16 x, b, c: f32 math on the widened values, y back in bf16 (two
+    bf16 ulps), h in f32."""
+    x, a, b, c = _inputs(3, 1, 128, 2, 16, 32, realistic=True)
+    to_bf16 = lambda v: np.asarray(jnp.asarray(v, jnp.bfloat16))
+    xb, bb, cb = (to_bf16(v) for v in (x, b, c))
+    want_y, want_h = _jax("interpret", xb, a, bb, cb, 64)
+    t = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(
+        torch.bfloat16)
+    y, h = ops.ssd(t(xb), torch.from_numpy(a), t(bb), t(cb), chunk=64)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    np.testing.assert_allclose(y.float().numpy(),
+                               np.asarray(want_y, np.float32),
+                               atol=2.0 ** -8, rtol=2.0 ** -6)
+    np.testing.assert_allclose(h.numpy(), want_h, **TOL)
+
+
+def test_ssd_rejects_what_the_reference_asserts():
+    x, a, b, c = (torch.from_numpy(np.ascontiguousarray(v))
+                  for v in _inputs(4, 1, 96, 1, 8, 16, realistic=False))
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ops.ssd(x, a, b, c, chunk=64)
+    y, _ = ops.ssd(x, a, b, c, chunk=256)       # chunk = min(chunk, S)
+    assert y.shape == x.shape
+    with pytest.raises(ValueError, match="> 0"):
+        ops.ssd(x, torch.zeros_like(a), b, c, chunk=32)
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.ssd(x, a, b, c, impl="blocked")
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan_cuda(x, a, b, c)
+
+
+def test_work_counts_the_triangle_and_the_state_products():
+    """The bound counts the recurrence's 5·N·P flops per step and head, not
+    the chunked form's triangle and state products, which cost more: at
+    the path's shape 5.37 GFLOP against 7.54. Bytes read c once when it is
+    broadcast over H, once per head when it is not."""
+    B, S, H, P, N, T = 4, 1024, 32, 64, 128, 128
+    x = torch.empty(B, S, H, P, device="meta")
+    b = torch.empty(B, S, H, N, device="meta")
+    c = torch.empty(B, S, 1, N, device="meta").expand(B, S, H, N)
+    flops, nbytes = ss.work(x, b, c)
+    assert flops == 5 * B * S * H * N * P == 5_368_709_120
+    pairs = T * (T + 1) // 2
+    chunked = B * H * (S // T) * (pairs * 2 * (N + P) + 4 * T * N * P)
+    assert chunked == 7_541_358_592 and flops < chunked
+    assert nbytes == (B * S * H * P * 8 + B * S * H * 4 + B * S * H * N * 4
+                      + B * S * N * 4 + B * H * N * P * 4)
+    _, nbytes_full = ss.work(x, b, c.contiguous())
+    assert nbytes_full - nbytes == B * S * (H - 1) * N * 4
+    _, nbytes_bf16 = ss.work(x.bfloat16(), b, c)
+    assert nbytes - nbytes_bf16 == B * S * H * P * 4
