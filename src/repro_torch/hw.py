@@ -26,14 +26,21 @@ SMEM_PER_BLOCK_MAX = 232_448   # bytes (227 KB), dynamic shared memory only
 # Peak of the CUDA cores outside the tensor cores: 67 TFLOP/s fp32. The
 # port's NIC kernels do 32-bit integer ALU work (hash mixing, ARX rounds,
 # DFA stepping); it is counted against this rate, which no integer pipe of
-# the card exceeds, so a bound from it is a true lower bound on time. f32
-# floating-point work is counted against it too: exact f32 products do not
-# run on the tensor cores.
+# the card exceeds, so a bound from it is a true lower bound on time.
 PEAK_ALU_OPS = 67e12
 # Dense tensor-core peaks: bf16 (and fp16) operands, and TF32 (f32 operands
-# rounded to a 10-bit mantissa; the port's f32 math never does that).
+# rounded to a 10-bit mantissa).
 PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_TF32_TENSOR_FLOPS = 495e12
+# f32-accurate products run on the tensor cores too, as 3xTF32: each f32
+# operand splits into a TF32 high part and a TF32 residual, and three
+# products (hi·hi, hi·lo, lo·hi) are summed in f32. That is CUTLASS's
+# arch::OpMultiplyAddFastF32, which PyTorch's memory-efficient attention
+# uses for float inputs on sm_80 and later (ATen/native/transformers/cuda/
+# mem_eff_attention/gemm_kernel_utils.h), and B5 and B7 use it. So the
+# fastest f32-accurate route on the card is a third of the TF32 rate, 165
+# TFLOP/s, not the CUDA cores' 67.
+PEAK_F32_TENSOR_FLOPS = PEAK_TF32_TENSOR_FLOPS / 3
 
 # --- Meili paper cluster calibration (§8 methodology, Figs 2/9/15) -----------
 NIC_LINK_GBPS = 100.0
@@ -64,10 +71,11 @@ def device_spec(index: int = 0) -> DeviceSpec:
 def peak_flops(*dtypes: torch.dtype) -> float:
     """The peak that holds for a product of operands of these dtypes: the
     bf16 tensor-core rate when every operand is bfloat16 or float16, else
-    the f32 rate of the CUDA cores (an f32 operand keeps the math in f32)."""
+    the f32-accurate tensor-core rate (3xTF32; an f32 operand keeps the
+    math f32-accurate)."""
     if dtypes and all(d in (torch.bfloat16, torch.float16) for d in dtypes):
         return PEAK_BF16_TENSOR_FLOPS
-    return PEAK_ALU_OPS
+    return PEAK_F32_TENSOR_FLOPS
 
 
 def bound_seconds(nbytes: float, ops: float = 0.0,

@@ -4,8 +4,8 @@ Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
 process, all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. The build runs at
 first use, never at import, into ``build/kernels/<hash>/`` under the
-checkout, where ``<hash>`` covers the sources and the flags, so an edited
-source rebuilds and an unchanged one is loaded as it is. A missing ``nvcc``
+checkout, where ``<hash>`` covers the sources, the headers they include
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an unchanged one is loaded as it is. A missing ``nvcc``
 or a failed compile raises; nothing falls back to the plain versions.
 
 Each kernel wrapper calls ``launch(name, ...)``, which counts one launch of
@@ -44,10 +44,10 @@ SIGNATURES = {
     "meili_arx_cipher": [_P, _I64, _I64, _P, _P, _P],
     "meili_keyed_hash": [_P, _I64, _I64, _P, _P, _P],
     "meili_flash_attention": [_P, _P, _P, _P] + [_I32] * 8 + [_F32]
-                             + [_I32] * 3 + [_P],
+                             + [_I32] * 3 + [_P] * 3,
     "meili_decode_attention": [_P] * 7 + [_I32] * 7 + [_F32] + [_I32] * 3
                               + [_P],
-    "meili_ssd_scan": [_P] * 6 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [_P],
+    "meili_ssd_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [_P],
 }
 # Kernel name (as counted and reported) -> C launcher.
 KERNELS = {
@@ -68,9 +68,13 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -12,6 +12,8 @@ the kernel's oracle on the card. ``ops.attention`` picks between them.
 """
 from __future__ import annotations
 
+import functools
+import heapq
 from typing import Optional, Tuple
 
 import torch
@@ -20,8 +22,8 @@ from repro_torch import hw
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-BLOCK_Q = 64          # query rows per CUDA block
-BLOCK_K = 64          # keys per CUDA tile
+BLOCK_ROWS = 128      # (query position, query head) rows per CUDA block
+BLOCK_K = 16          # keys per CUDA tile, double-buffered
 HEAD_DIMS = (64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -90,11 +92,72 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def smem_bytes(head_dim: int) -> int:
-    """Shared memory of one block: Q and K tiles (rows padded by 4 floats),
-    the V tile and the probability tile, all f32."""
+    """Shared memory of one block, all f32: the Q rows, two stages of a K
+    tile and a V tile (V rows padded by 4 floats as they land), and the
+    current tile's K lo and Vᵀ lo (229,888 B at D 256)."""
     D = head_dim
-    return 4 * (BLOCK_Q * (D + 4) + BLOCK_K * (D + 4) + BLOCK_K * D
-                + BLOCK_Q * (BLOCK_K + 1))
+    return 4 * (BLOCK_ROWS * D + 2 * BLOCK_K * (2 * D + 4)
+                + 2 * BLOCK_K * D)
+
+
+def block_rows(Hq: int, Hkv: int) -> Tuple[int, int]:
+    """(query positions, head groups) of the kernel's blocks: the G = Hq /
+    Hkv query heads of a KV head fold into a block's BLOCK_ROWS rows, so a
+    block holds BLOCK_ROWS // G positions (G <= BLOCK_ROWS), and a KV head
+    needs ceil(G / BLOCK_ROWS) head groups."""
+    G = Hq // Hkv
+    Gb = min(G, BLOCK_ROWS)
+    return BLOCK_ROWS // Gb, -(-G // Gb)
+
+
+BLOCK_START_TILES = 2   # a block's Q load and first fetch, in key tiles
+
+
+def _makespan(sizes, sms: int) -> int:
+    """Time, in key tiles, of blocks of these sizes on ``sms`` SMs, each
+    taking the next block when it is free, longest first; every block also
+    pays BLOCK_START_TILES."""
+    sizes = sorted((s + BLOCK_START_TILES for s in sizes), reverse=True)
+    if len(sizes) <= sms:
+        return sizes[0] if sizes else 0
+    free = [0] * sms
+    for s in sizes:
+        heapq.heappush(free, heapq.heappop(free) + s)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=256)
+def key_split(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, causal: bool,
+              window: Optional[int], sms: int) -> Tuple[int, int]:
+    """(kmax, max_parts): the most key tiles one block walks, and the most
+    blocks a query tile's key range is split over (then combined). The
+    causal grid's query tiles see from 1 to Sk / BLOCK_K key tiles, and
+    with as many blocks as SMs the longest sets the time. A query tile of
+    more than kmax tiles is cut into ceil(tiles / kmax) near-equal ranges;
+    kmax is the longest range, or a half, third or quarter of it, whichever
+    gives the shortest makespan (``_makespan``; one more tile charged for
+    the combine); nothing is split when that does not help."""
+    PB, groups = block_rows(Hq, Hkv)
+    tiles = []
+    for p0 in range(0, Sq, PB):
+        lo, hi = key_range(p0, min(p0 + PB, Sq), Sq, Sk, causal, window)
+        tiles.append(-(-hi // BLOCK_K) - lo // BLOCK_K if hi > lo else 0)
+    longest = max(tiles)
+    copies = B * Hkv * groups
+    best = (_makespan(tiles * copies, sms), max(longest, 1), 1)
+    for k in (2, 3, 4):
+        kmax = -(-longest // k)
+        if kmax < 1 or kmax >= longest:
+            continue
+        sizes = []
+        for t in tiles:
+            parts = -(-t // kmax) if t > kmax else 1
+            ln = -(-t // parts)
+            sizes += [min(ln, t - j * ln) for j in range(parts)]
+        span = _makespan(sizes * copies, sms) + 1
+        if span < best[0]:
+            best = (span, kmax, -(-longest // kmax))
+    return best[1], best[2]
 
 
 def check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -116,7 +179,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernel; every tensor contiguous on one CUDA device."""
+    """Launch the CUDA kernel; every tensor contiguous on one CUDA device.
+    Long causal key ranges are split over blocks (``key_split``) and a
+    second kernel combines them, on scratch allocated here; the call counts
+    as one launch of ``flash_attention``."""
     name = "flash_attention"
     dev = _build.require_cuda(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -134,18 +200,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if smem_bytes(D) > hw.SMEM_PER_BLOCK_MAX:
         raise ValueError(f"{name}: head dim {D} needs {smem_bytes(D)} B of "
                          f"shared memory, more than a block can have")
-    if max(B, Hq) > 65535:
-        raise ValueError(f"{name}: B={B}, Hq={Hq} exceed the grid")
+    if max(B, Hkv) > 65535:
+        raise ValueError(f"{name}: B={B}, Hkv={Hkv} exceed the grid")
     scale = float(scale) if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     if B * Sq == 0:
         return out
-    _build.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    kmax, parts = key_split(B, Sq, Sk, Hq, Hkv, causal, window,
+                            hw.device_spec(dev.index or 0).sms)
+    o_part = ml_part = None
+    if parts > 1:     # scratch of the split query tiles, combined in-kernel
+        o_part = torch.empty((parts, B, Sq, Hq, D), dtype=torch.float32,
+                             device=dev)
+        ml_part = torch.empty((parts, B, Sq, Hq, 2), dtype=torch.float32,
+                              device=dev)
+    # the kernel's row copies move bytes as they are: bf16 K/V are widened
+    # here (exactly) and read as f32
+    k32, v32 = k.float(), v.float()
+    _build.launch(name, dev, q.data_ptr(), k32.data_ptr(), v32.data_ptr(),
                   out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal),
                   0 if window is None else int(window), scale,
-                  int(q.dtype == torch.bfloat16),
-                  int(k.dtype == torch.bfloat16),
-                  int(v.dtype == torch.bfloat16))
+                  int(q.dtype == torch.bfloat16), kmax, parts,
+                  o_part.data_ptr() if parts > 1 else None,
+                  ml_part.data_ptr() if parts > 1 else None)
     return out
 
 

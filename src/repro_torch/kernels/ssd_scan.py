@@ -84,6 +84,9 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     """Launch the CUDA kernel. x, a and b contiguous on one CUDA device; c
     may be any strided view whose last dimension is contiguous (the mixer
     passes one (B, S, N) tensor broadcast over H, stride 0, not a copy).
+    The C launcher runs the chunked form's three steps (chunk states, state
+    passing, chunk scan) on scratch allocated here; it counts as one
+    launch of ``ssd_scan``.
     The decays are not checked for a > 0 here: that would synchronize the
     host on every layer."""
     name = "ssd_scan"
@@ -115,9 +118,15 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
     if B * H == 0:
         return y, h
+    # scratch of the chunked form: each chunk's state, then (in place) the
+    # state entering it; and cl = cumsum(log a) within each chunk
+    states = torch.empty((B, H, S // T, N, P), dtype=torch.float32,
+                         device=dev)
+    cl = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     _build.launch(name, dev, x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                  c.data_ptr(), y.data_ptr(), h.data_ptr(), B, S, H, P, N,
-                  T, c.stride(0), c.stride(1), c.stride(2),
+                  c.data_ptr(), y.data_ptr(), h.data_ptr(), states.data_ptr(),
+                  cl.data_ptr(), B, S, H, P, N, T, c.stride(0), c.stride(1),
+                  c.stride(2),
                   int(x.dtype == torch.bfloat16),
                   int(b.dtype == torch.bfloat16),
                   int(c.dtype == torch.bfloat16))

@@ -126,6 +126,103 @@ def test_flash_plain_block_size_does_not_change_result(block_k):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **F32_TOL)
 
 
+def test_key_split_balances_the_causal_grid():
+    """The kernel's blocks take BLOCK_ROWS (position, head) rows; at
+    gemma3-1b's causal prefill (B 4, S 1,024, G 4: 32 positions a block)
+    the 128 query tiles see 2 to 64 key tiles, one wave on 132 SMs, so the
+    longest sets the time: their key ranges are split (and combined) into
+    parts of at most kmax tiles, which shortens the modelled makespan. The
+    windowed layers' tiles see at most 34 and are not split."""
+    PB, groups = fa.block_rows(4, 1)
+    assert (PB, groups) == (32, 1)
+    assert fa.block_rows(4, 4) == (128, 1) and fa.block_rows(8, 1) == (16, 1)
+    assert fa.block_rows(6, 2) == (42, 1)
+    kmax, parts = fa.key_split(4, 1024, 1024, 4, 1, True, None, 132)
+    assert 1 < parts <= 4 and kmax * parts >= 64 and kmax < 64
+    tiles = [2 * (i + 1) for i in range(32)]
+    whole = fa._makespan(tiles * 4, 132)
+    split = []
+    for t in tiles:
+        n = -(-t // kmax) if t > kmax else 1
+        ln = -(-t // n)
+        split += [min(ln, t - j * ln) for j in range(n)]
+    assert sum(split) == sum(tiles) and max(split) <= kmax
+    assert fa._makespan(split * 4, 132) + 1 < whole
+    assert fa.key_split(4, 1024, 1024, 4, 1, True, 512, 132) == (34, 1)
+    # many blocks per SM already: nothing to gain
+    assert fa.key_split(64, 1024, 1024, 4, 1, True, None, 132)[1] == 1
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, dropping the
+    13 low mantissa bits (on the int32 view: add half an ulp, truncate)."""
+    u = np.asarray(x, np.float32).view(np.int32)
+    return ((u + np.int32(0x1000)) & np.int32(-0x2000)).view(np.float32)
+
+
+def _trunc_tf32(x):
+    """The tensor cores' read of an f32 register as TF32: its 13 low
+    mantissa bits ignored."""
+    u = np.asarray(x, np.float32).view(np.int32)
+    return (u & np.int32(-0x2000)).view(np.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b as the tensor cores compute it: one TF32 pass, or 3xTF32
+    (hi = x rounded to TF32, lo = x - hi read as TF32; hi·lo + lo·hi, then
+    hi·hi, summed in f32). Products of TF32 values are
+    exact in f32."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _trunc_tf32(a - ah), _trunc_tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _flash_tf32(q, k, v, passes, block_k=16):
+    """B5's recurrence for one head: 16-key tiles, online softmax in f32,
+    QKᵀ and PV through ``_mm_tf32``."""
+    qs = q * np.float32(q.shape[-1] ** -0.5)
+    m = np.full((q.shape[0], 1), -1e30, np.float32)
+    l = np.zeros((q.shape[0], 1), np.float32)
+    acc = np.zeros(q.shape, np.float32)
+    for k0 in range(0, k.shape[0], block_k):
+        s = _mm_tf32(qs, k[k0:k0 + block_k].T, passes)
+        m_new = np.maximum(m, s.max(-1, keepdims=True))
+        p = np.exp(s - m_new)
+        alpha = np.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdims=True)
+        acc = alpha * acc + _mm_tf32(p, v[k0:k0 + block_k], passes)
+        m = m_new
+    return acc / l
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_flash_3xtf32_products_keep_f32_accuracy(seed):
+    """Why B5 takes three TF32 passes, at its width (D 256, 256 keys, unit-
+    scale activations, the scale ATTN_TOL is set for: f32 itself strays
+    from f64 by ~4 of ATTN_TOL at 3x that scale). With 3xTF32 products the
+    output stays within ATTN_TOL of the plain f32 version, and no further
+    from the f64 result than the plain version's own error; one TF32 pass
+    (10-bit mantissa) misses ATTN_TOL by more than 10x."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((n, 256)).astype(np.float32)
+               for n in (128, 256, 256))
+    t = lambda a: torch.from_numpy(a)[None, :, None]
+    plain = fa.flash_attention_torch(t(q), t(k), t(v), causal=False)[0, :, 0]
+    plain = plain.numpy()
+    s64 = (q.astype(np.float64) * 256 ** -0.5) @ k.T.astype(np.float64)
+    p64 = np.exp(s64 - s64.max(-1, keepdims=True))
+    exact = (p64 @ v.astype(np.float64)) / p64.sum(-1, keepdims=True)
+    three = _flash_tf32(q, k, v, passes=3)
+    np.testing.assert_allclose(three, plain, **F32_TOL)
+    assert np.abs(three - exact).max() <= 2 * np.abs(plain - exact).max()
+    one = _flash_tf32(q, k, v, passes=1)
+    excess = np.abs(one - plain) / (1e-5 + 1e-5 * np.abs(plain))
+    assert excess.max() > 10
+
+
 def test_key_range_and_work_count_the_band():
     # causal + window 4 over 8 rows: row i sees min(i + 1, 4) keys
     assert fa.key_range(0, 8, 8, 8, True, 4) == (0, 8)
@@ -210,8 +307,8 @@ def test_impl_must_be_known():
 
 def test_peak_flops_follows_operand_dtype():
     assert hw.peak_flops(torch.bfloat16, torch.bfloat16) == 989e12
-    assert hw.peak_flops(torch.float32, torch.float32) == 67e12
-    assert hw.peak_flops(torch.float32, torch.bfloat16) == 67e12
+    assert hw.peak_flops(torch.float32, torch.float32) == 165e12
+    assert hw.peak_flops(torch.float32, torch.bfloat16) == 165e12
     assert hw.PEAK_TF32_TENSOR_FLOPS == 495e12
 
 

@@ -235,6 +235,34 @@ def test_decode_kernel_equals_plain(cuda, D, Hq, Hkv, S, kv_len, pairing):
         assert not bool(got[kv_len.index(0)].any())
 
 
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+@pytest.mark.parametrize("D,Hq,Hkv,Sq,Sk,window", [
+    (128, 2, 2, 300, 300, None),       # G 1: 128 positions a block
+    (128, 4, 2, 300, 300, 100),        # G 2
+    (64, 8, 2, 300, 300, None),        # G 4 (gemma3-1b's)
+    (64, 8, 1, 257, 257, 64),          # G 8: 16 positions a block
+    (64, 6, 2, 130, 130, 50),          # G 3: 126 of a block's 128 rows
+    (256, 4, 1, 1000, 1003, None),     # Sq no multiple of 32; Sk - Sq odd
+    (256, 4, 1, 1000, 1003, 200),
+    (128, 4, 1, 200, 200, 5),          # window shorter than a key tile
+    (64, 4, 1, 200, 200, 4096),        # window >= S
+])
+def test_flash_kernel_edges_equal_plain(cuda, D, Hq, Hkv, Sq, Sk, window,
+                                        pairing):
+    """The kernel's design edges: G query heads folded into a block's 128
+    rows, ragged query and key tails against its 16-key tiles, windows
+    inside one tile and wider than the sequence, every head dim and dtype
+    pairing."""
+    q_dt, kv_dt = PAIRINGS[pairing]
+    g = torch.Generator(device=cuda).manual_seed(D * 7 + Hq + Sq + Sk)
+    q = torch.randn((2, Sq, Hq, D), generator=g, device=cuda).to(q_dt)
+    k = torch.randn((2, Sk, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    v = torch.randn((2, Sk, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    got = fa.flash_attention_cuda(q, k, v, causal=True, window=window)
+    _close(got, fa.flash_attention_torch(q, k, v, causal=True,
+                                         window=window), q_dt)
+
+
 def test_attention_wrappers_reject_bad_input(cuda):
     x = torch.zeros((1, 64, 4, 128), device=cuda)
     lens = torch.ones(1, dtype=torch.int32, device=cuda)
@@ -348,6 +376,31 @@ def test_ssd_kernel_equals_plain(cuda, B, S, H, P, N, chunk, c_broadcast,
         torch.testing.assert_close(y, want_y, **SSD_TOL)
     assert h.dtype == torch.float32
     torch.testing.assert_close(h, want_h, **SSD_TOL)
+
+
+@pytest.mark.parametrize("c_broadcast", [True, False])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,decay,scale", [
+    (1, 2048, 4, 64, 128, 64, "slow", 1.0),    # 32 chunks; the carry counts
+    (2, 128, 4, 64, 128, 128, "init", 1.0),    # one chunk
+    (2, 512, 4, 64, 128, 128, "slow", 1e3),    # inputs x 1e3
+])
+def test_ssd_kernel_edges_equal_plain(cuda, B, S, H, P, N, chunk, decay,
+                                      scale, c_broadcast):
+    """The chunked decomposition's edges: 32 chunks at slow decays, where
+    the state passing between chunks decides the output; a single chunk
+    (no state passing); c broadcast over H and contiguous. With x, b and c
+    scaled by 1e3, y scales by 1e9 and h by 1e6: both are held at SSD_TOL
+    after dividing those out, so the 3xTF32 error stays relative."""
+    x, a, b, c = _ssd_inputs(cuda, B, S, H, P, N, torch.float32, c_broadcast,
+                             S + chunk, slow=decay == "slow")
+    x, b = x * scale, b * scale
+    c = (c[:, :, :1] * scale).expand(c.shape) if c_broadcast else c * scale
+    assert (c.stride(2) == 0) == c_broadcast
+    y, h = ss.ssd_scan_cuda(x, a, b, c, chunk)
+    want_y, want_h = ss.ssd_scan_torch(x, a, b, c, chunk)
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y / scale ** 3, want_y / scale ** 3, **SSD_TOL)
+    torch.testing.assert_close(h / scale ** 2, want_h / scale ** 2, **SSD_TOL)
 
 
 def test_ssd_wrapper_rejects_bad_input(cuda):

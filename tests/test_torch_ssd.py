@@ -158,6 +158,113 @@ def test_ssd_rejects_what_the_reference_asserts():
         ss.ssd_scan_cuda(x, a, b, c)
 
 
+def _three_phase(x, a, b, c, T, dtype):
+    """The CUDA kernel's decomposition (arXiv:2405.21060 §6), transcribed
+    in numpy at ``dtype``: (a) each chunk's state S_c = (B ⊙ exp(cl_{T-1}
+    - cl))ᵀ X; (b) state passing h_0 = 0, h_{c+1} = exp(cl_{T-1}) h_c + S_c;
+    (c) chunk scan Y = (C Bᵀ ⊙ L) X + diag(exp(cl)) C h_c, the exponent of
+    L taken only on and below the diagonal."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    nc = S // T
+    xr, br, cr = (np.asarray(v, dtype).reshape(B, nc, T, H, -1)
+                  for v in (x, b, c))
+    cl = np.cumsum(np.log(np.asarray(a, dtype)).reshape(B, nc, T, H), axis=2)
+    w = np.exp(cl[:, :, -1:] - cl)
+    states = np.einsum("bcthn,bcth,bcthp->bchnp", br, w, xr)
+    h = np.zeros((B, H, N, P), dtype)
+    h_in = []
+    for ic in range(nc):
+        h_in.append(h)
+        h = np.exp(cl[:, ic, -1])[..., None, None] * h + states[:, ic]
+    low = np.tri(T, dtype=bool)[None, None, :, :, None]
+    diff = cl[:, :, :, None, :] - cl[:, :, None, :, :]      # (B, nc, t, s, H)
+    L = np.where(low, np.exp(np.where(low, diff, 0)), 0).astype(dtype)
+    G = np.einsum("bcthn,bcshn->bctsh", cr, br)
+    y = np.einsum("bctsh,bcshp->bcthp", G * L, xr) + np.exp(cl)[..., None] * \
+        np.einsum("bcthn,bchnp->bcthp", cr, np.stack(h_in, axis=1))
+    return y.reshape(B, S, H, P), h
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("nc", [1, 2, 8])
+@pytest.mark.parametrize("decay", ["init", "slow"])
+def test_three_phase_ssd_equals_reference_and_interpret(decay, nc, dtype):
+    """The chunk-state / state-passing / chunk-scan split that B7 runs on
+    the card computes what the step-by-step oracle and the Pallas kernel
+    compute, at Mamba-2's init decays and at slow decays (a^(1/100), where
+    the state carried between chunks counts), over 1, 2 and 8 chunks."""
+    T = 32
+    x, a, b, c = _inputs(nc * 10 + len(decay), 1, nc * T, 2, 8, 16,
+                         realistic=True, slow=decay == "slow")
+    got_y, got_h = _three_phase(x, a, b, c, T, np.dtype(dtype))
+    assert np.isfinite(got_y).all() and np.isfinite(got_h).all()
+    for impl in ("ref", "interpret"):
+        want_y, want_h = _jax(impl, x, a, b, c, T)
+        np.testing.assert_allclose(got_y, want_y, **TOL, err_msg=impl)
+        np.testing.assert_allclose(got_h, want_h, **TOL, err_msg=impl)
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32: round to nearest, ties away from zero, dropping the
+    13 low mantissa bits (on the int32 view: add half an ulp, truncate)."""
+    u = np.asarray(x, np.float32).view(np.int32)
+    return ((u + np.int32(0x1000)) & np.int32(-0x2000)).view(np.float32)
+
+
+def _trunc_tf32(x):
+    """The tensor cores' read of an f32 register as TF32: its 13 low
+    mantissa bits ignored."""
+    u = np.asarray(x, np.float32).view(np.int32)
+    return (u & np.int32(-0x2000)).view(np.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b as the tensor cores compute it: one TF32 pass, or 3xTF32
+    (hi = x rounded to TF32, lo = x - hi read as TF32; hi·lo + lo·hi, then
+    hi·hi, summed in f32)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _trunc_tf32(a - ah), _trunc_tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.mark.parametrize("decay", ["init", "slow"])
+def test_ssd_3xtf32_products_keep_f32_accuracy(decay):
+    """Why B7 takes three TF32 passes, at its chunk shape (T = N = 128,
+    P = 64, the mixer's input scales, an incoming state): with 3xTF32
+    products each chunk's Y and state stay within SSD_TOL of the f32
+    products; one TF32 pass misses SSD_TOL (by more than 2x at init decays,
+    10x at slow ones)."""
+    T, N, P = 128, 128, 64
+    rng = np.random.default_rng(len(decay))
+    x = (rng.standard_normal((T, P)) * 0.5).astype(np.float32)
+    b = (rng.standard_normal((T, N)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((T, N)) * 0.3).astype(np.float32)
+    h = (rng.standard_normal((N, P)) * 2).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal(T)))
+    cl = np.cumsum(-dt * (0.01 if decay == "slow" else 1.0)).astype(
+        np.float32)
+    low = np.tri(T, dtype=bool)
+    L = np.where(low, np.exp(np.where(low, cl[:, None] - cl[None, :], 0)),
+                 0).astype(np.float32)
+    w = np.exp(cl[-1] - cl).astype(np.float32)
+
+    def chunk(mm):
+        y = mm(mm(c, b.T) * L, x) + np.exp(cl)[:, None] * mm(c, h)
+        return y, mm((b * w[:, None]).T, x)
+
+    want = chunk(lambda p, q: p @ q)
+    for got, ref_ in zip(chunk(lambda p, q: _mm_tf32(p, q, 3)), want):
+        np.testing.assert_allclose(got, ref_, **TOL)
+    worst = max((np.abs(got - ref_) / (1e-4 + 1e-4 * np.abs(ref_))).max()
+                for got, ref_ in zip(chunk(lambda p, q: _mm_tf32(p, q, 1)),
+                                     want))
+    assert worst > (10 if decay == "slow" else 2)
+
+
 def test_work_counts_the_triangle_and_the_state_products():
     """The bound counts the recurrence's 5·N·P flops per step and head, not
     the chunked form's triangle and state products, which cost more: at
