@@ -9,7 +9,10 @@ field is the accelerator kind Algorithm 2 allocates.
 
 A stage's constants (DFA table and out_count, cipher/digest key) are kept
 as numpy arrays on its UCF (``ucf.consts``) and copied to a batch's device
-on first use, once per device.
+on first use, once per device. The regex stage also keeps the table as its
+kernel takes it (packed entries and the synchronisation depth), built on
+the host when the rules are set, so no call of the walk copies anything
+back from the card.
 
 Payload word-packing (uint8 -> uint32) happens once per stage boundary: for
 a contiguous payload whose length is a multiple of 4 it is a zero-copy view
@@ -19,22 +22,31 @@ a contiguous payload whose length is a multiple of 4 it is a zero-copy view
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import pool
 from repro_torch.core.graph import Function, PacketBatch
-from repro_torch.kernels import ops
+from repro_torch.kernels import dfa_regex, ops
 
 
 class StageConstants:
     """Named numpy constants of one accelerator stage, copied to each
-    device on first use and cached per device."""
+    device on first use and cached per device.
 
-    def __init__(self, **arrays: np.ndarray):
+    ``derive``, where given, computes further constants from the arrays on
+    the host (the regex stage's packed table and its synchronisation
+    depth); they are recomputed whenever the arrays are replaced, and
+    ``derived`` holds them: numpy arrays among them are copied to each
+    device beside the arrays, other values stay as they are."""
+
+    def __init__(self, derive: Optional[Callable[..., Dict]] = None,
+                 **arrays: np.ndarray):
         self.arrays: Dict[str, np.ndarray] = {}
+        self.derived: Dict[str, object] = {}
+        self._derive = derive
         self._by_device: Dict[torch.device, Dict[str, torch.Tensor]] = {}
         self.set(**arrays)
 
@@ -42,13 +54,18 @@ class StageConstants:
         """Replace constants (dropping every device copy)."""
         for k, v in arrays.items():
             self.arrays[k] = np.ascontiguousarray(v)
+        if self._derive is not None:
+            self.derived = dict(self._derive(**self.arrays))
         self._by_device.clear()
 
     def on(self, device: torch.device) -> Dict[str, torch.Tensor]:
         got = self._by_device.get(device)
         if got is None:
-            got = {k: torch.from_numpy(v).to(device)
-                   for k, v in self.arrays.items()}
+            host = {**self.arrays,
+                    **{k: v for k, v in self.derived.items()
+                       if isinstance(v, np.ndarray)}}
+            got = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                   for k, v in host.items()}
             self._by_device[device] = got
         return got
 
@@ -69,6 +86,16 @@ def _words_to_payload(words: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
     return torch.cat([out, orig[:, W * 4:]], dim=1) if W * 4 < L else out[:, :L]
 
 
+def _prepare_dfa(table: np.ndarray, out_count: np.ndarray) -> Dict:
+    """The regex kernel's form of the DFA, built on the host once per rule
+    set: packed entries and the synchronisation depth."""
+    try:
+        prepared = dfa_regex.prepare(table, out_count)
+    except ValueError as err:      # the plain version still takes it
+        return {"depth": None, "refused": str(err)}
+    return {"packed": prepared.packed, "depth": prepared.depth}
+
+
 def _key(key) -> np.ndarray:
     return np.asarray(key, dtype=np.uint32)[:4]
 
@@ -77,12 +104,17 @@ def regex(rules: Sequence[str], *, impl: Optional[str] = None,
           name: str = "regex") -> Function:
     """Multi-pattern matching; match count lands in meta['match_num']."""
     table, out_count = ops.build_aho_corasick(rules)
-    consts = StageConstants(table=table, out_count=out_count)
+    consts = StageConstants(derive=_prepare_dfa, table=table,
+                            out_count=out_count)
 
     def ucf(batch: PacketBatch) -> PacketBatch:
         c = consts.on(batch.device)
+        if "refused" in consts.derived and batch.payload.is_cuda \
+                and impl != "torch":
+            raise ValueError(consts.derived["refused"])
         matches = ops.regex_scan(batch.payload, batch.length, c["table"],
-                                 c["out_count"], impl=impl)
+                                 c["out_count"], packed=c.get("packed"),
+                                 depth=consts.derived["depth"], impl=impl)
         return batch.with_meta(match_num=matches)
 
     ucf.consts = consts

@@ -40,12 +40,12 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     "meili_flow_lookup": [_P, _P, _P, _P, _I64, _P, _P, _I64, _I32, _I32,
                           _P, _P, _P, _P],
-    "meili_dfa_regex": [_P, _I64, _I64, _P, _P, _P, _I32, _P, _P],
+    "meili_dfa_regex": [_P, _I64, _I64, _P, _P] + [_I32] * 4 + [_P, _P],
     "meili_arx_cipher": [_P, _I64, _I64, _P, _P, _P],
     "meili_keyed_hash": [_P, _I64, _I64, _P, _P, _P],
     "meili_flash_attention": [_P, _P, _P, _P] + [_I32] * 8 + [_F32]
                              + [_I32] * 3 + [_P] * 3,
-    "meili_decode_attention": [_P] * 7 + [_I32] * 7 + [_F32] + [_I32] * 3
+    "meili_decode_attention": [_P] * 8 + [_I32] * 9 + [_F32] + [_I32] * 2
                               + [_P],
     "meili_ssd_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [_P],
 }
@@ -149,6 +149,8 @@ def load() -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         lib.meili_error_string.argtypes = [ctypes.c_int]
         lib.meili_error_string.restype = ctypes.c_char_p
+        lib.meili_launch_floor.argtypes = [_P]
+        lib.meili_launch_floor.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -165,6 +167,19 @@ def launch(name: str, device: torch.device, *args) -> None:
         msg = lib.meili_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def launch_floor(device: torch.device) -> None:
+    """Launch the kernel that does nothing (``csrc/launch_floor.cu``) on
+    ``device``'s current stream, uncounted: timed like a kernel, it is the
+    least time any launch takes."""
+    lib = load()
+    with torch.cuda.device(device):
+        err = lib.meili_launch_floor(
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch_floor kernel launch failed: CUDA error "
+                           f"{err} ({lib.meili_error_string(err).decode()})")
 
 
 def launch_counts() -> Dict[str, int]:

@@ -5,101 +5,235 @@
 // a one-hot times the transposed table; here `table[state][byte]` is one
 // shared-memory load.
 //
-// What bounds it on the H100: the dependent chain. Each packet is a serial
-// walk over min(length, L) bytes (~1,500 at the main path's shapes): every
-// step's table row depends on the previous step's state, so a thread does
-// ~1,500 shared-memory lookups back to back plus one `out_count` lookup
-// each. The payload bytes are read once (B·L bytes, 24.6 MB at 16,384 ×
-// 1,500), but across a warp the reads are strided by L bytes.
+// What bounds it on the H100: the dependent chain of table lookups. Each
+// packet is a serial walk over min(length, L) bytes (~1,500 at the main
+// path's shapes), and every step's table row depends on the previous
+// step's state. The payload bytes are read once (B·L bytes, 49 MB at
+// 32,768 × 1,500), which is the bound by bytes, 0.0148 ms.
 //
-// What the design does about it: one thread per packet, the whole
-// transition table and `out_count` in shared memory (S·256·4 + S·4 bytes;
-// 44,204 B for the SNORT_RULES DFA with S = 43), loaded once per block.
-// Tables above 48 KB opt in to dynamic shared memory with
-// cudaFuncSetAttribute; above 227 KB the launch is refused. When rows are
-// 4-byte aligned each thread reads its payload one 32-bit word at a time,
-// so a warp's strided reads are 4x fewer and each 128-byte line it pulls
-// into L1 serves 32 of its steps. `length` is clamped to [0, L], so pad
-// rows holding stale ring data are safe.
+// What the design does about it:
+// - One lookup a step. The wrapper packs each entry as
+//   `next | out_count[next] << 16` once per rule set; the block keeps it in
+//   shared memory as `next << 8 | count << 16`, so the next row's index is
+//   `entry & 0xFFFF | byte` and the count is `entry >> 16` (S <= 256).
+// - Many walks in flight. A packet is cut into `segs` segments walked by
+//   neighbouring lanes; segment i > 0 starts at state 0, `depth` bytes
+//   before its first byte (the table's synchronisation depth: after any
+//   `depth` bytes the state no longer depends on where the walk began), and
+//   counts from its first byte, so the lanes' counts, summed by shuffles,
+//   equal the serial walk's bit for bit. At 32,768 packets, 4 segments give
+//   each SM a block of 1,024 walks, 32 warps. The walk is bound by the
+//   shared-memory lookups (a warp's 32 lookups land on random banks), so
+//   more segments only add warm-up steps (on the H100, 8 segments in two
+//   blocks an SM took longer than 4 in one).
+// - The payload through shared memory. Each thread streams its own bytes
+//   in 16-byte chunks, each copied with cp.async while the walk takes the
+//   one before it, into a slot of its own ([stage][thread], so a warp's
+//   16-byte reads of its slots are conflict-free): no step waits on device
+//   memory.
+//   The chunks are 16-byte aligned in memory, so a walk's first chunk may
+//   start up to 15 bytes before its first byte: those steps are skipped. A
+//   chunk at the end of the payload copies only the bytes that exist.
+// - A payload that does not start 16-byte aligned (a view with an offset),
+//   or a table that leaves no shared memory for the stages, takes the same
+//   walk with its chunks read byte by byte from device memory.
+// `length` is clamped to [0, L], so pad rows holding stale ring data are
+// safe.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 1024;
+constexpr int kChunk = 16;
+constexpr int kStages = 2;
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 constexpr size_t kMaxDynamicSmem = 232448;  // 227 KB on sm_90
 
-__device__ __forceinline__ void dfa_step(uint32_t byte, int32_t& state,
-                                         int32_t& matches,
-                                         const int32_t* table,
-                                         const int32_t* out_count) {
-  state = table[state * 256 + static_cast<int32_t>(byte)];
-  matches += out_count[state];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
 }
 
-__global__ void dfa_regex_kernel(const uint8_t* __restrict__ payload,
-                                 int64_t n_rows, int64_t row_len,
-                                 const int32_t* __restrict__ length,
-                                 const int32_t* __restrict__ table_g,
-                                 const int32_t* __restrict__ out_count_g,
-                                 int32_t n_states, bool word_aligned,
-                                 int32_t* __restrict__ matches_out) {
-  extern __shared__ int32_t smem[];
-  int32_t* table = smem;
-  int32_t* out_count = smem + n_states * 256;
-  for (int32_t i = threadIdx.x; i < n_states * 256; i += blockDim.x)
-    table[i] = table_g[i];
-  for (int32_t i = threadIdx.x; i < n_states; i += blockDim.x)
-    out_count[i] = out_count_g[i];
-  __syncthreads();
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n_rows) return;
-  int64_t n = length[row];
-  n = n < 0 ? 0 : (n > row_len ? row_len : n);
-  const uint8_t* p = payload + row * row_len;
-  int32_t state = 0;
-  int32_t matches = 0;
-  int64_t j = 0;
-  if (word_aligned) {
-    const uint32_t* pw = reinterpret_cast<const uint32_t*>(p);
-    for (; j + 4 <= n; j += 4) {
-      const uint32_t w = pw[j >> 2];
-      dfa_step(w & 0xFFu, state, matches, table, out_count);
-      dfa_step((w >> 8) & 0xFFu, state, matches, table, out_count);
-      dfa_step((w >> 16) & 0xFFu, state, matches, table, out_count);
-      dfa_step(w >> 24, state, matches, table, out_count);
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// One walk's position: row-relative byte offsets. Steps at p < warm are
+// skipped, steps at p >= end are skipped, and a step's count is kept from
+// p >= first on.
+struct Walk {
+  int32_t warm, first, end;
+};
+
+// Step over the 16 bytes of `w`, the first at row offset p0.
+__device__ __forceinline__ void walk16(const uint4& w, int32_t p0,
+                                       const Walk& r, const uint32_t* tbl,
+                                       uint32_t& state, uint32_t& matches) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  if (p0 >= r.first && p0 + kChunk <= r.end) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int s = 0; s < 32; s += 8) {
+        const uint32_t e = tbl[state | ((words[i] >> s) & 0xFFu)];
+        state = e & 0xFFFFu;
+        matches += e >> 16;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int32_t p = p0 + 4 * i + s;
+      if (p >= r.warm && p < r.end) {
+        const uint32_t e = tbl[state | ((words[i] >> (8 * s)) & 0xFFu)];
+        state = e & 0xFFFFu;
+        if (p >= r.first) matches += e >> 16;
+      }
     }
   }
-  for (; j < n; ++j) dfa_step(p[j], state, matches, table, out_count);
-  matches_out[row] = matches;
+}
+
+// CH == 1: 16-byte chunks staged through shared memory, one a stage, two
+// stages; CH == 0: chunks read byte by byte from device memory.
+template <int CH>
+__global__ void __launch_bounds__(kThreads, 1)
+    dfa_regex_kernel(const uint8_t* __restrict__ payload, int64_t n_rows,
+                     int32_t row_len, const int32_t* __restrict__ length,
+                     const uint32_t* __restrict__ packed, int32_t n_states,
+                     int32_t depth, int32_t segs,
+                     int32_t* __restrict__ matches_out) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tbl = smem;                                     // S x 256
+  for (int32_t i = threadIdx.x; i < n_states * 256; i += kThreads) {
+    const uint32_t e = packed[i];
+    tbl[i] = ((e & 0xFFFFu) << 8) | (e & 0xFFFF0000u);
+  }
+  __syncthreads();
+
+  const int64_t gid = static_cast<int64_t>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  const int64_t row = gid / segs;
+  const int32_t seg = static_cast<int32_t>(gid % segs);
+  uint32_t state = 0, matches = 0;
+  Walk r{0, 0, 0};
+  if (row < n_rows) {
+    const int32_t n = max(0, min(length[row], row_len));
+    const int32_t span = (row_len + segs - 1) / segs;
+    r.first = seg * span;
+    r.warm = seg == 0 ? 0 : max(0, r.first - depth);
+    r.end = min(r.first + span, n);
+  }
+  if (r.first < r.end) {
+    const uint8_t* row_ptr = payload + row * row_len;
+    // chunk k holds row offsets [p_base + 16 k, p_base + 16 k + 16)
+    const int32_t p_base =
+        r.warm - static_cast<int32_t>(
+                     (reinterpret_cast<uintptr_t>(row_ptr) + r.warm) % kChunk);
+    const int32_t n_chunks = (r.end - p_base + kChunk - 1) / kChunk;
+    if constexpr (CH > 0) {
+      const uint8_t* src = row_ptr + p_base;                // 16-byte aligned
+      // bytes the payload still holds from the last chunk on
+      const int64_t left = n_rows * row_len -
+                           (row * row_len + p_base + (n_chunks - 1) * kChunk);
+      const int tail = left < kChunk ? static_cast<int>(left) : kChunk;
+      uint4* mine = reinterpret_cast<uint4*>(smem + n_states * 256) +
+                    threadIdx.x;                 // [stage][chunk][thread]
+      const int32_t n_stages = (n_chunks + CH - 1) / CH;
+      auto issue = [&](int32_t s) {
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          const int32_t k = s * CH + c;
+          if (k < n_chunks)
+            cp_async16(mine + ((s % kStages) * CH + c) * kThreads,
+                       src + k * kChunk, k == n_chunks - 1 ? tail : kChunk);
+        }
+        cp_async_commit();
+      };
+      issue(0);
+      issue(1);
+      for (int32_t s = 0; s < n_stages; ++s) {
+        cp_async_wait_one();
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          const int32_t k = s * CH + c;
+          if (k < n_chunks)
+            walk16(mine[((s % kStages) * CH + c) * kThreads],
+                   p_base + k * kChunk, r, tbl, state, matches);
+        }
+        issue(s + 2);
+      }
+    } else {
+      for (int32_t k = 0; k < n_chunks; ++k) {
+        const int32_t p0 = p_base + k * kChunk;
+        uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int b = 0; b < kChunk; ++b) {
+          const int32_t p = p0 + b;
+          if (p >= r.warm && p < r.end)
+            w[b / 4] |= static_cast<uint32_t>(row_ptr[p]) << (8 * (b % 4));
+        }
+        walk16(make_uint4(w[0], w[1], w[2], w[3]), p0, r, tbl, state,
+               matches);
+      }
+    }
+  }
+  // the segments of a packet are neighbouring lanes: sum their counts
+  for (int o = segs / 2; o > 0; o >>= 1)
+    matches += __shfl_xor_sync(0xffffffffu, matches, o);
+  if (row < n_rows && seg == 0)
+    matches_out[row] = static_cast<int32_t>(matches);
+}
+
+template <int CH>
+int launch(const void* payload, long long n_rows, long long row_len,
+           const void* length, const void* packed, int n_states, int depth,
+           int segs, void* matches_out, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n_states) * 256 * sizeof(uint32_t) +
+                      static_cast<size_t>(kStages) * CH * kChunk * kThreads;
+  if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > kStaticSmemLimit) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dfa_regex_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks = (n_rows * segs + kThreads - 1) / kThreads;
+  dfa_regex_kernel<CH><<<static_cast<unsigned>(blocks), kThreads, smem,
+                         stream>>>(
+      static_cast<const uint8_t*>(payload), n_rows,
+      static_cast<int32_t>(row_len), static_cast<const int32_t*>(length),
+      static_cast<const uint32_t*>(packed), n_states, depth < 0 ? 0 : depth,
+      segs, static_cast<int32_t*>(matches_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int meili_dfa_regex(const void* payload, long long n_rows,
                                long long row_len, const void* length,
-                               const void* table, const void* out_count,
-                               int n_states, void* matches_out, void* stream) {
+                               const void* packed, int n_states, int depth,
+                               int segs, int chunks, void* matches_out,
+                               void* stream) {
   if (n_rows <= 0) return 0;
-  const size_t smem = (static_cast<size_t>(n_states) * 256 + n_states) *
-                      sizeof(int32_t);
-  if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kStaticSmemLimit) {
-    cudaError_t err = cudaFuncSetAttribute(
-        dfa_regex_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const bool word_aligned =
-      (row_len % 4 == 0) && (reinterpret_cast<uintptr_t>(payload) % 4 == 0);
-  const long long blocks = (n_rows + kThreads - 1) / kThreads;
-  dfa_regex_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(payload), n_rows, row_len,
-      static_cast<const int32_t*>(length), static_cast<const int32_t*>(table),
-      static_cast<const int32_t*>(out_count), n_states, word_aligned,
-      static_cast<int32_t*>(matches_out));
-  return static_cast<int>(cudaGetLastError());
+  if (n_states <= 0 || n_states > 256 || segs <= 0 || segs > 32 ||
+      (segs & (segs - 1)) != 0 || (depth < 0 && segs != 1) || chunks < 0 ||
+      chunks > 1 || row_len < 0 || row_len > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // a payload that does not start 16-byte aligned is read byte by byte
+  if (reinterpret_cast<uintptr_t>(payload) % kChunk || chunks == 0)
+    return launch<0>(payload, n_rows, row_len, length, packed, n_states,
+                     depth, segs, matches_out, s);
+  return launch<1>(payload, n_rows, row_len, length, packed, n_states, depth,
+                   segs, matches_out, s);
 }

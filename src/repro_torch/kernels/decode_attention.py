@@ -3,25 +3,34 @@
 Decode attention attends one query token per row, q (B, Hq, D), over
 k/v (B, S, Hkv, D), keeping cache positions ``s < kv_len[b]``; f32 math,
 output (B, Hq, D) in q's dtype. q and the cache may each be float32 or
-bfloat16. ``decode_attention_cuda`` launches the hand-written split +
-combine kernels (``csrc/decode_attention.cu``); ``decode_attention_torch``
-is the plain PyTorch version of the Pallas kernel's online-softmax
-recurrence over key blocks, the CPU path and the kernel's oracle on the
-card. ``ops.decode_attention`` picks between them.
+bfloat16. ``decode_attention_cuda`` launches the hand-written kernel
+(``csrc/decode_attention.cu``: the cache split over blocks, the splits
+merged in the same launch); ``decode_attention_torch`` is the plain PyTorch
+version of the Pallas kernel's online-softmax recurrence over key blocks,
+the CPU path and the kernel's oracle on the card; ``split_merge_torch``
+writes out the kernel's own split and merge order. ``ops.decode_attention``
+picks between them.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import NEG_INF, check_shapes
 
-TILE = 64             # keys per inner tile of the CUDA kernel
-MAX_SPLITS = 32
-THREADS = 256
-MAX_OUT_PER_THREAD = 8
+THREADS = 128
+WARPS = THREADS // 32
+CLUSTER = 8             # splits merged through distributed shared memory
+MAX_OUT = 2048          # G·D a block holds
+MAX_KEYS_PER_STAGE = 8  # rows of K (and V) a warp stages at once
+STAGE_BYTES = 8192      # at most this much of K and V a warp stages at once
+KEYS_PER_WARP = 8       # most keys a warp takes, as the split plan sets it
+
+# (device, stream) -> int32 arrival counters, zeroed once when allocated;
+# the kernel's last block of each merge sets its counter back to 0.
+_counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
@@ -60,18 +69,120 @@ def decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
 
 
 def splits(S: int) -> Tuple[int, int]:
-    """(number of splits, keys per split) of an S-deep cache: chunks of
-    whole 64-key tiles, at most ``MAX_SPLITS`` of them."""
-    tiles = -(-S // TILE)
-    chunk = TILE * -(-tiles // MAX_SPLITS)
-    return -(-S // chunk), chunk
+    """(number of splits, keys per split) of an S-deep cache: as few
+    clusters of ``CLUSTER`` splits as keep every warp at most
+    ``KEYS_PER_WARP`` keys, in whole multiples of ``WARPS`` keys. kv_len is
+    not read on the host. Each cluster with keys costs a merge across
+    clusters, which on the H100 took longer than spreading a small cache
+    over more SMs gained (one cluster of 8-key splits beat two of 4-key
+    splits at the engine's 64-deep cache)."""
+    clusters = max(1, -(-S // (CLUSTER * WARPS * KEYS_PER_WARP)))
+    chunk = -(-S // (clusters * CLUSTER))
+    chunk = -(-chunk // WARPS) * WARPS
+    nsplit = -(-S // chunk)
+    return -(-nsplit // CLUSTER) * CLUSTER, chunk
+
+
+def stage_plan(chunk: int, D: int, itemsize: int) -> Tuple[int, int]:
+    """(keys a warp stages at once, stages): all of a warp's keys in one
+    stage where they fit, else two stages of at most ``STAGE_BYTES``."""
+    per_warp = -(-chunk // WARPS)
+    kt = max(1, min(MAX_KEYS_PER_STAGE, per_warp,
+                    STAGE_BYTES // (2 * D * itemsize)))
+    return kt, 1 if per_warp <= kt else 2
+
+
+def split_merge_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_len: torch.Tensor, *, scale: Optional[float] = None
+                      ) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in its own order, in plain PyTorch:
+    splits of ``splits(S)``, each cut over ``WARPS`` warps that
+    walk their keys in stages of ``stage_plan`` and batches of 8 keys (32 /
+    G where G >= 8; the last 2 or fewer keys of a stage alone) with a
+    running (max, sum, acc); the warps
+    merged into a block partial, 8 block partials into a cluster partial,
+    the clusters with keys into the output. (The kernel takes its
+    exponentials in base 2, with q scaled by log2 e: the same function.)
+    The CPU tests hold it against the Pallas kernel."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qf = q.float().reshape(B, Hkv, G, D) * scale
+    gm = 1 << (G - 1).bit_length()                   # G to a power of two
+    kb = 32 // gm if gm >= 8 else 8                  # keys a batch
+    out = torch.zeros((B, Hkv, G, D), dtype=torch.float32)
+    nsplit, chunk = splits(S)
+    per_warp = -(-chunk // WARPS)
+    kt, _ = stage_plan(chunk, D, k.element_size())
+
+    def merge(parts):
+        m = torch.stack([p[0] for p in parts])       # (n, G)
+        mx = m.max(dim=0).values
+        f = torch.exp(m - mx)
+        return (mx, (f * torch.stack([p[1] for p in parts])).sum(0),
+                (f[..., None] * torch.stack([p[2] for p in parts])).sum(0))
+
+    for b in range(B):
+        n = max(0, min(int(kv_len[b]), S))
+        if n == 0:
+            continue
+        nvalid = -(-n // chunk)
+        nclusters = -(-nvalid // CLUSTER)
+        for h in range(Hkv):
+            clusters = []
+            for c in range(nclusters):
+                blocks = []
+                for sp in range(c * CLUSTER, (c + 1) * CLUSTER):
+                    s0, s1 = sp * chunk, min(sp * chunk + chunk, n)
+                    warps = []
+                    for w in range(WARPS):
+                        w0 = s0 + w * per_warp
+                        w1 = min(w0 + per_warp, s1)
+                        m = torch.full((G,), NEG_INF)
+                        l = torch.zeros(G)
+                        acc = torch.zeros((G, D))
+                        batches = []
+                        for t in range(w0, w1, kt):
+                            j, end = t, min(t + kt, w1)
+                            while j < end:       # the last <= 2 keys alone
+                                step = kb if end - j > 2 else min(kb, 2)
+                                batches.append((j, min(j + step, end)))
+                                j += step
+                        for j, j1 in batches:
+                            s = qf[b, h] @ k[b, j:j1, h].float().T   # (G, n)
+                            mx = torch.maximum(m, s.max(dim=1).values)
+                            alpha = torch.exp(m - mx)
+                            p = torch.exp(s - mx[:, None])
+                            l = alpha * l + p.sum(dim=1)
+                            acc = acc * alpha[:, None] + p @ v[b, j:j1,
+                                                               h].float()
+                            m = mx
+                        warps.append((m, l, acc))
+                    blocks.append(merge(warps))
+                clusters.append(merge(blocks))
+            _, l, acc = merge(clusters)
+            out[b, h] = acc / torch.where(l == 0, 1.0, l)[:, None]
+    return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def _arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters for launches on ``dev``'s current
+    stream, all 0 between launches: zeroed when first allocated (or grown),
+    then set back to 0 by the kernel's last block of each merge."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    got = _counters.get(key)
+    if got is None or got.numel() < n:
+        got = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _counters[key] = got
+    return got
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor, *,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA kernels; every tensor contiguous on one CUDA
-    device, kv_len int32."""
+    """Launch the CUDA kernel; every tensor contiguous on one CUDA
+    device, kv_len int32, k and v of one dtype. One launch per call."""
     name = "decode_attention"
     dev = _build.require_cuda(name, q, k, v, kv_len)
     _build.require_dtype(name, "kv_len", kv_len, torch.int32)
@@ -87,11 +198,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(kv_len.shape)} do not fit q "
                          f"{tuple(q.shape)}")
     check_shapes(name, q, k, v)
+    if k.dtype != v.dtype:
+        raise TypeError(f"{name}: k and v must share a dtype, got {k.dtype} "
+                        f"and {v.dtype}")
     G = Hq // Hkv
-    if G * D > THREADS * MAX_OUT_PER_THREAD:
+    if G * D > MAX_OUT:
         raise ValueError(f"{name}: {G} query heads per KV head at D={D} "
-                         f"exceed the kernel's {THREADS * MAX_OUT_PER_THREAD} "
-                         f"outputs per block")
+                         f"exceed the kernel's {MAX_OUT} outputs per block")
     if B * Hkv > 65535:
         raise ValueError(f"{name}: B*Hkv={B * Hkv} exceeds the grid")
     scale = float(scale) if scale is not None else D ** -0.5
@@ -99,16 +212,19 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B == 0 or S == 0:
         return out.zero_()
     nsplit, chunk = splits(S)
-    part_acc = torch.empty((B * Hq * nsplit * D,), dtype=torch.float32,
+    kt, stages = stage_plan(chunk, D, k.element_size())
+    ncl = nsplit // CLUSTER
+    part_acc = torch.empty((B * Hkv * ncl * G * D,), dtype=torch.float32,
                            device=dev)
-    part_ml = torch.empty((B * Hq * nsplit * 2,), dtype=torch.float32,
-                          device=dev)
+    part_ml = torch.empty((B * Hkv * ncl * CLUSTER * G * 2,),
+                          dtype=torch.float32, device=dev)
+    counters = _arrival_counters(dev, B * Hkv * CLUSTER)
     _build.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   kv_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                  part_ml.data_ptr(), B, S, Hq, Hkv, D, nsplit, chunk, scale,
+                  part_ml.data_ptr(), counters.data_ptr(), B, S, Hq, Hkv, D,
+                  nsplit, chunk, kt, stages, scale,
                   int(q.dtype == torch.bfloat16),
-                  int(k.dtype == torch.bfloat16),
-                  int(v.dtype == torch.bfloat16))
+                  int(k.dtype == torch.bfloat16))
     return out
 
 

@@ -32,12 +32,14 @@ def _check_impl(impl: Optional[str]) -> None:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
 
 
-def regex_scan(payload, length, table, out_count, *,
-               impl: Optional[str] = None):
+def regex_scan(payload, length, table, out_count, *, packed=None,
+               depth: Optional[int] = None, impl: Optional[str] = None):
+    """Match counts of the DFA (``table``, ``out_count``); the kernel takes
+    it as ``dfa_regex.prepare`` packed it (``packed``, ``depth``)."""
     _check_impl(impl)
     if impl == "torch":
         return _dfa.dfa_scan_torch(payload, length, table, out_count)
-    return _dfa.dfa_regex(payload, length, table, out_count)
+    return _dfa.dfa_regex(payload, length, table, out_count, packed, depth)
 
 
 def cipher(words, key, *, impl: Optional[str] = None):

@@ -286,12 +286,78 @@ def test_decode_kv_len_past_cache_reads_whole_cache():
     np.testing.assert_allclose(got.numpy(), _np(want), **F32_TOL)
 
 
-@pytest.mark.parametrize("S,nsplit,chunk", [(64, 1, 64), (1536, 24, 64),
-                                            (1537, 25, 64), (4096, 32, 128),
-                                            (32768, 32, 1024)])
+@pytest.mark.parametrize("S,nsplit,chunk", [
+    (64, 8, 8),              # the engine's cache: one cluster
+    (1536, 48, 32),          # gemma3-1b's prefilled cache
+    (1537, 56, 28),
+    (4096, 128, 32),
+    (32768, 1024, 32),
+    (1, 8, 4),               # one key: a cluster of mostly empty splits
+    (100, 8, 16),
+    (1000, 32, 32)])
 def test_decode_splits_cover_the_cache(S, nsplit, chunk):
+    """The split plan covers every key with whole clusters of splits (no
+    cluster wholly past S), in whole multiples of the block's warps, with
+    at most KEYS_PER_WARP keys a warp and as few clusters as that
+    allows."""
     assert da.splits(S) == (nsplit, chunk)
-    assert (nsplit - 1) * chunk < S <= nsplit * chunk
+    assert nsplit % da.CLUSTER == 0 and chunk % da.WARPS == 0
+    assert (nsplit - da.CLUSTER) * chunk < S <= nsplit * chunk
+    assert chunk <= da.WARPS * da.KEYS_PER_WARP
+    fewer = nsplit - da.CLUSTER
+    assert fewer == 0 or S > fewer * da.WARPS * da.KEYS_PER_WARP
+
+
+@pytest.mark.parametrize("chunk,D,itemsize,plan", [
+    (32, 256, 2, (8, 1)), (8, 256, 4, (2, 1)), (32, 256, 4, (4, 2)),
+    (4, 256, 4, (1, 1)), (28, 64, 4, (7, 1))])
+def test_decode_stage_plan(chunk, D, itemsize, plan):
+    """A warp stages all its keys at once where they fit in 8 keys and 8 KB
+    of K and V, else two stages."""
+    assert da.stage_plan(chunk, D, itemsize) == plan
+    kt, stages = plan
+    assert 2 * kt * D * itemsize <= da.STAGE_BYTES
+
+
+SPLIT_CASES = [
+    # (Hq, Hkv, D, S, kv_len)
+    (4, 1, 256, 1536, [1056, 1, 1536, 25]),  # gemma3-1b's prefilled cache
+    (4, 1, 256, 64, [17, 64, 0, 70, 40, 1, 63, 33]),   # the engine's cache
+    (8, 2, 64, 700, [0, 699, 350]),           # GQA, an empty row
+    (16, 1, 128, 96, [96, 5]),                # G 16: 2 keys a batch
+    (32, 1, 64, 40, [40, 3]),                 # G 32: 1 key a batch
+    (3, 1, 128, 300, [300, 299]),             # G 3
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("Hq,Hkv,D,S,kv_len", SPLIT_CASES)
+def test_decode_split_merge_equals_pallas(Hq, Hkv, D, S, kv_len, dtype):
+    """The CUDA kernel's split-and-merge order (per-warp partials in
+    batches, 8-block clusters, the clusters merged last), written out in
+    torch, against the Pallas decode kernel in interpret mode and the
+    plain version."""
+    q_dt, kv_dt = DTYPES[dtype]
+    rng = np.random.default_rng(Hq * 7 + D + S)
+    kv_len = np.array(kv_len, np.int32)
+    B = kv_len.size
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, D)).astype(np.float32)
+    jq, tq = _pair(q, q_dt)
+    jk, tk = _pair(k, kv_dt)
+    jv, tv = _pair(v, kv_dt)
+    tl = torch.from_numpy(kv_len)
+    got = da.split_merge_torch(tq, tk, tv, tl)
+    assert got.dtype == q_dt and got.shape == (B, Hq, D)
+    block_k = 64 if S % 64 == 0 else S
+    pallas = jops.decode_attention(jq, jk, jv, jnp.asarray(kv_len),
+                                   impl="interpret", block_k=block_k)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(q_dt))
+    np.testing.assert_allclose(_np(got), _np(da.decode_attention_torch(
+        tq, tk, tv, tl)), **_tol(q_dt))
+    for i in np.flatnonzero(kv_len == 0):
+        assert not bool(got[i].any())
 
 
 def test_impl_must_be_known():

@@ -70,39 +70,137 @@ def _u32(rng, shape):
     return w
 
 
+def _dfa_args(cuda, pay, length, table, out):
+    """Device tensors of a walk: payload, length, table, out_count, and the
+    table packed as the kernel takes it, with its depth."""
+    prep = dfa_regex.prepare(table, out)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (pay, length, table, out)]
+    return args, torch.from_numpy(prep.packed).to(cuda), prep.depth
+
+
+def _straddling(rng, B, L, rules, segs, depth):
+    """Payloads with a pattern across, at and just before every segment
+    start of the kernel's plan."""
+    pay = rng.integers(0, 256, size=(B, L), dtype=np.uint8)
+    starts = [f for _, f in dfa_regex.segment_bounds(L, segs, depth)][1:]
+    pats = [r.encode() for r in rules]
+    for i in range(B):
+        for j, st in enumerate(starts):
+            pat = pats[(i + j) % len(pats)]
+            pos = st - (i % (len(pat) + 2))
+            if 0 <= pos <= L - len(pat):
+                pay[i, pos:pos + len(pat)] = np.frombuffer(pat, np.uint8)
+    return pay
+
+
 def test_dfa_kernel_equals_plain(cuda):
+    """SNORT_RULES at the path's row length, patterns straddling every
+    segment boundary of the kernel's plan, lengths negative, 0, 1, d, in
+    the row, L and past L; then the same rows cut to an odd length."""
     rng = np.random.default_rng(5)
     table, out = ref.build_aho_corasick(SNORT)
-    pay = rng.integers(0, 256, size=(300, 1500), dtype=np.uint8)
-    for i in range(0, 300, 3):
-        pay[i, 100 + i:106 + i] = np.frombuffer(b"attack", np.uint8)
-    length = rng.integers(-2, 1510, size=300).astype(np.int32)
-    args = [torch.from_numpy(a).to(cuda) for a in (pay, length, table, out)]
+    B, L = 300, 1500
+    segs, _ = dfa_regex.plan(B, L, table.shape[0], 11)
+    assert segs > 1
+    pay = _straddling(rng, B, L, SNORT, segs, 11)
+    length = rng.integers(-2, 1510, size=B).astype(np.int32)
+    length[:8] = [0, 1, 11, 12, L, L + 9, -5, 188]
+    args, packed, depth = _dfa_args(cuda, pay, length, table, out)
+    assert depth == 11
     before = _build.launch_counts()["dfa_regex"]
-    got = dfa_regex.dfa_regex(*args)
+    got = dfa_regex.dfa_regex(*args, packed, depth)
     torch.cuda.synchronize()
     assert _build.launch_counts()["dfa_regex"] == before + 1
-    assert torch.equal(got, dfa_regex.dfa_scan_torch(*args))
-    assert int(got.max()) > 0
-    # odd row length: the kernel's byte-at-a-time path
+    want = dfa_regex.dfa_scan_torch(*args)
+    assert torch.equal(got, want)
+    assert int(got.max()) > 1
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), dfa_regex.segmented_scan_numpy(
+            pay, length, dfa_regex.prepare(table, out), segs))
     odd = args[0][:, :1499].contiguous()
-    assert torch.equal(dfa_regex.dfa_regex(odd, *args[1:]),
+    assert torch.equal(dfa_regex.dfa_regex_cuda(odd, args[1], packed, depth),
                        dfa_regex.dfa_scan_torch(odd, *args[1:]))
 
 
-def test_dfa_kernel_large_table_uses_dynamic_shared_memory(cuda):
-    """A table above 48 KB opts in to dynamic shared memory."""
-    rules = [f"rule{i:03d}x" for i in range(40)]
-    table, out = ref.build_aho_corasick(rules)
-    assert dfa_regex.smem_bytes(table.shape[0]) > 48 * 1024
-    rng = np.random.default_rng(6)
-    pay = rng.integers(0, 256, size=(64, 512), dtype=np.uint8)
-    pay[::2, 10:18] = np.frombuffer(b"rule007x", np.uint8)
-    args = [torch.from_numpy(a).to(cuda) for a in
-            (pay, np.full(64, 512, np.int32), table, out)]
-    got = dfa_regex.dfa_regex(*args)
+@pytest.mark.parametrize("L", [1501, 1500, 37])
+def test_dfa_kernel_odd_rows_and_offset_views(cuda, L):
+    """Rows of 1,501 bytes (not 4- or 16-byte aligned), and a payload view
+    that starts one byte into its storage (read from device memory)."""
+    rng = np.random.default_rng(L)
+    table, out = ref.build_aho_corasick(SNORT)
+    B = 513
+    store = _straddling(rng, B, L + 1, SNORT, 8, 11)
+    length = rng.integers(-3, L + 4, size=B).astype(np.int32)
+    args, packed, depth = _dfa_args(cuda, store[:, :L], length, table, out)
+    got = dfa_regex.dfa_regex_cuda(args[0], args[1], packed, depth)
     assert torch.equal(got, dfa_regex.dfa_scan_torch(*args))
-    assert int(got.sum()) >= 32
+    flat = torch.from_numpy(store.reshape(-1)).to(cuda)
+    view = flat[1:1 + B * L].view(B, L)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    got = dfa_regex.dfa_regex_cuda(view, args[1], packed, depth)
+    assert torch.equal(got, dfa_regex.dfa_scan_torch(view, *args[1:]))
+
+
+def test_dfa_kernel_table_without_depth(cuda):
+    """A DFA that never forgets (parity of the 1-bytes) has no
+    synchronisation depth: each packet is one walk."""
+    table = np.zeros((2, 256), np.int32)
+    table[1, :] = 1
+    table[0, 1], table[1, 1] = 1, 0
+    out = np.array([0, 1], np.int32)
+    rng = np.random.default_rng(8)
+    pay = rng.integers(0, 3, size=(2000, 700), dtype=np.uint8)
+    length = rng.integers(-1, 710, size=2000).astype(np.int32)
+    args, packed, depth = _dfa_args(cuda, pay, length, table, out)
+    assert depth is None
+    got = dfa_regex.dfa_regex_cuda(args[0], args[1], packed, depth)
+    assert torch.equal(got, dfa_regex.dfa_scan_torch(*args))
+
+
+def test_dfa_kernel_large_table_uses_dynamic_shared_memory(cuda):
+    """A table above 48 KB opts in to dynamic shared memory: 90 and 177
+    states (a staged chunk a thread) and 224 (no room for staged chunks,
+    so the rows are read from device memory)."""
+    for rules, chunks in (([f"rule{i:03d}x" for i in range(40)], 1),
+                          ([f"q{i:03d}zz" for i in range(56)], 1),
+                          ([f"q{i:03d}zz" for i in range(71)], 0)):
+        table, out = ref.build_aho_corasick(rules)
+        assert dfa_regex.plan(600, 512, table.shape[0], 8)[1] == chunks
+        assert dfa_regex.smem_bytes(table.shape[0]) > 48 * 1024
+        rng = np.random.default_rng(6)
+        pay = rng.integers(0, 256, size=(600, 512), dtype=np.uint8)
+        pat = rules[7].encode()
+        pay[::2, 10:10 + len(pat)] = np.frombuffer(pat, np.uint8)
+        args, packed, depth = _dfa_args(cuda, pay, np.full(600, 512, np.int32),
+                                        table, out)
+        got = dfa_regex.dfa_regex_cuda(args[0], args[1], packed, depth)
+        assert torch.equal(got, dfa_regex.dfa_scan_torch(*args))
+        assert int(got.sum()) >= 300
+
+
+def test_dfa_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    table, out = ref.build_aho_corasick(SNORT)
+    big = out.copy()
+    big[2] = 1 << 16
+    with pytest.raises(ValueError, match="out_count"):
+        dfa_regex.prepare(table, big)
+    pay = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
+    lens = torch.full((4,), 64, dtype=torch.int32, device=cuda)
+    args = [torch.from_numpy(a).to(cuda) for a in (table, out)]
+    with pytest.raises(ValueError, match="prepare"):
+        dfa_regex.dfa_regex(pay, lens, *args)
+    from repro_torch.core import accel
+    from repro_torch.core.graph import make_packets
+    fn = accel.regex(SNORT)
+    fn.ucf.consts.set(table=table, out_count=big)
+    batch = make_packets(pay, lens, torch.zeros((4, 5), dtype=torch.int32,
+                                                device=cuda), device=cuda)
+    with pytest.raises(ValueError, match="out_count"):
+        fn.ucf(batch)
+    packed = torch.from_numpy(dfa_regex.prepare(table, out).packed).to(cuda)
+    with pytest.raises(TypeError, match="packed"):
+        dfa_regex.dfa_regex_cuda(pay, lens, packed.float(), 11)
 
 
 @pytest.mark.parametrize("B,W", [(257, 375), (3, 1)])
@@ -215,8 +313,9 @@ def test_flash_kernel_equals_plain(cuda, D, Hq, Hkv, Sq, Sk, window,
 @pytest.mark.parametrize("D,Hq,Hkv,S,kv_len", [
     (256, 4, 1, 1536, [1025, 1056, 1, 1536]),   # gemma3-1b after prefill
     (256, 4, 1, 64, [17, 17, 64, 70]),          # the engine's cache; pos >= S
+    (256, 4, 1, 64, [40] * 8),                  # the engine's 8 rows
     (128, 8, 1, 1000, [0, 999, 500, 1000]),     # ragged S, an empty row
-    (128, 4, 4, 4096, [4096, 3000, 129, 64]),   # MHA, 128-key splits
+    (128, 4, 4, 4096, [4096, 3000, 129, 64]),   # MHA, two stages a warp
 ])
 def test_decode_kernel_equals_plain(cuda, D, Hq, Hkv, S, kv_len, pairing):
     q_dt, kv_dt = PAIRINGS[pairing]
@@ -233,6 +332,31 @@ def test_decode_kernel_equals_plain(cuda, D, Hq, Hkv, S, kv_len, pairing):
     _close(got, da.decode_attention_torch(q, k, v, lens), q_dt)
     if 0 in kv_len:
         assert not bool(got[kv_len.index(0)].any())
+    # back to back: the arrival counters were set back to 0
+    again = ops.decode_attention(q, k, v, lens)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_kernel_head_dims_and_groups(cuda, D, G, pairing):
+    """Every head dim, dtype pairing and group size, with kv_len 0, 1, S
+    and different on every row, over a cache deep enough for several
+    clusters of splits."""
+    q_dt, kv_dt = PAIRINGS[pairing]
+    g = torch.Generator(device=cuda).manual_seed(D * 10 + G)
+    Hkv, S = 2, 2000
+    kv_len = [0, 1, S, 1999, 777, 33]
+    B = len(kv_len)
+    q = torch.randn((B, G * Hkv, D), generator=g, device=cuda).to(q_dt)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    got = da.decode_attention_cuda(q, k, v, lens)
+    _close(got, da.decode_attention_torch(q, k, v, lens), q_dt)
+    assert not bool(got[0].any())
+    assert torch.equal(got, da.decode_attention_cuda(q, k, v, lens))
 
 
 @pytest.mark.parametrize("pairing", list(PAIRINGS))
@@ -284,6 +408,8 @@ def test_attention_wrappers_reject_bad_input(cuda):
         da.decode_attention_cuda(q, x, x, lens.long())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         da.decode_attention_cuda(q, x.half(), x, lens)
+    with pytest.raises(TypeError, match="share a dtype"):
+        da.decode_attention_cuda(q, x, x.bfloat16(), lens)
     with pytest.raises(ValueError, match="outputs per block"):
         big = torch.zeros((1, 32, 128), device=cuda)
         kv1 = torch.zeros((1, 64, 1, 128), device=cuda)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.apps import nf as jnf
 from repro.core import accel as jaccel
 from repro.core.graph import make_packets as jmake_packets
 from repro.kernels import ops as jops
@@ -76,6 +77,163 @@ def test_dfa_plain_equals_reference_and_pallas(B, L, block_b, rules):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), pallas)
     assert want.max() > 0
+
+
+def _parity_table():
+    """A two-state DFA that flips on byte 1: it remembers the parity of the
+    1-bytes forever, so it has no synchronisation depth."""
+    table = np.zeros((2, 256), np.int32)
+    table[1, :] = 1
+    table[0, 1], table[1, 1] = 1, 0
+    return table, np.array([0, 1], np.int32)
+
+
+def test_sync_depth_of_the_rule_sets():
+    """d is 11 for the apps' rule set (its longest pattern, "/etc/passwd"),
+    the longest pattern of the test rule sets, and None for parity."""
+    table, _ = ref.build_aho_corasick(jnf.SNORT_RULES)
+    assert table.shape[0] == 43 and dfa_regex.sync_depth(table) == 11
+    for rules in RULE_SETS:
+        table, _ = jref.build_aho_corasick(rules)
+        longest = max(len(r.encode() if isinstance(r, str) else r)
+                      for r in rules)
+        assert dfa_regex.sync_depth(table) == longest
+    assert dfa_regex.sync_depth(_parity_table()[0]) is None
+    one = np.zeros((1, 256), np.int32)           # one state: nothing to forget
+    assert dfa_regex.sync_depth(one) == 0
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sync_depth_is_the_longest_pattern(seed):
+    """For an Aho-Corasick table the depth is the longest pattern: from any
+    state, the last `longest` bytes decide the state (a shorter string
+    leaves the start of the longest pattern undecided)."""
+    rng = np.random.default_rng(seed)
+    alphabet = rng.integers(0, 256, size=rng.integers(2, 5))
+    rules = [bytes(rng.choice(alphabet, size=rng.integers(1, 10)).astype(
+        np.uint8)) for _ in range(rng.integers(1, 8))]
+    table, out = jref.build_aho_corasick(rules)
+    assert dfa_regex.sync_depth(table) == max(len(r) for r in rules)
+    # brute force on a few strings: after d bytes every start agrees
+    d = max(len(r) for r in rules)
+    for _ in range(20):
+        w = rng.choice(alphabet, size=d)
+        ends = {_walk(table, q, w) for q in range(table.shape[0])}
+        assert len(ends) == 1
+
+
+def _walk(table, state, word):
+    for byte in word:
+        state = table[state, byte]
+    return int(state)
+
+
+def test_prepare_packs_entries_and_refuses_what_does_not_fit():
+    table, out = ref.build_aho_corasick(jnf.SNORT_RULES)
+    prep = dfa_regex.prepare(table, out)
+    assert prep.packed.dtype == np.int32 and prep.depth == 11
+    packed = prep.packed.view(np.uint32)
+    np.testing.assert_array_equal(packed & 0xFFFF, table)
+    np.testing.assert_array_equal(packed >> 16, out[table])
+    big = out.copy()
+    big[3] = 1 << 16
+    with pytest.raises(ValueError, match="out_count"):
+        dfa_regex.prepare(table, big)
+    with pytest.raises(ValueError, match="out_count"):
+        dfa_regex.prepare(table, out - 2)
+    with pytest.raises(ValueError, match="does not pack"):
+        dfa_regex.prepare(np.zeros((257, 256), np.int32),
+                          np.zeros(257, np.int32))
+    par = dfa_regex.prepare(*_parity_table())
+    assert par.depth is None
+    assert dfa_regex.segment_bounds(100, 4, None) == [(0, 0)]
+
+
+def _planted(rng, B, L, rules, starts):
+    """Random payloads with the rules' patterns planted so that each one
+    straddles a segment start, starts there, or ends just before it."""
+    pay = rng.integers(0, 256, size=(B, L), dtype=np.uint8)
+    pats = [r.encode() if isinstance(r, str) else r for r in rules]
+    for i in range(B):
+        for j, s in enumerate(starts):
+            pat = pats[(i + j) % len(pats)]
+            pos = s - (i % (len(pat) + 2))
+            if 0 <= pos and pos + len(pat) <= L:
+                pay[i, pos:pos + len(pat)] = np.frombuffer(pat, np.uint8)
+    return pay
+
+
+@pytest.mark.parametrize("segments", [1, 2, 4, 8])
+@pytest.mark.parametrize("rules,L", [(0, 1500), (1, 97), (2, 64), (3, 40)])
+def test_segmented_walk_equals_reference_and_pallas(rules, L, segments):
+    """The kernel's segmented walk (numpy transcription: warm-up of d bytes
+    from state 0, counting from the segment's start, the packet's sum)
+    equals the serial oracle and the Pallas kernel bit for bit, with the
+    patterns planted across every segment boundary and lengths 0, 1, d, L
+    and ragged."""
+    rng = np.random.default_rng(L * 10 + segments)
+    pats = RULE_SETS[rules]
+    table, out = jref.build_aho_corasick(pats)
+    prep = dfa_regex.prepare(table, out)
+    starts = [f for _, f in dfa_regex.segment_bounds(L, segments, prep.depth)]
+    B = 48
+    pay = _planted(rng, B, L, pats, starts[1:] + [L // 2])
+    length = rng.integers(0, L + 1, size=B).astype(np.int32)
+    length[:6] = [0, 1, prep.depth, L, L + 7, -2]
+    length[6:6 + len(starts)] = [min(L, s + 1) for s in starts]
+    got = dfa_regex.segmented_scan_numpy(pay, length, prep, segments)
+    want = np.asarray(jref.dfa_scan(jnp.asarray(pay), jnp.asarray(length),
+                                    jnp.asarray(table), jnp.asarray(out)))
+    pallas = np.asarray(jops.regex_scan(jnp.asarray(pay), jnp.asarray(length),
+                                        table, out, impl="interpret",
+                                        block_b=16))
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pallas)
+    assert want.max() > 0
+
+
+def test_segmented_walk_without_depth_is_one_segment():
+    """A table with no finite depth is walked as one segment, whatever
+    number of segments is asked for: it still equals the oracle."""
+    table, out = _parity_table()
+    prep = dfa_regex.prepare(table, out)
+    rng = np.random.default_rng(3)
+    pay = rng.integers(0, 3, size=(16, 64), dtype=np.uint8)
+    length = rng.integers(0, 65, size=16).astype(np.int32)
+    want = np.asarray(jref.dfa_scan(jnp.asarray(pay), jnp.asarray(length),
+                                    jnp.asarray(table), jnp.asarray(out)))
+    np.testing.assert_array_equal(
+        dfa_regex.segmented_scan_numpy(pay, length, prep, 8), want)
+
+
+def test_dfa_plan_fills_the_card():
+    """At the path's 32,768 rows of 1,500 bytes the table leaves room for
+    a staged chunk a thread, and 4 segments give every SM a block of
+    walks; no finite depth means one segment; a table too large for stages
+    reads the payload from device memory."""
+    assert dfa_regex.plan(32768, 1500, 43, 11) == (4, 1)
+    assert dfa_regex.plan(32768, 1500, 43, None) == (1, 1)
+    assert dfa_regex.plan(300, 1500, 43, 11) == (8, 1)
+    assert dfa_regex.plan(32768, 40, 43, 11) == (1, 1)   # no room for 4 d
+    assert dfa_regex.plan(1 << 20, 1500, 43, 11) == (1, 1)
+    assert dfa_regex.plan(32768, 1500, 180, 11)[1] == 1
+    assert dfa_regex.plan(32768, 1500, 226, 11)[1] == 0
+
+
+def test_regex_stage_prepares_its_table_on_the_host():
+    """The regex stage keeps the packed table and its depth beside the
+    rules' table, and recomputes them when the table is replaced."""
+    fn = accel.regex(jnf.SNORT_RULES)
+    assert fn.ucf.consts.derived["depth"] == 11
+    on = fn.ucf.consts.on(torch.device("cpu"))
+    assert set(on) == {"table", "out_count", "packed"}
+    t2, o2 = ref.build_aho_corasick(["zz", "abc"])
+    fn.ucf.consts.set(table=t2, out_count=o2)
+    assert fn.ucf.consts.derived["depth"] == 3
+    np.testing.assert_array_equal(
+        fn.ucf.consts.on(torch.device("cpu"))["packed"].numpy(),
+        dfa_regex.prepare(t2, o2).packed)
 
 
 def test_dfa_counts_overlapping_matches():
@@ -170,9 +328,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_build_is_keyed_by_sources_and_flags():
     assert {p.name for p in _build.sources()} == {
         "crypto.cu", "dfa_regex.cu", "flow_lookup.cu", "flash_attention.cu",
-        "decode_attention.cu", "ssd_scan.cu"}
+        "decode_attention.cu", "ssd_scan.cu", "launch_floor.cu"}
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     path = _build.library_path()
     assert path.name == _build.LIB_NAME and path.parent.name == _build._digest()
     assert set(_build.KERNELS.values()) == set(_build.SIGNATURES)
-    assert dfa_regex.smem_bytes(43) == 44204
+    assert dfa_regex.smem_bytes(43) == 44032      # the packed table
