@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Three paths, each driven with the launch counts set to 0 just before it
+Four paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -21,7 +21,11 @@ and read just after:
    the plain versions; then ``repro_torch.launch.serve`` at its reference
    defaults (16 requests x 16 tokens, 8 slots, max_len 64), held against
    the same engine with the plain versions.
-3. LM serving on mamba2-370m at full width (48 mamba layers, d_model 1024,
+3. The same arch's ``reduced()`` config (head dim 16) on the card against
+   the same parameters on the CPU: a prefill and 8 decode steps
+   (flash_attention and decode_attention at head dim 16), then
+   ``launch.serve --reduced`` against a CPU engine with the same plan.
+4. LM serving on mamba2-370m at full width (48 mamba layers, d_model 1024,
    d_inner 2048, state 128, head dim 64, vocab 50,280; f32 parameters from
    a seeded generator): ``Model.prefill`` of 4 prompts of 1,024 tokens
    (ssd_scan on every layer, 8 chunks each) and 32 greedy ``decode_step``s
@@ -38,8 +42,10 @@ It builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
 (into ``build/kernels/``), needs one CUDA device, and exits non-zero on any
 failure. The last line of its output is ``{"ok": true, "device": {...}}``;
 the line before it lists every kernel with its launches on its path, its
-error against the plain version, and its times beside its bound, and
-``launch_floor_ms``: a kernel that does nothing, timed the same way.
+error against the plain version, and its times beside its bound (B3 and
+B4 also beside ``input_read_floor``, a plain coalesced read of their input
+timed the same way), and ``launch_floor_ms``: a kernel that does nothing,
+timed the same way.
 """
 from __future__ import annotations
 
@@ -108,6 +114,10 @@ PREFILL_TOL = 1e-3
 DECODE_TOL = 2e-3
 # A kernel against its plain version on the same inputs: f32 outputs.
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
+# The same arch's reduced() config (head dim 16) on the card and on the CPU
+REDUCED_BATCH = 4
+REDUCED_PROMPT = 40
+REDUCED_STEPS = 8
 
 # LM serving phase (mamba2-370m at full width)
 MAMBA_ARCH = "mamba2-370m"
@@ -397,6 +407,24 @@ def kernel_checks(dp, last_batch, launches_isg, launches_id):
     S = table.shape[0]
     B, Wd = words.shape
 
+    # C2's path: a 256-state rule set (the reference's own example size),
+    # too large to pack, walked in the wide form, over the same rows with
+    # its patterns planted in every other row
+    rules256 = [f"q{i:03d}zz" for i in range(81)] + ["y"]
+    t256, o256 = ref.build_aho_corasick(rules256)
+    prep256 = dfa_regex.prepare(t256, o256)
+    if t256.shape[0] != 256 or prep256.form != "wide16":
+        raise AssertionError(f"the 256-state rule set has {t256.shape[0]} "
+                             f"states in the {prep256.form} form")
+    pay256 = payload.clone()
+    for j, pat in enumerate(rules256[::9]):
+        at = 40 + 160 * j
+        pay256[::2, at:at + len(pat)] = torch.tensor(list(pat.encode()),
+                                                     dtype=torch.uint8,
+                                                     device=dev)
+    t256_d, o256_d, e256, c256 = (torch.from_numpy(a).to(dev) for a in (
+        t256, o256, prep256.packed, prep256.counts))
+
     specs = {
         "flow_lookup": dict(
             run=lambda: fl.lookup_cuda(*planes, q_lo, q_hi, ep, W),
@@ -412,6 +440,16 @@ def kernel_checks(dp, last_batch, launches_isg, launches_id):
             shape=f"B={rows} L={PKT_BYTES} S={S} depth={depth} segments="
                   f"{dfa_regex.plan(rows, PKT_BYTES, S, depth)[0]}",
             nbytes=steps + rows * 8 + S * 256 * 4, ops=steps * 4),
+        "dfa_regex/256-state": dict(
+            run=lambda: dfa_regex.dfa_regex_cuda(pay256, length, e256,
+                                                 prep256.depth, c256),
+            plain=lambda: dfa_regex.dfa_scan_torch(pay256, length, t256_d,
+                                                   o256_d),
+            shape=f"B={rows} L={PKT_BYTES} S=256 (wide16, in shared "
+                  f"memory) depth={prep256.depth} segments="
+                  f"{dfa_regex.plan(rows, PKT_BYTES, 256, prep256.depth, form='wide16')[0]}",
+            nbytes=steps + rows * 8 + dfa_regex.smem_bytes(256, "wide16"),
+            ops=steps * 4),
         "keyed_hash": dict(
             run=lambda: crypto.keyed_hash_cuda(words, key),
             plain=lambda: crypto.keyed_hash_torch(words, key),
@@ -423,30 +461,51 @@ def kernel_checks(dp, last_batch, launches_isg, launches_id):
             shape=f"B={B} W={Wd}", nbytes=2 * B * Wd * 4 + 16,
             ops=B * Wd * 64),
     }
-    kernels = []
-    for name, s in specs.items():
+    # a plain coalesced read of B3's and B4's input, timed the same way:
+    # the least time any kernel that reads those bytes takes here
+    read_floor = {"ms": _time_ms(lambda: _build.read_floor(words),
+                                 KERNEL_REPS, flush),
+                  "ms_l2_warm": _time_ms(lambda: _build.read_floor(words),
+                                         KERNEL_REPS, _NoFlush()),
+                  "bytes": words.numel() * 4}
+    rows_out = {}
+    for spec, s in specs.items():
+        name, _, label = spec.partition("/")
         got, want = s["run"](), s["plain"]()
         torch.cuda.synchronize()
         if not isinstance(got, tuple):
             got, want = (got,), (want,)
         err = _max_abs_err(got, want)
         if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain "
+            raise AssertionError(f"{spec}: kernel differs from its plain "
                                  f"version by {err}")
+        if label and int(got[0].max()) < 1:
+            raise AssertionError(f"{spec}: no match in the planted rows")
         bound_s, bound_by = hw.bound_seconds(s["nbytes"], s["ops"])
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches_isg[name],
+            "replaces": REPLACES[name],
+            # a variant is a check beside the path, not on it
+            "launches": 0 if label else launches_isg[name],
             "launches_by_path": {"ISG": launches_isg[name],
                                  "ID": launches_id[name]},
             "shape": s["shape"], "max_abs_err": err,
             "ms": _time_ms(s["run"], KERNEL_REPS, flush),
+            # the same launches with the inputs left in L2 by the last
+            "ms_l2_warm": _time_ms(s["run"], KERNEL_REPS, _NoFlush()),
             "plain_ms": _time_ms(s["plain"], PLAIN_REPS, flush),
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": int(s["nbytes"]), "ops": int(s["ops"]),
             "library_ms": None,
-        })
-    return kernels
+        }
+        if name in ("keyed_hash", "arx_cipher"):
+            row["input_read_floor"] = read_floor
+        if label:
+            row["variant"] = label
+            rows_out[name].setdefault("variants", {})[label] = row
+        else:
+            rows_out[name] = row
+    return list(rows_out.values())
 
 
 # -- LM serving ---------------------------------------------------------------
@@ -708,6 +767,154 @@ def engine_run(arch, tol, launched, not_launched):
         "plain_tokens_per_s": sum(len(r.out) for r in done) / plain_s,
         "tokens_equal_to_plain": same, "launches": launches,
     }
+
+
+def reduced_serving(arch):
+    """``arch``'s ``reduced()`` config (head dim 16) on the card against the
+    same parameters on the CPU. Prefill of REDUCED_BATCH prompts of
+    REDUCED_PROMPT tokens (B5 on every layer) and REDUCED_STEPS greedy
+    decode steps (B6 on the global layers) over an f32 cache, counts reset
+    just before and read just after; then ``launch.serve --reduced`` on the
+    card (B6 in the engine) against a CPU engine with the card run's plan,
+    parameters and requests. Logits are held to PREFILL_TOL (both f32,
+    sums in other orders, through 4 layers)."""
+    cfg = get_arch(arch).reduced().replace(remat=False)
+    card, cpu = build(cfg, "cuda"), build(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0), torch.float32)
+    card_params = cpu.init(torch.Generator().manual_seed(0),
+                           torch.float32).to("cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, size=(REDUCED_BATCH, REDUCED_PROMPT)))
+    max_len = REDUCED_PROMPT + REDUCED_STEPS
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    lg, c = card.prefill(card_params, {"tokens": toks.cuda()},
+                         max_len=max_len, cache_dtype=torch.float32)
+    per_prefill = _build.launch_counts()
+    lgs, nxt = [lg], [lg.argmax(-1)]
+    for _ in range(REDUCED_STEPS):
+        lg, c = card.decode_step(card_params, c, nxt[-1])
+        lgs.append(lg)
+        nxt.append(lg.argmax(-1))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    plg, pc = cpu.prefill(params, {"tokens": toks}, max_len=max_len,
+                          cache_dtype=torch.float32)
+    err, _ = _check_logits("reduced prefill", lgs[0].cpu(), plg, PREFILL_TOL)
+    for i in range(REDUCED_STEPS):
+        plg, pc = cpu.decode_step(params, pc, nxt[i].cpu())
+        e, _ = _check_logits(f"reduced decode step {i}", lgs[i + 1].cpu(),
+                             plg, PREFILL_TOL)
+        err = max(err, e)
+    n_global = sum(1 for *_, layer in params.all_layers()
+                   if layer.spec.mixer == "attn")
+    if per_prefill["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"reduced prefill launched flash_attention "
+                             f"{per_prefill['flash_attention']} times, not "
+                             f"{cfg.n_layers}")
+    decode = launches["decode_attention"] - per_prefill["decode_attention"]
+    if decode != REDUCED_STEPS * n_global:
+        raise AssertionError(f"reduced decode launched decode_attention "
+                             f"{decode} times, not {REDUCED_STEPS * n_global}")
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    rep = serve.run(["--arch", arch, "--reduced"])
+    eng_launches = _build.launch_counts()
+    if eng_launches["decode_attention"] < 1:
+        raise AssertionError("the reduced engine never launched "
+                             "decode_attention")
+    if len(rep.done) != rep.requests:
+        raise AssertionError(f"reduced engine: {len(rep.done)}/"
+                             f"{rep.requests} requests done")
+    on_cpu = ServingEngine(cpu, rep.params.to("cpu"),
+                           num_pipelines=rep.plan.num_pipelines,
+                           slots_per_pipeline=8, max_len=64)
+    for req in serve.make_requests(cfg, rep.requests, 16):
+        on_cpu.submit(req)
+    done = on_cpu.run(max_steps=64 - 8)
+    same = _requests_agree(rep.done, done, PREFILL_TOL)
+    margin_err = 0.0            # over each request's tokens up to a change
+    for g, w in zip(rep.done, done):
+        for a, b, ma, mb in zip(g.out, w.out, g.margins, w.margins):
+            margin_err = max(margin_err, abs(ma - mb))
+            if a != b:
+                break
+    if margin_err > 2 * PREFILL_TOL:
+        raise AssertionError(f"reduced engine: top-2 margins differ from "
+                             f"the CPU run by {margin_err}")
+    return {
+        "arch": arch, "d_head": cfg.head_dim, "layers": cfg.n_layers,
+        "batch": REDUCED_BATCH, "prompt_len": REDUCED_PROMPT,
+        "decode_steps": REDUCED_STEPS,
+        "logit_max_abs_err_vs_cpu": err,
+        "launches_per_prefill": {k: per_prefill[k] for k in
+                                 ("flash_attention", "decode_attention")},
+        "decode_attention_per_step": decode / REDUCED_STEPS,
+        "engine": {"pipelines": rep.plan.num_pipelines,
+                   "requests": rep.requests, "tokens": rep.tokens,
+                   "tokens_equal_to_cpu": same,
+                   "margin_max_abs_err_vs_cpu": margin_err,
+                   "launches": eng_launches},
+    }, launches, eng_launches
+
+
+def reduced_attention_rows(arch, launches):
+    """B5 and B6 at the reduced config's head dim 16, at the shapes the
+    reduced path gave them (B5 windowed and global over the prompts, B6
+    over the prefilled f32 cache), against their plain versions, timed
+    beside their bounds: rows to attach to B5's and B6's as variants, with
+    the reduced path's ``launches``."""
+    cfg = get_arch(arch).reduced()
+    dev = torch.device("cuda")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, S, Hq, Hkv, D = (REDUCED_BATCH, REDUCED_PROMPT, cfg.n_heads,
+                        cfg.n_kv_heads, cfg.head_dim)
+    Sd = REDUCED_PROMPT + REDUCED_STEPS
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    dq = torch.randn((B, Hq, D), generator=g, device=dev)
+    ck = torch.randn((B, Sd, Hkv, D), generator=g, device=dev)
+    cv = torch.randn((B, Sd, Hkv, D), generator=g, device=dev)
+    kv_len = torch.full((B,), Sd - 1, dtype=torch.int32, device=dev)
+    el = lambda t: t.numel() * t.element_size()
+    specs = [("flash_attention", f"reduced-{label}", dict(
+        run=lambda w=w: fa.flash_attention_cuda(q, k, v, window=w),
+        plain=lambda w=w: fa.flash_attention_torch(q, k, v, window=w),
+        shape=f"B={B} Sq=Sk={S} Hq={Hq} Hkv={Hkv} D={D} f32 window={w}",
+        nbytes=el(q) * 2 + el(k) + el(v),
+        ops=fa.work(q.shape, k.shape, True, w) * 4 * D))
+        for w, label in ((cfg.window, "local"), (None, "global"))]
+    specs.append(("decode_attention", "reduced", dict(
+        run=lambda: da.decode_attention_cuda(dq, ck, cv, kv_len),
+        plain=lambda: da.decode_attention_torch(dq, ck, cv, kv_len),
+        shape=f"B={B} S={Sd} kv_len={Sd - 1} Hq={Hq} Hkv={Hkv} D={D} f32",
+        nbytes=el(dq) * 2 + el(kv_len) + int(kv_len.sum()) * Hkv * D * 2 * 4,
+        ops=da.work(kv_len, Sd, Hq) * 4 * D)))
+    out = []
+    for name, label, s in specs:
+        got, want = s["run"](), s["plain"]()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, **ATTN_TOL):
+            raise AssertionError(f"{name} ({label}): kernel differs from its "
+                                 f"plain version by {err}")
+        peak = hw.peak_flops(torch.float32)
+        bound_s, bound_by = hw.bound_seconds(s["nbytes"], s["ops"], peak)
+        out.append((name, label, {
+            "name": name, "variant": label,
+            "launches": launches[name],
+            "shape": s["shape"], "max_abs_err": err,
+            "ms": _time_ms(s["run"], KERNEL_REPS, flush),
+            "ms_l2_warm": _time_ms(s["run"], KERNEL_REPS, _NoFlush()),
+            "plain_ms": _time_ms(s["plain"], PLAIN_REPS, flush),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": int(s["nbytes"]), "ops": int(s["ops"]),
+            "peak_flops": peak, "library_ms": None,
+        }))
+    return out
 
 
 def attention_checks(model, cache, engine, launches_pd, launches_engine):
@@ -976,6 +1183,21 @@ def main() -> int:
     del model, params, cache, engine, prompts
     torch.cuda.empty_cache()
 
+    # LM serving: the same arch reduced (head dim 16), card against CPU
+    red, red_pd, red_eng = reduced_serving(ARCH)
+    print(f"reduced {ARCH} (d_head {red['d_head']}) on the card: logits "
+          f"within {red['logit_max_abs_err_vs_cpu']} of the CPU run; engine "
+          f"{red['engine']['requests']} requests, "
+          f"{red['engine']['tokens_equal_to_cpu']}/{red['engine']['tokens']} "
+          f"tokens equal to the CPU engine's")
+    print("reduced serving " + json.dumps(red))
+    by_name = {row["name"]: row for row in kernels}
+    for name, label, row in reduced_attention_rows(ARCH, red_pd):
+        by_name[name].setdefault("variants", {})[label] = row
+        by_name[name]["launches_by_path"]["reduced"] = red_pd[name]
+    by_name["decode_attention"]["launches_by_path"]["reduced_engine"] = (
+        red_eng["decode_attention"])
+
     # LM serving: mamba2-370m at full width, f32 parameters
     t0 = time.perf_counter()
     model = build(get_arch(MAMBA_ARCH), "cuda")
@@ -1017,7 +1239,8 @@ def main() -> int:
                                      f"{r['ms']} ms is under its bound "
                                      f"{r['bound_ms']} ms")
     for name in ("flash_attention", "ssd_scan", "dfa_regex",
-                 "decode_attention"):
+                 "decode_attention", "arx_cipher", "keyed_hash",
+                 "flow_lookup"):
         spills = {fn: v for fn, v in _ptxas_of(ptxas, name).items()
                   if v.get("spill_stores") or v.get("spill_loads")}
         if spills:

@@ -88,12 +88,15 @@ def _words_to_payload(words: torch.Tensor, orig: torch.Tensor) -> torch.Tensor:
 
 def _prepare_dfa(table: np.ndarray, out_count: np.ndarray) -> Dict:
     """The regex kernel's form of the DFA, built on the host once per rule
-    set: packed entries and the synchronisation depth."""
+    set: the table's entries (with the counts beside them in the wide
+    form) and the synchronisation depth. ``prepare`` refuses only what the
+    reference cannot walk either (entries outside the table)."""
     try:
         prepared = dfa_regex.prepare(table, out_count)
-    except ValueError as err:      # the plain version still takes it
+    except ValueError as err:      # the plain version still runs it
         return {"depth": None, "refused": str(err)}
-    return {"packed": prepared.packed, "depth": prepared.depth}
+    return {"packed": prepared.packed, "depth": prepared.depth,
+            "counts": prepared.counts}         # counts None: packed form
 
 
 def _key(key) -> np.ndarray:
@@ -114,7 +117,8 @@ def regex(rules: Sequence[str], *, impl: Optional[str] = None,
             raise ValueError(consts.derived["refused"])
         matches = ops.regex_scan(batch.payload, batch.length, c["table"],
                                  c["out_count"], packed=c.get("packed"),
-                                 depth=consts.derived["depth"], impl=impl)
+                                 depth=consts.derived["depth"],
+                                 counts=c.get("counts"), impl=impl)
         return batch.with_meta(match_num=matches)
 
     ucf.consts = consts

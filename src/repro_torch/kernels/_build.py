@@ -40,7 +40,7 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     "meili_flow_lookup": [_P, _P, _P, _P, _I64, _P, _P, _I64, _I32, _I32,
                           _P, _P, _P, _P],
-    "meili_dfa_regex": [_P, _I64, _I64, _P, _P] + [_I32] * 4 + [_P, _P],
+    "meili_dfa_regex": [_P, _I64, _I64, _P, _P, _P] + [_I32] * 6 + [_P, _P],
     "meili_arx_cipher": [_P, _I64, _I64, _P, _P, _P],
     "meili_keyed_hash": [_P, _I64, _I64, _P, _P, _P],
     "meili_flash_attention": [_P, _P, _P, _P] + [_I32] * 8 + [_F32]
@@ -61,6 +61,7 @@ KERNELS = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_failed: Optional[RuntimeError] = None    # a failed build, not retried
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -140,10 +141,19 @@ def build_log() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    global _lib
+    """The kernel library, built on first use. A build that failed raises
+    the same error again without compiling anew: the sources have not
+    changed within the process."""
+    global _lib, _failed
+    if _failed is not None:
+        raise _failed
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        try:
+            path = build()
+        except RuntimeError as err:
+            _failed = err
+            raise
+        lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
@@ -151,6 +161,8 @@ def load() -> ctypes.CDLL:
         lib.meili_error_string.restype = ctypes.c_char_p
         lib.meili_launch_floor.argtypes = [_P]
         lib.meili_launch_floor.restype = ctypes.c_int
+        lib.meili_read_floor.argtypes = [_P, _I64, _P, _P]
+        lib.meili_read_floor.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -177,8 +189,29 @@ def launch_floor(device: torch.device) -> None:
     with torch.cuda.device(device):
         err = lib.meili_launch_floor(
             torch.cuda.current_stream(device).cuda_stream)
+    _raise_floor("launch_floor", lib, err)
+
+
+def read_floor(t: torch.Tensor) -> None:
+    """Read ``t``'s bytes once with a plain coalesced kernel
+    (``csrc/launch_floor.cu``), uncounted: timed like a kernel, it is the
+    least time a kernel that must read them takes. ``t`` contiguous on a
+    CUDA device, 16-byte aligned, its size a multiple of 16 bytes."""
+    nbytes = t.numel() * t.element_size()
+    if not (t.is_cuda and t.is_contiguous()) or nbytes % 16:
+        raise ValueError("read_floor: a contiguous CUDA tensor of whole "
+                         "16-byte pieces")
+    lib = load()
+    with torch.cuda.device(t.device):
+        err = lib.meili_read_floor(
+            t.data_ptr(), nbytes // 16, None,
+            torch.cuda.current_stream(t.device).cuda_stream)
+    _raise_floor("read_floor", lib, err)
+
+
+def _raise_floor(name: str, lib: ctypes.CDLL, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"launch_floor kernel launch failed: CUDA error "
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                            f"{err} ({lib.meili_error_string(err).decode()})")
 
 

@@ -68,7 +68,12 @@ def arx_cipher_cuda(words: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     key = key[:4].contiguous()
     dev = _check(name, words, key)
     B, W = words.shape
-    out = torch.empty_like(words)
+    # the output sits where the words do within a 16-byte chunk, so the
+    # kernel's vector loads and stores line up (payload views may start at
+    # any 4-byte offset)
+    skew = words.data_ptr() % 16 // 4
+    out = torch.empty(B * W + 3, dtype=torch.uint32, device=dev)
+    out = out[skew:skew + B * W].view(B, W)
     _build.launch(name, dev, words.data_ptr(), B, W, key.data_ptr(),
                   out.data_ptr())
     return out

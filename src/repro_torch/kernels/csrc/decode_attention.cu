@@ -30,7 +30,10 @@
 //   batch's logits with shuffles (all in flight at once: no branch between
 //   them) and keeps its own running max, sum and p·v accumulator over all
 //   G heads in registers, in base 2. The block merges its warps once, at
-//   the end.
+//   the end. Below D 64 a lane keeps 2 dims, so a row takes D/2 lanes and
+//   the warp walks 64/D keys a step side by side (4 at D 16): the logit
+//   shuffles stay within a row's lanes, the batch max and sum are reduced
+//   over the rows, and the rows' accumulators are summed once, at the end.
 // - One launch. The splits form clusters of 8 blocks: the 8 block partials
 //   are merged through distributed shared memory, each block merging one
 //   eighth of the G·D outputs. Where a (b, kv-head) has more than one
@@ -133,24 +136,37 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One batch of nb <= KB keys (rows kb0.. of a warp's stage) against the G
-// heads of q: logits reduced over the lanes, the running (max, sum, acc)
-// rescaled once, then p·v. Branch-free: rows past nb repeat the last row
-// and get probability 0, so every shuffle of the batch is issued at once.
+// Lanes a cache row takes: all 32 from D 64 on (D/32 dims each), else D/2
+// (2 dims each), and then 32 / lanes rows are walked side by side.
+template <int D>
+__host__ __device__ constexpr int row_lanes() {
+  return D >= 64 ? 32 : D / 2;
+}
+
+// One batch of nb <= KB·RPW keys (rows kb0.. of a warp's stage) against
+// the G heads of q: logits reduced over a row's lanes, the running (max,
+// sum, acc) rescaled once, then p·v. Step jj takes rows kb0 + jj·RPW + sub
+// (sub = lane / LPR, one row per LPR lanes). Branch-free: rows past nb
+// repeat the last row and get probability 0, so every shuffle of the batch
+// is issued at once.
 template <int KB, int D, typename T, int GM, int NCH, int EPC>
 __device__ __forceinline__ void attend(const T* ks, const T* vs, int kb0,
                                        int nb, int lane,
                                        float (&qv)[GM][NCH][EPC],
                                        float (&acc)[GM][NCH][EPC],
                                        float (&m)[GM], float (&l)[GM]) {
+  constexpr int LPR = row_lanes<D>();
+  constexpr int RPW = 32 / LPR;                    // rows a step
+  const int sub = lane / LPR;
+  const int dl = lane % LPR;                       // the lane within its row
   float s[KB][GM];
 #pragma unroll
   for (int jj = 0; jj < KB; ++jj) {
-    const int row = kb0 + min(jj, nb - 1);
+    const int row = kb0 + min(jj * RPW + sub, nb - 1);
     float x[NCH][EPC];
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-      load_vec<EPC>(ks + row * D + c * (D / NCH) + lane * EPC, x[c]);
+      load_vec<EPC>(ks + row * D + c * (D / NCH) + dl * EPC, x[c]);
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       s[jj][g] = 0.f;
@@ -161,7 +177,7 @@ __device__ __forceinline__ void attend(const T* ks, const T* vs, int kb0,
     }
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
+  for (int o = LPR / 2; o > 0; o >>= 1)
 #pragma unroll
     for (int jj = 0; jj < KB; ++jj)
 #pragma unroll
@@ -173,13 +189,19 @@ __device__ __forceinline__ void attend(const T* ks, const T* vs, int kb0,
     float mx = m[g];
 #pragma unroll
     for (int jj = 0; jj < KB; ++jj) mx = fmaxf(mx, s[jj][g]);  // dups: same
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)           // over the rows of a step
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
     const float alpha = fast_exp2(m[g] - mx);
     float sum = 0.f;
 #pragma unroll
     for (int jj = 0; jj < KB; ++jj) {
-      s[jj][g] = jj < nb ? fast_exp2(s[jj][g] - mx) : 0.f;
+      s[jj][g] = jj * RPW + sub < nb ? fast_exp2(s[jj][g] - mx) : 0.f;
       sum += s[jj][g];
     }
+#pragma unroll
+    for (int o = LPR; o < 32; o <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, o);
     l[g] = alpha * l[g] + sum;
     m[g] = mx;
 #pragma unroll
@@ -189,11 +211,11 @@ __device__ __forceinline__ void attend(const T* ks, const T* vs, int kb0,
   }
 #pragma unroll
   for (int jj = 0; jj < KB; ++jj) {
-    const int row = kb0 + min(jj, nb - 1);
+    const int row = kb0 + min(jj * RPW + sub, nb - 1);
     float x[NCH][EPC];
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
-      load_vec<EPC>(vs + row * D + c * (D / NCH) + lane * EPC, x[c]);
+      load_vec<EPC>(vs + row * D + c * (D / NCH) + dl * EPC, x[c]);
 #pragma unroll
     for (int g = 0; g < GM; ++g)
 #pragma unroll
@@ -215,13 +237,17 @@ __global__ void __launch_bounds__(kThreads, 1)
                             int32_t* __restrict__ counters, int S, int Hkv,
                             int G, int chunk, int kt, int stages, float scale,
                             int q_bf16) {
-  constexpr int EPL = D / 32;                         // dims per lane
+  constexpr int LPR = row_lanes<D>();                 // lanes a row
+  constexpr int RPW = 32 / LPR;                       // rows a step
+  constexpr int EPL = D / LPR;                        // dims per lane
   constexpr int NCH = EPL * sizeof(T) > 16 ? 2 : 1;   // 16-byte pieces
   constexpr int EPC = EPL / NCH;                      // dims per piece
   constexpr int RB = D * sizeof(T);                   // row bytes
   constexpr int CPR = RB / 16;                        // 16-byte copies a row
-  constexpr int KB = GM >= 8 ? 32 / GM : 8;           // keys per batch
-  constexpr int KT2 = KB < 2 ? KB : 2;                // keys of a short tail
+  constexpr int KEYS = GM >= 8 ? 32 / GM : 8;         // keys per batch
+  constexpr int KB = KEYS / RPW > 0 ? KEYS / RPW : 1; // steps per batch
+  constexpr int KT2 = KB * RPW < 2 ? KB : 2 / RPW > 0 ? 2 / RPW : 1;
+                                                      // steps of a short tail
   constexpr int PER_T = (kMaxOut / kCluster + kThreads - 1) / kThreads;
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -230,6 +256,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  const int dl = lane % LPR;
   const int sp = blockIdx.x;
   const int nsplit = gridDim.x;
   const int ncl = nsplit / kCluster;
@@ -240,14 +267,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int GD = G * D;
   const int64_t out_base = (static_cast<int64_t>(b) * Hq + hk * G) * D;
   // the query heads of this kv head, scaled by scale·log2 e, loaded before
-  // anything waits on kv_len; lane's dims c*(D/NCH) + lane*EPC + e
+  // anything waits on kv_len; lane's dims c*(D/NCH) + dl*EPC + e
   float qv[GM][NCH][EPC];
   const float scale_log2 = scale * 1.4426950408889634f;
 #pragma unroll
   for (int g = 0; g < GM; ++g)
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
-      const int64_t at = out_base + g * D + c * (D / NCH) + lane * EPC;
+      const int64_t at = out_base + g * D + c * (D / NCH) + dl * EPC;
       if (g < G) {
         if (q_bf16)
           load_vec<EPC>(static_cast<const __nv_bfloat16*>(q) + at, qv[g][c]);
@@ -337,27 +364,39 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncwarp();
     for (int kb0 = 0; kb0 < n;) {
       if (n - kb0 > 2) {
-        attend<KB, D>(ks, vs, kb0, min(KB, n - kb0), lane, qv, acc, m, l);
-        kb0 += KB;
+        attend<KB, D>(ks, vs, kb0, min(KB * RPW, n - kb0), lane, qv, acc, m,
+                      l);
+        kb0 += KB * RPW;
       } else {
-        attend<KT2, D>(ks, vs, kb0, min(KT2, n - kb0), lane, qv, acc, m, l);
-        kb0 += KT2;
+        attend<KT2, D>(ks, vs, kb0, min(KT2 * RPW, n - kb0), lane, qv, acc,
+                       m, l);
+        kb0 += KT2 * RPW;
       }
     }
     __syncwarp();             // every lane is done with this stage
     issue(t + 2);
   }
   cp_async_wait<0>();
-
-  // warp partials -> shared memory
+  // the rows walked side by side share (max, sum): add their accumulators
 #pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (g < G) {
+  for (int o = LPR; o < 32; o <<= 1)
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
 #pragma unroll
       for (int c = 0; c < NCH; ++c)
 #pragma unroll
         for (int e = 0; e < EPC; ++e)
-          wacc[warp * GD + g * D + c * (D / NCH) + lane * EPC + e] =
+          acc[g][c][e] += __shfl_xor_sync(0xffffffffu, acc[g][c][e], o);
+
+  // warp partials -> shared memory
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g < G && lane < LPR) {
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < EPC; ++e)
+          wacc[warp * GD + g * D + c * (D / NCH) + dl * EPC + e] =
               acc[g][c][e];
       if (lane == 0) {
         wml[(warp * G + g) * 2] = m[g];
@@ -567,7 +606,8 @@ int dispatch_g(int G, const void* q, const void* k, const void* v,
   MEILI_DECODE_G(4)
   MEILI_DECODE_G(8)
   if constexpr (D <= 128) { MEILI_DECODE_G(16) }
-  if constexpr (D <= 64) { MEILI_DECODE_G(32) }
+  // at D 16 a warp's 4 rows a step take more registers: G 32 would spill
+  if constexpr (D == 64) { MEILI_DECODE_G(32) }
 #undef MEILI_DECODE_G
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -579,6 +619,10 @@ int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
                int Hkv, int nsplit, int chunk, int kt, int stages,
                float scale, int q_bf16, cudaStream_t s) {
   switch (D) {
+    case 16:
+      return dispatch_g<16, T>(G, q, k, v, kv_len, out, part_acc, part_ml,
+                               counters, B, S, Hq, Hkv, nsplit, chunk, kt,
+                               stages, scale, q_bf16, s);
     case 64:
       return dispatch_g<64, T>(G, q, k, v, kv_len, out, part_acc, part_ml,
                                counters, B, S, Hq, Hkv, nsplit, chunk, kt,

@@ -15,7 +15,14 @@
 // - One lookup a step. The wrapper packs each entry as
 //   `next | out_count[next] << 16` once per rule set; the block keeps it in
 //   shared memory as `next << 8 | count << 16`, so the next row's index is
-//   `entry & 0xFFFF | byte` and the count is `entry >> 16` (S <= 256).
+//   `entry & 0xFFFF | byte` and the count is `entry >> 16` (S <= 227, the
+//   most a block's shared memory holds, counts below 2^16).
+// - Every other table the reference takes is wide: 16-bit next states
+//   (512 B a state; 32-bit past 65,536 states) beside a per-state int32
+//   count, so a step is one lookup on the chain and one beside it. Up to
+//   ~390 states it lives in shared memory with the payload stages (~450
+//   without them); past that the walk reads it from device memory, where
+//   L2 keeps it (1,000 states are ~0.5 MB).
 // - Many walks in flight. A packet is cut into `segs` segments walked by
 //   neighbouring lanes; segment i > 0 starts at state 0, `depth` bytes
 //   before its first byte (the table's synchronisation depth: after any
@@ -42,6 +49,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// The block's dynamic shared memory: the table (where it lives there), then
+// the payload stages. Named at file scope so every access to it compiles
+// to a shared-memory load.
+extern __shared__ __align__(16) unsigned char dfa_smem[];
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -65,6 +77,80 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+// The table forms. `setup` puts the table where the walk reads it (copied
+// into shared memory by the whole block, or left in device memory);
+// `step` moves the state over one byte and returns the count of the state
+// it enters. `smem_bytes` is the shared memory the table takes, from the
+// start of dfa_smem.
+__host__ __device__ constexpr size_t align16(size_t n) {
+  return (n + 15) / 16 * 16;
+}
+
+// Packed: `next << 8 | count << 16` in shared memory; the state is kept as
+// its row offset, next << 8.
+struct PackedTable {
+  __host__ __device__ static size_t smem_bytes(int32_t S) {
+    return static_cast<size_t>(S) * 256 * sizeof(uint32_t);
+  }
+  __device__ void setup(const void* entries, const int32_t*, int32_t S) {
+    const uint32_t* packed = static_cast<const uint32_t*>(entries);
+    uint32_t* t = reinterpret_cast<uint32_t*>(dfa_smem);
+    for (int32_t i = threadIdx.x; i < S * 256; i += kThreads) {
+      const uint32_t e = packed[i];
+      t[i] = ((e & 0xFFFFu) << 8) | (e & 0xFFFF0000u);
+    }
+  }
+  __device__ __forceinline__ uint32_t step(uint32_t& state,
+                                           uint32_t byte) const {
+    const uint32_t e =
+        reinterpret_cast<const uint32_t*>(dfa_smem)[state | byte];
+    state = e & 0xFFFFu;
+    return e >> 16;
+  }
+};
+
+// Wide: next states of type E and int32 counts, in shared memory (SHARED)
+// or read from device memory through the read-only path.
+template <typename E, bool SHARED>
+struct WideTable {
+  const E* next;               // device memory (SHARED false)
+  const uint32_t* count;
+  uint32_t count_at;           // byte offset of the counts in dfa_smem
+  __host__ __device__ static size_t smem_bytes(int32_t S) {
+    return SHARED ? align16(static_cast<size_t>(S) * 256 * sizeof(E)) +
+                        align16(static_cast<size_t>(S) * sizeof(uint32_t))
+                  : 0;
+  }
+  __device__ void setup(const void* entries, const int32_t* counts,
+                        int32_t S) {
+    if constexpr (SHARED) {
+      // S·256·sizeof(E) is a multiple of 16: whole 16-byte copies
+      const uint4* src = static_cast<const uint4*>(entries);
+      uint4* dst = reinterpret_cast<uint4*>(dfa_smem);
+      const int32_t n16 = S * 256 * static_cast<int32_t>(sizeof(E)) / 16;
+      for (int32_t i = threadIdx.x; i < n16; i += kThreads) dst[i] = src[i];
+      count_at = static_cast<uint32_t>(
+          align16(static_cast<size_t>(S) * 256 * sizeof(E)));
+      uint32_t* c = reinterpret_cast<uint32_t*>(dfa_smem + count_at);
+      for (int32_t i = threadIdx.x; i < S; i += kThreads)
+        c[i] = static_cast<uint32_t>(counts[i]);
+    } else {
+      next = static_cast<const E*>(entries);
+      count = reinterpret_cast<const uint32_t*>(counts);
+    }
+  }
+  __device__ __forceinline__ uint32_t step(uint32_t& state,
+                                           uint32_t byte) const {
+    if constexpr (SHARED) {
+      state = reinterpret_cast<const E*>(dfa_smem)[(state << 8) | byte];
+      return reinterpret_cast<const uint32_t*>(dfa_smem + count_at)[state];
+    } else {
+      state = __ldg(next + ((state << 8) | byte));
+      return __ldg(count + state);
+    }
+  }
+};
+
 // One walk's position: row-relative byte offsets. Steps at p < warm are
 // skipped, steps at p >= end are skipped, and a step's count is kept from
 // p >= first on.
@@ -73,19 +159,17 @@ struct Walk {
 };
 
 // Step over the 16 bytes of `w`, the first at row offset p0.
+template <class Table>
 __device__ __forceinline__ void walk16(const uint4& w, int32_t p0,
-                                       const Walk& r, const uint32_t* tbl,
+                                       const Walk& r, const Table& tbl,
                                        uint32_t& state, uint32_t& matches) {
   const uint32_t words[4] = {w.x, w.y, w.z, w.w};
   if (p0 >= r.first && p0 + kChunk <= r.end) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int s = 0; s < 32; s += 8) {
-        const uint32_t e = tbl[state | ((words[i] >> s) & 0xFFu)];
-        state = e & 0xFFFFu;
-        matches += e >> 16;
-      }
+      for (int s = 0; s < 32; s += 8)
+        matches += tbl.step(state, (words[i] >> s) & 0xFFu);
     }
     return;
   }
@@ -95,29 +179,26 @@ __device__ __forceinline__ void walk16(const uint4& w, int32_t p0,
     for (int s = 0; s < 4; ++s) {
       const int32_t p = p0 + 4 * i + s;
       if (p >= r.warm && p < r.end) {
-        const uint32_t e = tbl[state | ((words[i] >> (8 * s)) & 0xFFu)];
-        state = e & 0xFFFFu;
-        if (p >= r.first) matches += e >> 16;
+        const uint32_t c = tbl.step(state, (words[i] >> (8 * s)) & 0xFFu);
+        if (p >= r.first) matches += c;
       }
     }
   }
 }
 
 // CH == 1: 16-byte chunks staged through shared memory, one a stage, two
-// stages; CH == 0: chunks read byte by byte from device memory.
-template <int CH>
+// stages; CH == 0: chunks read byte by byte from device memory. Table: one
+// of the forms above.
+template <int CH, class Table>
 __global__ void __launch_bounds__(kThreads, 1)
     dfa_regex_kernel(const uint8_t* __restrict__ payload, int64_t n_rows,
                      int32_t row_len, const int32_t* __restrict__ length,
-                     const uint32_t* __restrict__ packed, int32_t n_states,
+                     const void* __restrict__ entries,
+                     const int32_t* __restrict__ counts, int32_t n_states,
                      int32_t depth, int32_t segs,
                      int32_t* __restrict__ matches_out) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* tbl = smem;                                     // S x 256
-  for (int32_t i = threadIdx.x; i < n_states * 256; i += kThreads) {
-    const uint32_t e = packed[i];
-    tbl[i] = ((e & 0xFFFFu) << 8) | (e & 0xFFFF0000u);
-  }
+  Table tbl;
+  tbl.setup(entries, counts, n_states);
   __syncthreads();
 
   const int64_t gid = static_cast<int64_t>(blockIdx.x) * kThreads +
@@ -146,7 +227,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int64_t left = n_rows * row_len -
                            (row * row_len + p_base + (n_chunks - 1) * kChunk);
       const int tail = left < kChunk ? static_cast<int>(left) : kChunk;
-      uint4* mine = reinterpret_cast<uint4*>(smem + n_states * 256) +
+      uint4* mine = reinterpret_cast<uint4*>(
+                        dfa_smem + Table::smem_bytes(n_states)) +
                     threadIdx.x;                 // [stage][chunk][thread]
       const int32_t n_stages = (n_chunks + CH - 1) / CH;
       auto issue = [&](int32_t s) {
@@ -194,46 +276,74 @@ __global__ void __launch_bounds__(kThreads, 1)
     matches_out[row] = static_cast<int32_t>(matches);
 }
 
-template <int CH>
+template <int CH, class Table>
 int launch(const void* payload, long long n_rows, long long row_len,
-           const void* length, const void* packed, int n_states, int depth,
-           int segs, void* matches_out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n_states) * 256 * sizeof(uint32_t) +
+           const void* length, const void* entries, const void* counts,
+           int n_states, int depth, int segs, void* matches_out,
+           cudaStream_t stream) {
+  const size_t smem = Table::smem_bytes(n_states) +
                       static_cast<size_t>(kStages) * CH * kChunk * kThreads;
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > kStaticSmemLimit) {
     cudaError_t err = cudaFuncSetAttribute(
-        dfa_regex_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        dfa_regex_kernel<CH, Table>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const long long blocks = (n_rows * segs + kThreads - 1) / kThreads;
-  dfa_regex_kernel<CH><<<static_cast<unsigned>(blocks), kThreads, smem,
-                         stream>>>(
+  dfa_regex_kernel<CH, Table><<<static_cast<unsigned>(blocks), kThreads, smem,
+                                stream>>>(
       static_cast<const uint8_t*>(payload), n_rows,
       static_cast<int32_t>(row_len), static_cast<const int32_t*>(length),
-      static_cast<const uint32_t*>(packed), n_states, depth < 0 ? 0 : depth,
-      segs, static_cast<int32_t*>(matches_out));
+      entries, static_cast<const int32_t*>(counts), n_states,
+      depth < 0 ? 0 : depth, segs, static_cast<int32_t*>(matches_out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// A payload that does not start 16-byte aligned is read byte by byte.
+template <class Table>
+int dispatch(const void* payload, long long n_rows, long long row_len,
+             const void* length, const void* entries, const void* counts,
+             int n_states, int depth, int segs, int chunks,
+             void* matches_out, cudaStream_t s) {
+  if (reinterpret_cast<uintptr_t>(payload) % kChunk || chunks == 0)
+    return launch<0, Table>(payload, n_rows, row_len, length, entries, counts,
+                            n_states, depth, segs, matches_out, s);
+  return launch<1, Table>(payload, n_rows, row_len, length, entries, counts,
+                          n_states, depth, segs, matches_out, s);
 }
 
 }  // namespace
 
+// `form`: 0 the packed table (in shared memory; `counts` unused), 2 the wide
+// table with 16-bit next states, 4 with 32-bit ones; `shared`: whether the
+// wide table goes to shared memory or is read from device memory.
 extern "C" int meili_dfa_regex(const void* payload, long long n_rows,
                                long long row_len, const void* length,
-                               const void* packed, int n_states, int depth,
+                               const void* entries, const void* counts,
+                               int n_states, int form, int shared, int depth,
                                int segs, int chunks, void* matches_out,
                                void* stream) {
   if (n_rows <= 0) return 0;
-  if (n_states <= 0 || n_states > 256 || segs <= 0 || segs > 32 ||
-      (segs & (segs - 1)) != 0 || (depth < 0 && segs != 1) || chunks < 0 ||
-      chunks > 1 || row_len < 0 || row_len > (1LL << 30))
+  if (n_states <= 0 || segs <= 0 || segs > 32 || (segs & (segs - 1)) != 0 ||
+      (depth < 0 && segs != 1) || chunks < 0 || chunks > 1 || row_len < 0 ||
+      row_len > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // a payload that does not start 16-byte aligned is read byte by byte
-  if (reinterpret_cast<uintptr_t>(payload) % kChunk || chunks == 0)
-    return launch<0>(payload, n_rows, row_len, length, packed, n_states,
-                     depth, segs, matches_out, s);
-  return launch<1>(payload, n_rows, row_len, length, packed, n_states, depth,
-                   segs, matches_out, s);
+  if (form == 0 && shared && n_states <= 256)
+    return dispatch<PackedTable>(payload, n_rows, row_len, length, entries,
+                                 counts, n_states, depth, segs, chunks,
+                                 matches_out, s);
+  if (form == 2 && counts && n_states <= 65536)
+    return shared ? dispatch<WideTable<uint16_t, true>>(
+                        payload, n_rows, row_len, length, entries, counts,
+                        n_states, depth, segs, chunks, matches_out, s)
+                  : dispatch<WideTable<uint16_t, false>>(
+                        payload, n_rows, row_len, length, entries, counts,
+                        n_states, depth, segs, chunks, matches_out, s);
+  if (form == 4 && counts && !shared && n_states < (1 << 24))
+    return dispatch<WideTable<uint32_t, false>>(
+        payload, n_rows, row_len, length, entries, counts, n_states, depth,
+        segs, chunks, matches_out, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -91,10 +91,13 @@ constexpr size_t smem_floats() {
 }
 
 // Float offset of 16-byte chunk q of row r of Q or K (read as rows g and
-// g + 1 by 4 lanes each): odd rows swap chunk halves.
+// g + 1 by 4 lanes each): odd rows swap chunk halves. At D 16 a row is one
+// 16-column block, and rows of 64 bytes already put rows g and g + 1 on
+// different banks: no swap.
 template <int D>
 __device__ __forceinline__ int qk_at(int r, int q) {
-  return r * D + ((q ^ ((r & 1) << 2)) << 2);
+  if constexpr (D < 32) return r * D + (q << 2);
+  else return r * D + ((q ^ ((r & 1) << 2)) << 2);
 }
 
 // Key tiles [t_lo, t_hi) that query positions [p0, p0 + PB) may see.
@@ -186,13 +189,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     t_hi = min(t_hi, t_lo + len);
   }
 
+  // 16-byte copies of a K and a V tile: whole rounds of the block's
+  // threads, but for D 16 (half a round).
+  constexpr int FETCH = 2 * kBK * C4;
   auto fetch = [&](int t, int stage) {
     float* ks = kv_s + stage * STAGE;
     const int k0 = t * kBK;
-    static_assert((2 * kBK * C4) % kThreads == 0, "whole fetch rounds");
 #pragma unroll
-    for (int it = 0; it < 2 * kBK * C4 / kThreads; ++it) {
+    for (int it = 0; it < (FETCH + kThreads - 1) / kThreads; ++it) {
       const int i = tid + it * kThreads;
+      if (FETCH % kThreads != 0 && i >= FETCH) break;
       const int is_v = i / (kBK * C4);
       const int r = (i % (kBK * C4)) / C4;
       const int ch = i % C4;
@@ -252,9 +258,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     // of P's A columns.
     float* ks = kv_s + stage * STAGE;
     float* vs = ks + TILE;
-    static_assert((TILE / 4) % kThreads == 0, "whole split rounds");
 #pragma unroll
-    for (int it = 0; it < TILE / 4 / kThreads; ++it) {
+    for (int it = 0; it < (TILE / 4 + kThreads - 1) / kThreads; ++it) {
+      if ((TILE / 4) % kThreads != 0 && tid + it * kThreads >= TILE / 4)
+        break;
       const int i = (tid + it * kThreads) * 4;
       const float4 x = lds4(ks + i);
       uint32_t h[4], l[4];
@@ -574,6 +581,11 @@ extern "C" int meili_flash_attention(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch_flash<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                              window, scale, q_bf16, kmax,
+                              max_parts, static_cast<float*>(o_part),
+                              static_cast<float*>(ml_part), s);
     case 64:
       return launch_flash<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
                               window, scale, q_bf16, kmax,

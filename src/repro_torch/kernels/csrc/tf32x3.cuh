@@ -121,6 +121,26 @@ __device__ __forceinline__ uint64_t core_desc(const float* p,
 // the m16n8k8 A layout) and B from shared memory (`desc`); the accumulator
 // holds, per warp, its 16 rows in the m16n8 layout, n-tile by n-tile.
 // Asynchronous: wgmma_fence before, commit and wait after.
+__device__ __forceinline__ void wgmma_n16(float (&d)[2][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7"
+      "}, {%8,%9,%10,%11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+__device__ __forceinline__ void pin_n16(float (&d)[2][4]) {
+  asm volatile(""
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      :: "memory");
+}
+
 __device__ __forceinline__ void wgmma_n32(float (&d)[4][4],
                                            const uint32_t (&a)[4],
                                            uint64_t desc) {
@@ -319,7 +339,8 @@ __device__ __forceinline__ void pin_n256(float (&d)[32][4]) {
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 8][4],
                                       const uint32_t (&a)[4], uint64_t desc) {
-  if constexpr (N == 32) wgmma_n32(d, a, desc);
+  if constexpr (N == 16) wgmma_n16(d, a, desc);
+  else if constexpr (N == 32) wgmma_n32(d, a, desc);
   else if constexpr (N == 64) wgmma_n64(d, a, desc);
   else if constexpr (N == 128) wgmma_n128(d, a, desc);
   else wgmma_n256(d, a, desc);
@@ -329,7 +350,8 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 8][4],
 // warpgroup_fence_operand), so nothing moves them across an async product.
 template <int N>
 __device__ __forceinline__ void pin(float (&d)[N / 8][4]) {
-  if constexpr (N == 32) pin_n32(d);
+  if constexpr (N == 16) pin_n16(d);
+  else if constexpr (N == 32) pin_n32(d);
   else if constexpr (N == 64) pin_n64(d);
   else if constexpr (N == 128) pin_n128(d);
   else pin_n256(d);

@@ -68,6 +68,20 @@ def decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
     return (acc / safe[..., None]).reshape(B, Hq, D).to(q.dtype)
 
 
+def row_lanes(D: int) -> int:
+    """Lanes of a warp that hold one cache row: all 32 from D 64 on, else
+    D / 2 (2 dims a lane), and the warp walks 32 / that many rows a step."""
+    return 32 if D >= 64 else D // 2
+
+
+def max_group(D: int) -> int:
+    """Most query heads per KV head the kernel has an instance for at head
+    dim D: G·D within ``MAX_OUT``, at most 32, and at most 16 below D 64,
+    where a warp's side-by-side rows take more registers a head (G 32
+    spilled at D 16 on the H100)."""
+    return min(32 if D >= 64 else 16, MAX_OUT // D)
+
+
 def splits(S: int) -> Tuple[int, int]:
     """(number of splits, keys per split) of an S-deep cache: as few
     clusters of ``CLUSTER`` splits as keep every warp at most
@@ -98,7 +112,8 @@ def split_merge_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The CUDA kernel's arithmetic in its own order, in plain PyTorch:
     splits of ``splits(S)``, each cut over ``WARPS`` warps that
     walk their keys in stages of ``stage_plan`` and batches of 8 keys (32 /
-    G where G >= 8; the last 2 or fewer keys of a stage alone) with a
+    G where G >= 8, and no fewer than the 64 / D rows a step takes below D
+    64; the last 2 or fewer keys of a stage alone) with a
     running (max, sum, acc); the warps
     merged into a block partial, 8 block partials into a cluster partial,
     the clusters with keys into the output. (The kernel takes its
@@ -111,6 +126,7 @@ def split_merge_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.float().reshape(B, Hkv, G, D) * scale
     gm = 1 << (G - 1).bit_length()                   # G to a power of two
     kb = 32 // gm if gm >= 8 else 8                  # keys a batch
+    kb = max(kb, 32 // row_lanes(D))                 # a step's rows at least
     out = torch.zeros((B, Hkv, G, D), dtype=torch.float32)
     nsplit, chunk = splits(S)
     per_warp = -(-chunk // WARPS)
@@ -202,9 +218,11 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"{name}: k and v must share a dtype, got {k.dtype} "
                         f"and {v.dtype}")
     G = Hq // Hkv
-    if G * D > MAX_OUT:
+    if G > max_group(D):
         raise ValueError(f"{name}: {G} query heads per KV head at D={D} "
-                         f"exceed the kernel's {MAX_OUT} outputs per block")
+                         f"exceed the {max_group(D)} the kernel has "
+                         f"instances for (G·D within its {MAX_OUT} outputs "
+                         f"per block)")
     if B * Hkv > 65535:
         raise ValueError(f"{name}: B*Hkv={B * Hkv} exceeds the grid")
     scale = float(scale) if scale is not None else D ** -0.5

@@ -10,8 +10,13 @@ Match semantics: out_count[s] occurrences are credited when entering state
 s, for bytes j < length only (``length`` is clamped to [0, L]).
 
 The kernel takes the table as ``prepare`` leaves it, once per rule set and
-on the host: each entry packed as ``next | out_count[next] << 16`` (one
-lookup a step), and the table's synchronisation depth d (``sync_depth``).
+on the host, in one of two forms. A table that fits a block's shared
+memory with counts in [0, 2^16) is packed: each entry ``next |
+out_count[next] << 16`` (one lookup a step). Any other table the reference
+takes is wide: 16-bit next states (32-bit past 65,536 states) beside the
+int32 counts, in shared memory where they fit and read from device memory
+(where L2 keeps them) where they do not. Either comes with the table's
+synchronisation depth d (``sync_depth``).
 With a finite d a packet is cut into segments walked in parallel: segment
 i > 0 starts at state 0, d bytes before its first byte, and counts matches
 from its first byte on. After any d bytes the walk's state no longer
@@ -34,6 +39,13 @@ MAX_SEGMENTS = 8         # lanes that walk one packet (a power of two <= 32)
 CHUNK = 16               # payload bytes a thread takes from shared memory
 STAGES = 2               # payload chunks staged ahead: double buffering
 COUNT_LIMIT = 1 << 16    # out_count must fit the packed entry's 16 bits
+PACKED_MAX_STATES = hw.SMEM_PER_BLOCK_MAX // (256 * 4)   # 227: in one block
+WIDE16_MAX_STATES = 1 << 16   # next states fit 16 bits up to here
+# sync_depth's budget: pair expansions (each reads 256 successors) and the
+# distinct differing pairs it keeps; past either it returns None (exact:
+# one segment a packet). A 1,000-state Aho-Corasick table needs ~10^4.
+PAIR_WORK = 1 << 18
+PAIR_CHUNK = 4096             # pairs expanded at once (8 MB of successors)
 
 
 def dfa_scan_torch(payload: torch.Tensor, length: torch.Tensor,
@@ -59,105 +71,116 @@ def dfa_scan_torch(payload: torch.Tensor, length: torch.Tensor,
 # -- the prepared table -----------------------------------------------------
 
 class Prepared(NamedTuple):
-    """A DFA as the kernel takes it: ``packed`` (S, 256) int32 entries
-    ``next | out_count[next] << 16``; ``depth`` the synchronisation depth
-    (None when the table has none)."""
+    """A DFA as the kernel takes it. Packed form (``counts`` None):
+    ``packed`` (S, 256) int32 entries ``next | out_count[next] << 16``.
+    Wide form: ``packed`` the (S, 256) next states alone, uint16 stored as
+    int16 (int32 past ``WIDE16_MAX_STATES``), and ``counts`` the (S,) int32
+    out_count. ``depth`` the synchronisation depth (None when the table has
+    none, or it is past ``sync_depth``'s budget)."""
     packed: np.ndarray
     depth: Optional[int]
+    counts: Optional[np.ndarray] = None
+
+    @property
+    def form(self) -> str:
+        return table_form(self.packed.dtype, self.counts is not None)
+
+
+def table_form(entry_dtype, has_counts: bool) -> str:
+    """"packed", "wide16" or "wide32", from the entries' dtype (numpy or
+    torch) and whether counts come beside them."""
+    if not has_counts:
+        return "packed"
+    return "wide16" if str(entry_dtype).endswith("int16") else "wide32"
 
 
 def sync_depth(table: np.ndarray) -> Optional[int]:
     """The least d such that delta(q, w) == delta(0, w) for every state q
     reachable from 0 and every byte string w of length d; None when no such
-    d exists (a DFA that remembers something forever, such as parity).
+    d exists (a DFA that remembers something forever, such as parity), or
+    when finding it would pass the budget (``PAIR_WORK``): None is always
+    exact, since the kernel then walks each packet as one segment.
 
-    Breadth-first over pairs of states: level k holds the pairs
-    (delta(q, w), delta(0, w)) over |w| = k that still differ. d is the
-    first level with none left; a cycle among differing pairs means there
-    is no d. For an Aho-Corasick table d is the longest pattern."""
+    Level by level over pairs of states: level k holds the pairs
+    (delta(q, w), delta(0, w)) over |w| = k that still differ; d is the
+    first level with none left. A path with more levels than the distinct
+    pairs seen so far repeats a pair, so it is a cycle: then there is no d.
+    For an Aho-Corasick table d is the longest pattern. Memory is bounded
+    by the budget, not by S^2."""
     table = np.asarray(table, dtype=np.int64)
     S = table.shape[0]
     reach = np.zeros(S, bool)
     reach[0] = True
     frontier = np.array([0])
     while frontier.size:
-        nxt = np.unique(table[frontier].reshape(-1))
+        nxt = _successors(table, frontier)
         frontier = nxt[~reach[nxt]]
         reach[frontier] = True
-    # every differing pair (a, b) reachable from {(q, 0)}, with its edges
-    start = np.flatnonzero(reach)
-    start = start[start != 0] * S                    # pairs (q, 0), q != 0
-    seen = np.zeros(S * S, bool)
-    seen[start] = True
-    frontier = start
+    frontier = np.flatnonzero(reach)
+    frontier = frontier[frontier != 0] * S           # pairs (q, 0), q != 0
+    seen = frontier
+    depth, work = 0, 0
     while frontier.size:
-        succ = _pair_successors(table, frontier, S)
-        succ = np.unique(succ[succ >= 0])
-        frontier = succ[~seen[succ]]
-        seen[frontier] = True
-    nodes = np.flatnonzero(seen)
-    if nodes.size == 0:
-        return 0
-    # longest path (in nodes) from a start pair, by Kahn's topological order
-    index = np.full(S * S, -1, np.int64)
-    index[nodes] = np.arange(nodes.size)
-    succ = _pair_successors(table, nodes, S)         # (n, 256), -1 = equal
-    src = np.repeat(np.arange(nodes.size), 256)
-    dst = index[succ.reshape(-1)]
-    keep = dst >= 0
-    src, dst = src[keep], dst[keep]
-    # drop repeated edges so in-degrees count distinct successors
-    edges = np.unique(src * nodes.size + dst)
-    src, dst = edges // nodes.size, edges % nodes.size
-    indeg = np.bincount(dst, minlength=nodes.size)
-    depth = np.zeros(nodes.size, np.int64)
-    depth[index[start]] = 1
-    by_src = np.argsort(src, kind="stable")
-    src, dst = src[by_src], dst[by_src]
-    bounds = np.searchsorted(src, np.arange(nodes.size + 1))
-    ready = list(np.flatnonzero(indeg == 0))
-    done = 0
-    while ready:
-        u = ready.pop()
-        done += 1
-        out = dst[bounds[u]:bounds[u + 1]]
-        if out.size:
-            depth[out] = np.maximum(depth[out], depth[u] + 1)
-            indeg[out] -= 1
-            ready.extend(out[indeg[out] == 0].tolist())
-    if done < nodes.size:
-        return None                                  # a cycle: no finite d
-    return int(depth.max())
+        depth += 1
+        work += frontier.size
+        if depth > seen.size or work > PAIR_WORK:
+            return None                              # a cycle, or too costly
+        frontier = _pair_successors(table, frontier, S, PAIR_WORK - work)
+        if frontier is None:                         # the next level: too
+            return None                              # costly
+        seen = np.union1d(seen, frontier)
+    return depth
 
 
-def _pair_successors(table: np.ndarray, pairs: np.ndarray, S: int
-                     ) -> np.ndarray:
-    """(n, 256) successor pair ids of pair ids a * S + b under every byte;
-    -1 where the two states meet."""
-    a, b = pairs // S, pairs % S
-    na, nb = table[a], table[b]
-    return np.where(na == nb, -1, na * S + nb)
+def _successors(table: np.ndarray, states: np.ndarray) -> np.ndarray:
+    """The distinct successors of ``states`` under every byte."""
+    out = [np.unique(table[states[i:i + PAIR_CHUNK]])
+           for i in range(0, states.size, PAIR_CHUNK)]
+    return np.unique(np.concatenate(out)) if out else states[:0]
+
+
+def _pair_successors(table: np.ndarray, pairs: np.ndarray, S: int,
+                     limit: int) -> Optional[np.ndarray]:
+    """The distinct successor pair ids a' * S + b' of pair ids a * S + b
+    under every byte, where the two states still differ; None as soon as
+    there are more than ``limit`` of them."""
+    out = pairs[:0]
+    for i in range(0, pairs.size, PAIR_CHUNK):
+        p = pairs[i:i + PAIR_CHUNK]
+        na, nb = table[p // S], table[p % S]
+        out = np.union1d(out, (na * S + nb)[na != nb])
+        if out.size > limit:
+            return None
+    return out
 
 
 def prepare(table: np.ndarray, out_count: np.ndarray) -> Prepared:
-    """Pack the table for the kernel and find its synchronisation depth.
-    Raises when a state id or a count does not fit its 16 bits."""
+    """The table in the kernel's form, and its synchronisation depth.
+    Packed where it fits a block's shared memory (S <= 227) with counts in
+    [0, 2^16); wide otherwise. Raises only on what the reference cannot
+    walk either: a shape other than (S, 256) and (S,), or an entry outside
+    [0, S)."""
     table = np.asarray(table)
     out_count = np.asarray(out_count)
-    S = table.shape[0]
-    if table.ndim != 2 or table.shape[1] != 256 or out_count.shape != (S,):
+    S = table.shape[0] if table.ndim == 2 else 0
+    if S == 0 or table.shape[1] != 256 or out_count.shape != (S,):
         raise ValueError(f"dfa_regex: table {table.shape} and out_count "
                          f"{out_count.shape} are not (S, 256) and (S,)")
-    if S > 256 or table.min(initial=0) < 0 or table.max(initial=0) >= S:
-        raise ValueError(f"dfa_regex: a table of {S} states with entries in "
-                         f"[{table.min()}, {table.max()}] does not pack")
-    if out_count.min(initial=0) < 0 or out_count.max(initial=0) >= COUNT_LIMIT:
-        raise ValueError(f"dfa_regex: out_count must lie in [0, "
-                         f"{COUNT_LIMIT}) to pack, got [{out_count.min()}, "
-                         f"{out_count.max()}]")
-    t = table.astype(np.int64)
-    packed = (t | (out_count.astype(np.int64)[t] << 16)).astype(np.uint32)
-    return Prepared(packed.view(np.int32), sync_depth(table))
+    if table.min() < 0 or table.max() >= S:
+        raise ValueError(f"dfa_regex: a table of {S} states has entries "
+                         f"outside [0, {S}): [{table.min()}, {table.max()}]")
+    depth = sync_depth(table)
+    counts = out_count.astype(np.int32)      # as the reference casts them
+    if (S <= PACKED_MAX_STATES and counts.min() >= 0
+            and counts.max() < COUNT_LIMIT):
+        t = table.astype(np.int64)
+        packed = t | (counts.astype(np.int64)[t] << 16)
+        return Prepared(packed.astype(np.uint32).view(np.int32), depth)
+    if S <= WIDE16_MAX_STATES:
+        nxt = table.astype(np.uint16).view(np.int16)
+    else:
+        nxt = table.astype(np.int32)
+    return Prepared(np.ascontiguousarray(nxt), depth, counts)
 
 
 # -- the walk the kernel does, written out ---------------------------------
@@ -182,7 +205,14 @@ def segmented_scan_numpy(payload: np.ndarray, length: np.ndarray,
     packet's count is the segments' sum (int32, wrapping as the kernel's
     adds do)."""
     B, L = payload.shape
-    packed = prepared.packed.view(np.uint32).astype(np.int64)
+    if prepared.counts is None:                  # next | count << 16
+        packed = prepared.packed.view(np.uint32).astype(np.int64)
+        nxt, cnt = packed & 0xFFFF, packed >> 16
+    else:                                        # next; count of the state
+        ent = prepared.packed
+        nxt = (ent.view(np.uint16) if ent.dtype == np.int16 else ent
+               ).astype(np.int64)
+        cnt = prepared.counts.astype(np.int64)[nxt]
     n = np.clip(length.astype(np.int64), 0, L)
     bounds = segment_bounds(L, segments, prepared.depth)
     total = np.zeros(B, np.int64)
@@ -191,33 +221,51 @@ def segmented_scan_numpy(payload: np.ndarray, length: np.ndarray,
         state = np.zeros(B, np.int64)
         for j in range(warm, last):
             live = j < n
-            e = packed[state, payload[:, j].astype(np.int64)]
-            state = np.where(live, e & 0xFFFF, state)
+            byte = payload[:, j].astype(np.int64)
+            c = cnt[state, byte]
+            state = np.where(live, nxt[state, byte], state)
             if j >= first:
-                total += np.where(live, e >> 16, 0)
+                total += np.where(live, c, 0)
     return (total & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
 
 
 # -- the CUDA kernel --------------------------------------------------------
 
-def smem_bytes(num_states: int) -> int:
-    """Shared memory the kernel's packed table takes."""
-    return num_states * 256 * 4
+def smem_bytes(num_states: int, form: str = "packed") -> int:
+    """Shared memory a table of this form takes in the kernel: the packed
+    entries; or the wide form's next states and int32 counts, each 16-byte
+    aligned."""
+    if form == "packed":
+        return num_states * 256 * 4
+    entry = 2 if form == "wide16" else 4
+    return _align16(num_states * 256 * entry) + _align16(num_states * 4)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def in_shared(num_states: int, form: str = "packed") -> bool:
+    """Whether the kernel keeps the table in shared memory; else it reads
+    it from device memory."""
+    return smem_bytes(num_states, form) <= hw.SMEM_PER_BLOCK_MAX
 
 
 def plan(B: int, L: int, num_states: int, depth: Optional[int],
-         sms: int = hw.NUM_SMS) -> Tuple[int, int]:
+         sms: int = hw.NUM_SMS, form: str = "packed") -> Tuple[int, int]:
     """(segments per packet, 16-byte chunks a thread stages at once).
 
     Chunks: 1 (each thread stages one 16-byte chunk ahead of the one it
-    walks) where the table leaves room for it; 0 when it does not, and
+    walks) where the table leaves room for it in shared memory (a table
+    read from device memory leaves all of it); 0 when it does not, and
     then the threads read their payload from device memory. Segments: the
     most lanes a packet (a power of two up to ``MAX_SEGMENTS``) that still
     keep the walks within one block of ``THREADS`` on every SM, none
     shorter than 4 d bytes; one without a finite depth. The walk is bound
-    by the shared-memory lookups, so more segments than that only add
-    warm-up steps."""
-    table = smem_bytes(num_states)
+    by the table lookups, so more segments than that only add warm-up
+    steps."""
+    table = smem_bytes(num_states, form) if in_shared(num_states, form) \
+        else 0
     chunks = int(table + STAGES * CHUNK * THREADS <= hw.SMEM_PER_BLOCK_MAX)
     if depth is None or B == 0:
         return 1, chunks
@@ -228,51 +276,70 @@ def plan(B: int, L: int, num_states: int, depth: Optional[int],
     return segs, chunks
 
 
+FORM_CODES = {"packed": 0, "wide16": 2, "wide32": 4}   # the launcher's
+
+
 def dfa_regex_cuda(payload: torch.Tensor, length: torch.Tensor,
-                   packed: torch.Tensor, depth: Optional[int]
-                   ) -> torch.Tensor:
-    """Launch the CUDA kernel on a table from ``prepare``: ``packed`` on
-    the payload's CUDA device, ``depth`` its synchronisation depth."""
+                   packed: torch.Tensor, depth: Optional[int],
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA kernel on a table from ``prepare`` (``packed``,
+    ``depth`` and, for the wide form, ``counts``), on the payload's CUDA
+    device."""
     name = "dfa_regex"
-    dev = _build.require_cuda(name, payload, length, packed)
+    extra = () if counts is None else (counts,)
+    dev = _build.require_cuda(name, payload, length, packed, *extra)
     _build.require_dtype(name, "payload", payload, torch.uint8)
     _build.require_dtype(name, "length", length, torch.int32)
-    _build.require_dtype(name, "packed table", packed, torch.int32)
+    form = table_form(packed.dtype, counts is not None)
+    _build.require_dtype(name, "packed table", packed,
+                         torch.int16 if form == "wide16" else torch.int32)
+    if counts is not None:
+        _build.require_dtype(name, "counts", counts, torch.int32)
     if payload.dim() != 2:
         raise ValueError(f"{name}: payload must be (B, L), got "
                          f"{tuple(payload.shape)}")
     B, L = payload.shape
     S = packed.shape[0]
     if (length.shape != (B,) or packed.dim() != 2 or packed.shape[1] != 256
-            or S > 256):
+            or (counts is not None and counts.shape != (S,))):
         raise ValueError(f"{name}: shapes length {tuple(length.shape)}, "
-                         f"packed table {tuple(packed.shape)} do not fit "
-                         f"payload {tuple(payload.shape)}")
-    if smem_bytes(S) > hw.SMEM_PER_BLOCK_MAX:
-        raise ValueError(f"{name}: a {S}-state table needs {smem_bytes(S)} B "
-                         f"of shared memory, more than the "
+                         f"table {tuple(packed.shape)}, counts "
+                         f"{None if counts is None else tuple(counts.shape)}"
+                         f" do not fit payload {tuple(payload.shape)}")
+    if form == "packed" and not in_shared(S):
+        raise ValueError(f"{name}: a packed {S}-state table needs "
+                         f"{smem_bytes(S)} B of shared memory, more than the "
                          f"{hw.SMEM_PER_BLOCK_MAX} B a block can have")
+    if packed.data_ptr() % 16:
+        raise ValueError(f"{name}: the table must start 16-byte aligned")
+    if form == "wide16" and S > WIDE16_MAX_STATES:
+        raise ValueError(f"{name}: {S} states do not fit 16-bit entries")
     if depth is not None and depth < 0:
         raise ValueError(f"{name}: depth must be >= 0 or None, got {depth}")
-    segs, chunks = plan(B, L, S, depth, hw.device_spec(dev.index or 0).sms)
+    segs, chunks = plan(B, L, S, depth, hw.device_spec(dev.index or 0).sms,
+                        form)
     out = torch.empty(B, dtype=torch.int32, device=dev)
     _build.launch(name, dev, payload.data_ptr(), B, L, length.data_ptr(),
-                  packed.data_ptr(), S, -1 if depth is None else depth, segs,
-                  chunks, out.data_ptr())
+                  packed.data_ptr(),
+                  None if counts is None else counts.data_ptr(), S,
+                  FORM_CODES[form], int(in_shared(S, form)),
+                  -1 if depth is None else depth, segs, chunks,
+                  out.data_ptr())
     return out
 
 
 def dfa_regex(payload: torch.Tensor, length: torch.Tensor,
               table: torch.Tensor, out_count: torch.Tensor,
               packed: Optional[torch.Tensor] = None,
-              depth: Optional[int] = None) -> torch.Tensor:
+              depth: Optional[int] = None,
+              counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B,) int32 match counts: the kernel for CUDA tensors, on the table
-    ``prepare`` packed (``packed``, ``depth``); the plain version for CPU
-    tensors."""
+    as ``prepare`` left it (``packed``, ``depth``, ``counts``); the plain
+    version for CPU tensors."""
     if payload.is_cuda:
         if packed is None:
             raise ValueError("dfa_regex: the kernel takes the table as "
                              "dfa_regex.prepare packs it; pass packed and "
                              "depth")
-        return dfa_regex_cuda(payload, length, packed, depth)
+        return dfa_regex_cuda(payload, length, packed, depth, counts)
     return dfa_scan_torch(payload, length, table, out_count)

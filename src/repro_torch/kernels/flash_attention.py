@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 BLOCK_ROWS = 128      # (query position, query head) rows per CUDA block
 BLOCK_K = 16          # keys per CUDA tile, double-buffered
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 64, 128, 256)   # every config's, and d_head 16 of reduced()
 DTYPES = (torch.float32, torch.bfloat16)
 
 

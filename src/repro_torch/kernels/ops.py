@@ -33,13 +33,16 @@ def _check_impl(impl: Optional[str]) -> None:
 
 
 def regex_scan(payload, length, table, out_count, *, packed=None,
-               depth: Optional[int] = None, impl: Optional[str] = None):
+               depth: Optional[int] = None, counts=None,
+               impl: Optional[str] = None):
     """Match counts of the DFA (``table``, ``out_count``); the kernel takes
-    it as ``dfa_regex.prepare`` packed it (``packed``, ``depth``)."""
+    it as ``dfa_regex.prepare`` left it (``packed``, ``depth``, and
+    ``counts`` for the wide form)."""
     _check_impl(impl)
     if impl == "torch":
         return _dfa.dfa_scan_torch(payload, length, table, out_count)
-    return _dfa.dfa_regex(payload, length, table, out_count, packed, depth)
+    return _dfa.dfa_regex(payload, length, table, out_count, packed, depth,
+                          counts)
 
 
 def cipher(words, key, *, impl: Optional[str] = None):

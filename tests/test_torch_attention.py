@@ -327,7 +327,23 @@ SPLIT_CASES = [
     (16, 1, 128, 96, [96, 5]),                # G 16: 2 keys a batch
     (32, 1, 64, 40, [40, 3]),                 # G 32: 1 key a batch
     (3, 1, 128, 300, [300, 299]),             # G 3
+    (4, 1, 16, 64, [17, 64, 0, 40]),          # reduced gemma3-1b: D 16
+    (16, 2, 16, 300, [300, 5, 129]),          # D 16, G 16: 4 keys a step
+    (8, 1, 16, 40, [40, 3]),                  # D 16, G 8: 4 keys a batch
 ]
+
+
+@pytest.mark.parametrize("D,lanes,max_group", [
+    (16, 8, 16), (64, 32, 32), (128, 32, 16), (256, 32, 8)])
+def test_decode_lane_layout_per_head_dim(D, lanes, max_group):
+    """From D 64 on a cache row takes the warp's 32 lanes; at D 16 it takes
+    8 (2 dims a lane) and a warp walks 4 rows a step. Every head dim has
+    kernel instances up to 32 query heads per KV head (16 at D 16), within
+    the block's 2,048 outputs; the attention kernels take every config's
+    head dim and the reduced configs' 16."""
+    assert da.row_lanes(D) == lanes and da.max_group(D) == max_group
+    assert max_group * D <= da.MAX_OUT
+    assert D in fa.HEAD_DIMS
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -79,6 +79,27 @@ def _dfa_args(cuda, pay, length, table, out):
     return args, torch.from_numpy(prep.packed).to(cuda), prep.depth
 
 
+def _rules_with_states(S):
+    """Generated rules whose Aho-Corasick table has exactly S states:
+    `q{i:03d}zz` rules, then single letters, one state each."""
+    def states(rules):
+        return ref.build_aho_corasick(rules)[0].shape[0]
+    lo, hi = 1, 1000
+    while lo < hi:                  # the most rules within S states
+        mid = (lo + hi + 1) // 2
+        if states([f"q{i:03d}zz" for i in range(mid)]) <= S:
+            lo = mid
+        else:
+            hi = mid - 1
+    rules = [f"q{i:03d}zz" for i in range(lo)]
+    for ch in "abcdefghijklmnoprstuvwxy":
+        if states(rules) == S:
+            break
+        rules.append(ch)
+    assert states(rules) == S
+    return rules
+
+
 def _straddling(rng, B, L, rules, segs, depth):
     """Payloads with a pattern across, at and just before every segment
     start of the kernel's plan."""
@@ -179,13 +200,72 @@ def test_dfa_kernel_large_table_uses_dynamic_shared_memory(cuda):
         assert int(got.sum()) >= 300
 
 
+@pytest.mark.parametrize("S,counts", [
+    (228, "rules"),        # one past what a block's shared memory packs
+    (256, "rules"),        # the reference's own example size
+    (300, "rules"),        # wide, in shared memory
+    (1000, "rules"),       # wide, read from device memory (L2)
+    (43, "2^16"),          # SNORT_RULES with a count that does not pack
+    (43, "negative"),      # counts the reference sums as int32
+    (70_000, "random"),    # 32-bit next states, no finite depth
+])
+def test_dfa_kernel_takes_every_rule_set_the_reference_takes(cuda, S,
+                                                             counts):
+    """Rule sets past the packed form's 227 states and counts outside
+    [0, 2^16) take the wide form; each walk equals the plain version."""
+    rng = np.random.default_rng(S)
+    if counts == "random":
+        table = rng.integers(0, S, size=(S, 256)).astype(np.int32)
+        out = rng.integers(-3, 4, size=S).astype(np.int32)
+        rules = []
+    else:
+        rules = SNORT if S == 43 else _rules_with_states(S)
+        table, out = ref.build_aho_corasick(rules)
+        assert table.shape[0] == S
+        if counts == "2^16":
+            out[out > 0] = (1 << 16) + 3
+        elif counts == "negative":
+            out[out > 0] = -7
+    prep = dfa_regex.prepare(table, out)
+    assert prep.form == ("wide32" if S > 65536 else "wide16")
+    assert dfa_regex.in_shared(S, prep.form) == (S <= 400)
+    B, L = 700, 600
+    starts = [f for _, f in dfa_regex.segment_bounds(L, 4, prep.depth)]
+    pay = (_straddling(rng, B, L, rules, 4, prep.depth) if rules
+           else rng.integers(0, 256, size=(B, L), dtype=np.uint8))
+    length = rng.integers(-2, L + 5, size=B).astype(np.int32)
+    length[:4] = [0, 1, L, starts[-1] + 1]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (pay, length, table, out)]
+    entries = torch.from_numpy(prep.packed).to(cuda)
+    cnt = torch.from_numpy(prep.counts).to(cuda)
+    before = _build.launch_counts()["dfa_regex"]
+    got = dfa_regex.dfa_regex(*args, entries, prep.depth, cnt)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["dfa_regex"] == before + 1
+    want = dfa_regex.dfa_scan_torch(*args)
+    assert torch.equal(got, want)
+    assert bool((got != 0).any())
+    # the payload read byte by byte: a view one byte into its storage
+    flat = torch.from_numpy(np.concatenate([pay.reshape(-1), pay[0]])).to(
+        cuda)
+    view = flat[1:1 + B * L].view(B, L)
+    assert torch.equal(dfa_regex.dfa_regex_cuda(view, args[1], entries,
+                                                prep.depth, cnt),
+                       dfa_regex.dfa_scan_torch(view, *args[1:]))
+
+
 def test_dfa_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    """A count of 2^16 is taken now (the wide form), through the regex
+    stage as well; entries outside the table are refused by ``prepare``
+    and on the stage's first CUDA batch, as is a call without the
+    prepared table or with a table of the wrong dtype."""
     table, out = ref.build_aho_corasick(SNORT)
     big = out.copy()
     big[2] = 1 << 16
-    with pytest.raises(ValueError, match="out_count"):
-        dfa_regex.prepare(table, big)
+    assert dfa_regex.prepare(table, big).form == "wide16"
     pay = torch.zeros((4, 64), dtype=torch.uint8, device=cuda)
+    pay[:, 3:9] = torch.tensor(list(b"attack"), dtype=torch.uint8)
     lens = torch.full((4,), 64, dtype=torch.int32, device=cuda)
     args = [torch.from_numpy(a).to(cuda) for a in (table, out)]
     with pytest.raises(ValueError, match="prepare"):
@@ -196,17 +276,40 @@ def test_dfa_wrappers_refuse_what_the_kernel_does_not_take(cuda):
     fn.ucf.consts.set(table=table, out_count=big)
     batch = make_packets(pay, lens, torch.zeros((4, 5), dtype=torch.int32,
                                                 device=cuda), device=cuda)
-    with pytest.raises(ValueError, match="out_count"):
+    got = fn.ucf(batch).meta["match_num"]
+    want = dfa_regex.dfa_scan_torch(pay, lens, args[0],
+                                    torch.from_numpy(big).to(cuda))
+    assert torch.equal(got, want) and int(want[0]) > 0
+    bad = table.copy()
+    bad[2, 7] = table.shape[0]
+    with pytest.raises(ValueError, match="outside"):
+        dfa_regex.prepare(bad, out)
+    fn.ucf.consts.set(table=bad, out_count=out)
+    with pytest.raises(ValueError, match="outside"):
         fn.ucf(batch)
     packed = torch.from_numpy(dfa_regex.prepare(table, out).packed).to(cuda)
     with pytest.raises(TypeError, match="packed"):
         dfa_regex.dfa_regex_cuda(pay, lens, packed.float(), 11)
 
 
-@pytest.mark.parametrize("B,W", [(257, 375), (3, 1)])
-def test_crypto_kernels_equal_plain(cuda, B, W):
-    rng = np.random.default_rng(W)
-    w = torch.from_numpy(_u32(rng, (B, W))).to(cuda)
+@pytest.mark.parametrize("B,W,offset", [
+    (257, 375, 0), (3, 1, 0),
+    (64, 376, 0),          # even W
+    (32768, 375, 0),       # the path's shape
+    (100, 33, 0),          # W past one column stage (32 words) by one
+    (65, 96, 0),           # W three whole column stages
+    (41, 375, 1),          # a view 4, 8 and 12 bytes past a 16-byte line
+    (40, 64, 2),
+    (7, 5, 3),
+])
+def test_crypto_kernels_equal_plain(cuda, B, W, offset):
+    """B3 and B4 bit for bit against their plain versions: the path's
+    shape, odd and even row widths, widths across the digest's column
+    stages, and word views whose base is not 16-byte aligned."""
+    rng = np.random.default_rng(W * 10 + offset)
+    flat = torch.from_numpy(_u32(rng, (B * W + offset,))).to(cuda)
+    w = flat[offset:].view(B, W)
+    assert (w.data_ptr() % 16 != 0) == (offset != 0)
     key = torch.from_numpy(_u32(rng, (4,))).to(cuda)
     for kern, plain in ((crypto.arx_cipher, crypto.arx_cipher_torch),
                         (crypto.keyed_hash, crypto.keyed_hash_torch)):
@@ -291,6 +394,8 @@ def test_dataplane_on_card_equals_cpu(cuda, name):
     (128, 4, 4, 200, 330, None),       # MHA, ragged tiles, Sq < Sk
     (128, 8, 2, 130, 130, 40),         # GQA, window shorter than a tile
     (64, 2, 1, 64, 32, None),          # Sq > Sk: rows with no key give 0
+    (16, 4, 1, 40, 40, 16),            # reduced gemma3-1b: local layers
+    (16, 4, 1, 40, 40, None),          # ... and global ones
 ])
 def test_flash_kernel_equals_plain(cuda, D, Hq, Hkv, Sq, Sk, window,
                                    pairing):
@@ -316,6 +421,8 @@ def test_flash_kernel_equals_plain(cuda, D, Hq, Hkv, Sq, Sk, window,
     (256, 4, 1, 64, [40] * 8),                  # the engine's 8 rows
     (128, 8, 1, 1000, [0, 999, 500, 1000]),     # ragged S, an empty row
     (128, 4, 4, 4096, [4096, 3000, 129, 64]),   # MHA, two stages a warp
+    (16, 4, 1, 64, [17, 17, 64, 70]),           # reduced gemma3-1b's engine
+    (16, 16, 1, 300, [300, 1, 0, 129]),         # D 16, G 16
 ])
 def test_decode_kernel_equals_plain(cuda, D, Hq, Hkv, S, kv_len, pairing):
     q_dt, kv_dt = PAIRINGS[pairing]
@@ -339,7 +446,7 @@ def test_decode_kernel_equals_plain(cuda, D, Hq, Hkv, S, kv_len, pairing):
 
 @pytest.mark.parametrize("pairing", list(PAIRINGS))
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 def test_decode_kernel_head_dims_and_groups(cuda, D, G, pairing):
     """Every head dim, dtype pairing and group size, with kv_len 0, 1, S
     and different on every row, over a cache deep enough for several
@@ -370,6 +477,8 @@ def test_decode_kernel_head_dims_and_groups(cuda, D, G, pairing):
     (256, 4, 1, 1000, 1003, 200),
     (128, 4, 1, 200, 200, 5),          # window shorter than a key tile
     (64, 4, 1, 200, 200, 4096),        # window >= S
+    (16, 8, 2, 300, 300, 50),          # D 16: one 16-column block a row
+    (16, 4, 1, 1000, 1003, None),      # D 16, ragged, long causal split
 ])
 def test_flash_kernel_edges_equal_plain(cuda, D, Hq, Hkv, Sq, Sk, window,
                                         pairing):
@@ -414,6 +523,10 @@ def test_attention_wrappers_reject_bad_input(cuda):
         big = torch.zeros((1, 32, 128), device=cuda)
         kv1 = torch.zeros((1, 64, 1, 128), device=cuda)
         da.decode_attention_cuda(big, kv1, kv1, lens)
+    with pytest.raises(ValueError, match="instances for"):
+        g32 = torch.zeros((1, 32, 16), device=cuda)
+        kv16 = torch.zeros((1, 64, 1, 16), device=cuda)
+        da.decode_attention_cuda(g32, kv16, kv16, lens)
     with pytest.raises(ValueError, match="head dim"):
         d80 = torch.zeros((1, 64, 4, 80), device=cuda)
         da.decode_attention_cuda(torch.zeros((1, 4, 80), device=cuda), d80,
@@ -421,11 +534,12 @@ def test_attention_wrappers_reject_bad_input(cuda):
 
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "olmo-1b"])
-def test_reduced_model_on_card_equals_cpu(cuda, name):
+@pytest.mark.parametrize("d_head", [16, 128])
+def test_reduced_model_on_card_equals_cpu(cuda, name, d_head):
     """Prefill (B5 on every layer) and 8 decode steps (B6 on the global
-    layers) of a reduced model with the kernels' head dim 128, on the card
-    against the same parameters on the CPU."""
-    cfg = get_arch(name).reduced().replace(remat=False, d_head=128)
+    layers) of a reduced model, at its own head dim 16 and at 128, on the
+    card against the same parameters on the CPU."""
+    cfg = get_arch(name).reduced().replace(remat=False, d_head=d_head)
     cpu_model, card_model = build(cfg, "cpu"), build(cfg, cuda)
     params = cpu_model.init(torch.Generator().manual_seed(0), torch.float32)
     card_params = cpu_model.init(torch.Generator().manual_seed(0),
@@ -452,6 +566,40 @@ def test_reduced_model_on_card_equals_cpu(cuda, name):
     n_global = sum(1 for *_, layer in card_params.all_layers()
                    if layer.spec.mixer == "attn")
     assert counts["decode_attention"] == 8 * n_global
+
+
+def test_reduced_serve_on_card_equals_cpu(cuda):
+    """``launch.serve --arch gemma3-1b --reduced`` on the card (B6 at head
+    dim 16 in the engine) against a CPU engine with the same plan,
+    parameters and requests: the same requests complete with equal tokens
+    (a difference only where the top-2 margin is under 2e-3, as
+    ``chip_smoke.py`` holds it), and each token's top-2 margin, a
+    difference of two logits, within 2 x 1e-3 of the CPU run's."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+    tol = 1e-3
+    _build.reset_launch_counts()
+    rep = serve.run(["--arch", "gemma3-1b", "--reduced"])
+    assert _build.launch_counts()["decode_attention"] > 0
+    assert rep.model.cfg.head_dim == 16
+    assert len(rep.done) == rep.requests == 16
+    cfg = rep.model.cfg
+    cpu = ServingEngine(build(cfg, "cpu"), rep.params.to("cpu"),
+                        num_pipelines=rep.plan.num_pipelines,
+                        slots_per_pipeline=8, max_len=64)
+    for req in serve.make_requests(cfg, rep.requests, 16):
+        cpu.submit(req)
+    done = cpu.run(max_steps=64 - 8)
+    assert [r.rid for r in rep.done] == [r.rid for r in done]
+    equal = 0
+    for g, w in zip(rep.done, done):
+        for a, b, ma, mb in zip(g.out, w.out, g.margins, w.margins):
+            assert abs(ma - mb) <= 2 * tol
+            if a != b:
+                assert ma < 2 * tol
+                break
+            equal += 1
+    assert equal >= 0.9 * rep.tokens
 
 
 # -- SSD chunked scan (B7) ---------------------------------------------------------

@@ -15,6 +15,7 @@ import torch
 from repro.apps import nf as jnf
 from repro.core import accel as jaccel
 from repro.core.graph import make_packets as jmake_packets
+from repro.kernels import dfa_regex as jdfa
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import accel
@@ -128,25 +129,107 @@ def _walk(table, state, word):
     return int(state)
 
 
+def _rules_with_states(S):
+    """Generated rules whose Aho-Corasick table has exactly S states:
+    `q{i:03d}zz` rules, then single letters, one state each."""
+    def states(rules):
+        return ref.build_aho_corasick(rules)[0].shape[0]
+    lo, hi = 1, 1000
+    while lo < hi:                  # the most rules within S states
+        mid = (lo + hi + 1) // 2
+        if states([f"q{i:03d}zz" for i in range(mid)]) <= S:
+            lo = mid
+        else:
+            hi = mid - 1
+    rules = [f"q{i:03d}zz" for i in range(lo)]
+    for ch in "abcdefghijklmnoprstuvwxy":
+        if states(rules) == S:
+            break
+        rules.append(ch)
+    assert states(rules) == S
+    return rules
+
+
 def test_prepare_packs_entries_and_refuses_what_does_not_fit():
+    """SNORT_RULES packs (next | count << 16). What does not pack, a
+    257-state table, a count of 2^16 and negative counts, is taken in the
+    wide form (16-bit next states beside int32 counts), as the reference
+    takes it: the kernel's segmented walk over it equals the reference's
+    ``dfa_regex(interpret=True)``. Refused, as the reference cannot walk
+    them either: entries outside [0, S) and shapes other than (S, 256)."""
     table, out = ref.build_aho_corasick(jnf.SNORT_RULES)
     prep = dfa_regex.prepare(table, out)
     assert prep.packed.dtype == np.int32 and prep.depth == 11
+    assert prep.form == "packed" and prep.counts is None
     packed = prep.packed.view(np.uint32)
     np.testing.assert_array_equal(packed & 0xFFFF, table)
     np.testing.assert_array_equal(packed >> 16, out[table])
     big = out.copy()
     big[3] = 1 << 16
-    with pytest.raises(ValueError, match="out_count"):
-        dfa_regex.prepare(table, big)
-    with pytest.raises(ValueError, match="out_count"):
-        dfa_regex.prepare(table, out - 2)
-    with pytest.raises(ValueError, match="does not pack"):
-        dfa_regex.prepare(np.zeros((257, 256), np.int32),
-                          np.zeros(257, np.int32))
+    rules257 = _rules_with_states(257)
+    t257, o257 = ref.build_aho_corasick(rules257)
+    rng = np.random.default_rng(257)
+    for (t, o, pats) in ((table, big, jnf.SNORT_RULES),
+                         (table, out - 2, jnf.SNORT_RULES),
+                         (t257, o257, rules257)):
+        wide = dfa_regex.prepare(t, o)
+        assert wide.form == "wide16" and wide.packed.dtype == np.int16
+        np.testing.assert_array_equal(wide.packed.view(np.uint16), t)
+        np.testing.assert_array_equal(wide.counts, o)
+        assert wide.depth == max(len(p) for p in pats)
+        L = 200
+        starts = [f for _, f in dfa_regex.segment_bounds(L, 4, wide.depth)]
+        pay = _planted(rng, 48, L, pats, starts[1:])
+        length = rng.integers(-2, L + 3, size=48).astype(np.int32)
+        want = np.asarray(jdfa.dfa_regex(jnp.asarray(pay),
+                                         jnp.asarray(length),
+                                         jnp.asarray(t), jnp.asarray(o),
+                                         interpret=True))
+        for segments in (1, 4):
+            np.testing.assert_array_equal(dfa_regex.segmented_scan_numpy(
+                pay, length, wide, segments), want)
+        assert want.max() > 0 or want.min() < 0
+    bad = table.copy()
+    bad[5, 7] = table.shape[0]
+    with pytest.raises(ValueError, match="outside"):
+        dfa_regex.prepare(bad, out)
+    bad[5, 7] = -1
+    with pytest.raises(ValueError, match="outside"):
+        dfa_regex.prepare(bad, out)
+    with pytest.raises(ValueError, match="not"):
+        dfa_regex.prepare(table[:, :255], out)
+    with pytest.raises(ValueError, match="not"):
+        dfa_regex.prepare(table, out[:-1])
     par = dfa_regex.prepare(*_parity_table())
     assert par.depth is None
     assert dfa_regex.segment_bounds(100, 4, None) == [(0, 0)]
+
+
+def test_sync_depth_memory_is_bounded():
+    """A ~1,000-state Aho-Corasick table: ``prepare`` keeps its memory
+    bounded (no S^2 pair table) and finds the exact depth, the longest
+    pattern, checked by brute force; a table whose pairs never meet
+    (parity over many states) or would pass the budget gives None."""
+    import tracemalloc
+    rules = [f"q{i:04d}zz" for i in range(320)]
+    table, out = ref.build_aho_corasick(rules)
+    assert table.shape[0] == 999
+    tracemalloc.start()
+    prep = dfa_regex.prepare(table, out)
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    assert peak < 32 << 20
+    assert prep.form == "wide16" and prep.depth == 7
+    rng = np.random.default_rng(1)
+    alphabet = np.frombuffer(b"q0123zx", np.uint8)
+    for _ in range(30):
+        w = rng.choice(alphabet, size=prep.depth)
+        ends = {_walk(table, q, w) for q in range(0, table.shape[0], 7)}
+        assert len(ends) == 1
+    cyc = np.tile(np.arange(1, 301, dtype=np.int32)[:, None] % 300, (1, 256))
+    assert dfa_regex.sync_depth(cyc) is None     # a 300-state cycle
+    noisy = rng.integers(0, 1000, size=(1000, 256)).astype(np.int32)
+    assert dfa_regex.sync_depth(noisy) is None   # past the budget
 
 
 def _planted(rng, B, L, rules, starts):
