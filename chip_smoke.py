@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Four paths, each driven with the launch counts set to 0 just before it
+Five paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -34,6 +34,16 @@ and read just after:
    every layer's SSM state); then ``launch.serve`` at its reference
    defaults, held against a plain-impl engine on the same plan.
 
+5. Training olmo-1b at full width (16 layers, d_model 2,048, 16 heads of
+   128, d_ff 8,192, vocab 50,304; f32 parameters and AdamW state from a
+   seeded generator): 4 steps of ``launch.steps.make_train_step`` at batch
+   8 x 1,024 (2 microbatches of 4), once with the kernels (B5 forward with
+   its log-sum-exp, and B5's backward, on every layer of every
+   microbatch) and once with the plain versions, from the same parameters
+   and data; then ``launch.train.main`` on the reduced config on the card,
+   crashed at step 5 (``--fail-at``) and resumed (``--resume``), against an
+   uninterrupted run: the final parameters equal bit for bit.
+
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
 
@@ -41,11 +51,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
 (into ``build/kernels/``), needs one CUDA device, and exits non-zero on any
 failure. The last line of its output is ``{"ok": true, "device": {...}}``;
-the line before it lists every kernel with its launches on its path, its
-error against the plain version, and its times beside its bound (B3 and
-B4 also beside ``input_read_floor``, a plain coalesced read of their input
-timed the same way), and ``launch_floor_ms``: a kernel that does nothing,
-timed the same way.
+the line before it lists every kernel (B5's backward too) with its
+launches on its path, its error against the plain version, and its times
+beside its bound (B3 and B4 also beside ``input_read_floor``, a plain
+coalesced read of their input timed the same way), and
+``launch_floor_ms``: a kernel that does nothing, timed the same way.
 """
 from __future__ import annotations
 
@@ -68,17 +78,21 @@ from repro_torch.apps import (intrusion_detection, ipsec_gateway,  # noqa: E402
                               synth_packets)
 from repro_torch.apps.nf import SNORT_RULES  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.executor import ParallelDataPlane, _bucket  # noqa: E402
 from repro_torch.core.graph import bits, run_pipeline, tree_leaves  # noqa: E402
 from repro_torch.core.orchestrator import flow_ids  # noqa: E402
+from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import _build, crypto, dfa_regex, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flow_lookup as fl  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import lm, ssm  # noqa: E402
+from repro_torch.optim import make_schedule  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 
 BATCH = 16384
@@ -140,12 +154,44 @@ SSD_TOL = dict(atol=1e-4, rtol=1e-4)
 MAMBA_LOGIT_TOL = 2e-3
 MAMBA_STATE_TOL = 1e-3
 
+# Training phase (olmo-1b at full width)
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH = 8           # 2 microbatches of 4 (microbatch capped at 2)
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 4           # numbered 1..4: lr(0) is 0 under the warmup
+TRAIN_LR = 3e-3           # the reference CLI's --lr, warmup 20
+TRAIN_WARMUP = 20
+# Tolerances of the kernel run against the plain run. The two differ only
+# in attention: B5's forward and backward agree with their plain versions
+# to ~1e-6 relative (3xTF32 and f32 FMAs against cuBLAS f32, sums in other
+# orders). Through 16 layers that moves a loss of ~10.9 and the gradients
+# by ~1e-5 relative at most: the losses are held to TRAIN_LOSS_TOL and the
+# grad norms, sums of squares of 1.2e9 gradients, to TRAIN_GNORM_TOL,
+# relative. AdamW's first update is lr · g / (|g| + eps): ±lr wherever |g|
+# >> eps, whatever the gradient's error, but a function of the gradient's
+# low bits where |g| is near eps. So after step 1 every parameter must be
+# within 2 lr(1) of the plain run's (the most two such updates can
+# differ), and all but a share TRAIN_PARAM_SHARE within 1e-3 lr(1).
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GNORM_TOL = 1e-3
+TRAIN_PARAM_SHARE = 1e-3
+# B5's backward against its plain version (f32): dK and dV sum 1,024
+# products an entry in another order; held to atol = rtol = 1e-4.
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+# crash and resume, reduced olmo-1b on the card (a full-width checkpoint
+# would be ~14 GB on disk)
+RESUME_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
+               "--steps", "10", "--batch", "4", "--seq", "64",
+               "--ckpt-every", "5", "--log-every", "100"]
+RESUME_FAIL_AT = 5
+
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
     "dfa_regex": "src/repro/kernels/dfa_regex.py:30",
     "arx_cipher": "src/repro/kernels/crypto.py:25",
     "keyed_hash": "src/repro/kernels/crypto.py:29",
     "flash_attention": "src/repro/kernels/flash_attention.py:33",
+    "flash_attention_bwd": "src/repro/kernels/ops.py:125",
     "decode_attention": "src/repro/kernels/decode_attention.py:29",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:27",
 }
@@ -155,6 +201,8 @@ SOURCES = {
     "arx_cipher": "src/repro_torch/kernels/csrc/crypto.cu",
     "keyed_hash": "src/repro_torch/kernels/csrc/crypto.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd":
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
@@ -165,7 +213,9 @@ FUNCTIONS = {
     "dfa_regex": ("dfa_regex_kernel",),
     "arx_cipher": ("arx_cipher_kernel",),
     "keyed_hash": ("keyed_hash_kernel",),
-    "flash_attention": ("flash_fwd_kernel",),
+    "flash_attention": ("flash_fwd_kernel", "flash_combine_kernel"),
+    "flash_attention_bwd": ("flash_bwd_delta_kernel",
+                            "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
     "decode_attention": ("decode_attention_kernel",),
     "ssd_scan": ("ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan"),
 }
@@ -428,9 +478,10 @@ def kernel_checks(dp, last_batch, launches_isg, launches_id):
     specs = {
         "flow_lookup": dict(
             run=lambda: fl.lookup_cuda(*planes, q_lo, q_hi, ep, W),
-            plain=lambda: fl.lookup_torch(*planes, q_lo, q_hi, ep, W),
-            shape=f"C={cap} F={F} W={W}",
-            nbytes=F * 8 + F * 9 + touched.size * 16,
+            plain=lambda: fl.pack(*fl.lookup_torch(*planes, q_lo, q_hi, ep,
+                                                   W)),
+            shape=f"C={cap} F={F} W={W}, out (3, F) int32",
+            nbytes=F * 8 + F * 12 + touched.size * 16,
             ops=F * 12 + int(probes.sum()) * 5),
         "dfa_regex": dict(
             run=lambda: dfa_regex.dfa_regex_cuda(payload, length, packed,
@@ -1101,6 +1152,240 @@ def ssd_checks(model, params, prompts, launches_pd, launches_engine):
     return [row]
 
 
+# -- training -------------------------------------------------------------------
+
+def _train_run(model, batches, impl, profile_last=False):
+    """``make_train_step`` over ``batches`` (steps numbered 1, 2, ...) from
+    the seeded parameters: per-step loss, grad norm, ms and launches, and a
+    copy of the parameters after step 1. With ``profile_last`` the last
+    batch is one more step under ``torch.profiler`` (not timed, not
+    compared), for the device's busy share."""
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32).requires_grad_(True)
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step_fn, opt_init = make_train_step(model, shape, base_lr=TRAIN_LR,
+                                        warmup=TRAIN_WARMUP,
+                                        total_steps=TRAIN_STEPS, impl=impl)
+    if step_fn.accum != 2:
+        raise AssertionError(f"{cfg.name}: {step_fn.accum} microbatches, "
+                             f"want 2")
+    opt = opt_init(params)
+    out = {"loss": [], "grad_norm": [], "ms": [], "launches": []}
+    timed = batches[:-1] if profile_last else batches
+    for s, toks in enumerate(timed, 1):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, loss, gn = step_fn(params, opt, {"tokens": toks}, s)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append(_build.launch_counts())
+        out["loss"].append(float(loss))
+        out["grad_norm"].append(float(gn))
+        if s == 1:
+            out["params_step1"] = {k: p.detach().clone()
+                                   for k, p in params.named_parameters()}
+    if profile_last:
+        n = len(batches)
+        out["profile"] = _profile(lambda: step_fn(
+            params, opt, {"tokens": batches[-1]}, n))
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del params, opt
+    return out
+
+
+def training_phase():
+    """olmo-1b at full width: ``TRAIN_STEPS`` steps with the kernels (the
+    main path: counts reset before each step, read after), then the same
+    steps with the plain versions from the same parameters and data."""
+    cfg = get_arch(TRAIN_ARCH)
+    cfg = cfg.replace(microbatch=min(cfg.microbatch, 2))
+    model = build(cfg, "cuda")
+    ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1)
+    batches = [torch.from_numpy(ds.batch(i, TRAIN_BATCH)["tokens"]
+                                [:, :TRAIN_SEQ]).long().cuda()
+               for i in range(1, TRAIN_STEPS + 2)]
+    n_params = model.param_counts()[0]
+    torch.cuda.reset_peak_memory_stats()
+    k = _train_run(model, batches, None, profile_last=True)
+    torch.cuda.empty_cache()
+    p = _train_run(model, batches[:TRAIN_STEPS], "torch")
+    per_step = {"flash_attention": 2 * cfg.n_layers,
+                "flash_attention_bwd": 2 * cfg.n_layers}
+    for s, counts in enumerate(k["launches"], 1):
+        for name, n in counts.items():
+            if n != per_step.get(name, 0):
+                raise AssertionError(f"train step {s}: {n} launches of "
+                                     f"{name}, want {per_step.get(name, 0)}")
+    for s, counts in enumerate(p["launches"], 1):
+        if any(counts.values()):
+            raise AssertionError(f"plain train step {s} launched {counts}")
+    for key, tol in (("loss", TRAIN_LOSS_TOL), ("grad_norm", TRAIN_GNORM_TOL)):
+        for s, (a, b) in enumerate(zip(k[key], p[key]), 1):
+            if not (np.isfinite(a) and abs(a - b) <= tol * abs(b)):
+                raise AssertionError(f"train step {s}: {key} {a} with the "
+                                     f"kernels, {b} plain (rtol {tol})")
+    lr1 = float(make_schedule(cfg.schedule, TRAIN_LR, TRAIN_WARMUP,
+                                    TRAIN_STEPS)(1))
+    worst, off, total = 0.0, 0, 0
+    for name, a in k["params_step1"].items():
+        d = (a - p["params_step1"][name]).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-3 * lr1).sum())
+        total += d.numel()
+    if not (worst <= 2 * lr1 * 1.001 and off <= TRAIN_PARAM_SHARE * total):
+        raise AssertionError(f"train step 1: parameters differ by up to "
+                             f"{worst} (bound {2 * lr1}), {off} of {total} "
+                             f"by more than {1e-3 * lr1}")
+    step_ms = statistics.median(k["ms"][1:])
+    prof = k["profile"]
+    report = {
+        "arch": TRAIN_ARCH, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": 2,
+        "steps": TRAIN_STEPS, "lr_step1": lr1,
+        "loss": k["loss"], "plain_loss": p["loss"],
+        "grad_norm": k["grad_norm"], "plain_grad_norm": p["grad_norm"],
+        "step_ms": k["ms"], "plain_step_ms": p["ms"],
+        "step_ms_median_2_4": step_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+        "plain_tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+        / (statistics.median(p["ms"][1:]) / 1e3),
+        "launches_per_step": k["launches"][0],
+        "params_step1_max_abs_diff": worst,
+        "params_step1_share_off": off / total,
+        "profiled_step": prof,
+        "device_busy_share": prof["device_ms"] / prof["wall_ms_profiled"],
+        "peak_mem_bytes": k["peak_mem_bytes"],
+    }
+    launches = {name: sum(c[name] for c in k["launches"])
+                for name in k["launches"][0]}
+    return report, launches
+
+
+def crash_resume():
+    """``launch.train.main`` on the reduced config on the card: an
+    uninterrupted run, and a run crashed at step RESUME_FAIL_AT and
+    resumed, must end on the same parameters and AdamW state, bit for
+    bit. Checkpoints go to a scratch directory under ``build/``."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        a, b = str(Path(tmp) / "a"), str(Path(tmp) / "b")
+        if train.main(RESUME_ARGS + ["--ckpt-dir", a]) != 0:
+            raise AssertionError("uninterrupted reduced training failed")
+        rc = train.main(RESUME_ARGS + ["--ckpt-dir", b, "--fail-at",
+                                       str(RESUME_FAIL_AT)])
+        if rc != train.CRASH_EXIT:
+            raise AssertionError(f"--fail-at returned {rc}")
+        if train.main(RESUME_ARGS + ["--ckpt-dir", b, "--resume"]) != 0:
+            raise AssertionError("resumed reduced training failed")
+        last = int(RESUME_ARGS[RESUME_ARGS.index("--steps") + 1])
+        want, got = (np.load(Path(d) / f"step_{last:08d}" / "shard_0.npz")
+                     for d in (a, b))
+        if sorted(want.files) != sorted(got.files):
+            raise AssertionError("resumed checkpoint has other leaves")
+        differ = [n for n in want.files
+                  if not np.array_equal(want[n], got[n])]
+        if differ:
+            raise AssertionError(f"resumed run differs from the "
+                                 f"uninterrupted one in {differ[:5]}")
+        return {"leaves": len(want.files), "bit_equal": True,
+                "crashed_at": RESUME_FAIL_AT, "steps": last}
+
+
+def train_attention_rows(launches_train):
+    """B5's forward with lse, and B5's backward, at the training path's
+    shape (one microbatch: q, k, v (4, 1,024, 16, 128) f32, causal),
+    against their plain versions, timed beside their bounds and SDPA (the
+    backward's yardstick: ``torch.autograd.grad`` through one f32 SDPA
+    call, its forward done once outside the timing)."""
+    cfg = get_arch(TRAIN_ARCH)
+    dev = torch.device("cuda")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, S, H, D = TRAIN_BATCH // 2, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
+    q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   for _ in range(4))
+    el = lambda t: t.numel() * t.element_size()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
+    peak = hw.peak_flops(q.dtype)
+    pairs = fa.work(q.shape, k.shape, True, None)
+
+    # forward with lse
+    run_f = lambda: fa.flash_attention_cuda(q, k, v, return_lse=True)
+    plain_f = lambda: fa.flash_attention_torch(q, k, v, return_lse=True)
+    (out, lse), (pout, plse) = run_f(), plain_f()
+    torch.cuda.synchronize()
+    err_f = max(float((out - pout).abs().max()),
+                float((lse - plse).abs().max()))
+    if not (torch.allclose(out, pout, **ATTN_TOL)
+            and torch.allclose(lse, plse, **ATTN_TOL)):
+        raise AssertionError(f"flash_attention (train): kernel differs from "
+                             f"its plain version by {err_f}")
+    lib_f = lambda: sdpa(qt, kt, vt, is_causal=True)
+    nbytes_f = el(q) * 2 + el(k) + el(v) + el(lse)
+    bound_s, bound_by = hw.bound_seconds(nbytes_f, pairs * 4 * D, peak)
+    fwd = {
+        "name": "flash_attention", "variant": "train",
+        "launches": launches_train["flash_attention"],
+        "shape": f"B={B} Sq=Sk={S} Hq=Hkv={H} D={D} f32 causal, with lse",
+        "max_abs_err": err_f,
+        "ms": _time_ms(run_f, KERNEL_REPS, flush),
+        "ms_l2_warm": _time_ms(run_f, KERNEL_REPS, _NoFlush()),
+        "plain_ms": _time_ms(plain_f, PLAIN_REPS, flush),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "bytes": int(nbytes_f), "ops": int(pairs * 4 * D),
+        "peak_flops": peak,
+        "library_ms": _time_ms(lib_f, KERNEL_REPS, flush),
+        "library_call": "torch.nn.functional.scaled_dot_product_attention",
+    }
+
+    # backward, from the kernel forward's out and lse
+    run_b = lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    plain_b = lambda: fa.flash_attention_bwd_torch(q, k, v, out, lse, do)
+    got, want = run_b(), plain_b()
+    again = run_b()
+    torch.cuda.synchronize()
+    err_b = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    if not all(torch.allclose(a, b, **BWD_TOL) for a, b in zip(got, want)):
+        raise AssertionError(f"flash_attention_bwd: kernel differs from its "
+                             f"plain version by {err_b}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("flash_attention_bwd: two calls differ")
+    ql, kl, vl = (x.detach().clone().requires_grad_() for x in (qt, kt, vt))
+    lib_out = sdpa(ql, kl, vl, is_causal=True)
+    lib_b = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dot_,
+                                        retain_graph=True)
+    lib_err = max(float((a.transpose(1, 2) - b).abs().max())
+                  for a, b in zip(lib_b(), want))
+    nbytes_b = 4 * el(q) + 4 * el(k) + el(lse)
+    ops_b = pairs * 5 * 2 * D
+    bound_s, bound_by = hw.bound_seconds(nbytes_b, ops_b, peak)
+    bwd = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": SOURCES["flash_attention_bwd"],
+        "replaces": REPLACES["flash_attention_bwd"],
+        "launches": launches_train["flash_attention_bwd"],
+        "launches_by_path": {"train": launches_train["flash_attention_bwd"]},
+        "variant": "train",
+        "shape": f"B={B} Sq=Sk={S} Hq=Hkv={H} D={D} f32 causal",
+        "max_abs_err": err_b, "bit_reproducible": True,
+        "ms": _time_ms(run_b, KERNEL_REPS, flush),
+        "ms_l2_warm": _time_ms(run_b, KERNEL_REPS, _NoFlush()),
+        "plain_ms": _time_ms(plain_b, PLAIN_REPS, flush),
+        "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+        "bytes": int(nbytes_b), "ops": int(ops_b), "peak_flops": peak,
+        "library_ms": _time_ms(lib_b, KERNEL_REPS, flush),
+        "library_call": "torch.autograd.grad through one f32 "
+                        "torch.nn.functional.scaled_dot_product_attention",
+        "library_max_abs_err": lib_err,
+        "library_kernels": _device_kernels(lib_b),
+    }
+    return fwd, bwd
+
+
 def main() -> int:
 
     if not torch.cuda.is_available():
@@ -1230,6 +1515,39 @@ def main() -> int:
     print("mamba engine " + json.dumps(meng))
     kernels += ssd_checks(model, params, prompts, mpd["launches"],
                           meng["launches"])
+    del model, params, prompts
+    torch.cuda.empty_cache()
+
+    # training: olmo-1b at full width, kernels against plain
+    t0 = time.perf_counter()
+    tr, launches_train = training_phase()
+    torch.cuda.empty_cache()
+    print(f"train: {TRAIN_ARCH} at full width, {tr['params']} parameters "
+          f"(f32, AdamW f32), batch {TRAIN_BATCH} x {TRAIN_SEQ}, 2 "
+          f"microbatches, {TRAIN_STEPS} steps in "
+          f"{time.perf_counter() - t0:.2f} s (with the plain run)")
+    print(f"train step ms: {tr['step_ms_median_2_4']:.3f} (median of steps "
+          f"2-{TRAIN_STEPS}; plain versions "
+          f"{statistics.median(tr['plain_step_ms'][1:]):.3f})")
+    print(f"train tokens/s: {tr['tokens_per_s']:.1f} (plain versions "
+          f"{tr['plain_tokens_per_s']:.1f})")
+    print(f"train device busy share: {tr['device_busy_share']:.4f} "
+          f"(torch.profiler, one step)")
+    print(f"train launches per step: {json.dumps(tr['launches_per_step'])}")
+    print(f"train loss {tr['loss']} (plain {tr['plain_loss']}), grad norm "
+          f"{tr['grad_norm']} (plain {tr['plain_grad_norm']})")
+    res = crash_resume()
+    tr["crash_resume_reduced"] = res
+    print(f"train crash/resume (reduced, on the card): crashed at step "
+          f"{res['crashed_at']}, resumed, {res['leaves']} leaves at step "
+          f"{res['steps']} bit-equal to the uninterrupted run")
+    print("train " + json.dumps(tr))
+    fwd_row, bwd_row = train_attention_rows(launches_train)
+    by_name = {row["name"]: row for row in kernels}
+    by_name["flash_attention"].setdefault("variants", {})["train"] = fwd_row
+    by_name["flash_attention"]["launches_by_path"]["train"] = (
+        launches_train["flash_attention"])
+    kernels.append(bwd_row)
     for row in kernels:
         row["ptxas"] = _ptxas_of(ptxas, row["name"])
         _with_bound_share(row)
@@ -1238,9 +1556,9 @@ def main() -> int:
                 raise AssertionError(f"{row['name']} ({r.get('variant')}): "
                                      f"{r['ms']} ms is under its bound "
                                      f"{r['bound_ms']} ms")
-    for name in ("flash_attention", "ssd_scan", "dfa_regex",
-                 "decode_attention", "arx_cipher", "keyed_hash",
-                 "flow_lookup"):
+    for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                 "dfa_regex", "decode_attention", "arx_cipher",
+                 "keyed_hash", "flow_lookup"):
         spills = {fn: v for fn, v in _ptxas_of(ptxas, name).items()
                   if v.get("spill_stores") or v.get("spill_loads")}
         if spills:

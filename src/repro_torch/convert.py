@@ -3,7 +3,8 @@
 The data plane's "weights" are its data and state: packet batches, the
 flow cache's planes and epoch, and each accelerator stage's constants (DFA
 table, out_count, keys). The LM's are its parameter tree and decode cache
-(KV rows, or a mamba layer's conv tails and SSM state).
+(KV rows, or a mamba layer's conv tails and SSM state), and in training its
+AdamW state.
 Everything crosses as numpy arrays: take ``np.asarray`` of the JAX
 package's arrays, hand them to the loaders here, and compare the port's
 outputs through ``batch_to_numpy`` / ``leaves_to_numpy``, which list leaves
@@ -23,6 +24,7 @@ from repro_torch.core.flowcache import FlowCache
 from repro_torch.core.graph import MeiliApp, PacketBatch, tree_leaves
 from repro_torch.hw import resolve_device
 from repro_torch.models import lm as lm_mod
+from repro_torch.optim import AdamWState
 
 _FIELDS = ("payload", "length", "five_tuple", "mask")
 
@@ -158,6 +160,26 @@ def lm_params_from_jax(cfg, params: Mapping, device="cuda") -> lm_mod.LM:
     head = _map_tree(params["head"], to_t) if "head" in params else None
     return lm_mod.LM(cfg, _map_tree(params["embed"], to_t), segments,
                      _map_tree(params.get("final_norm", {}), to_t), head)
+
+
+def lm_named_from_jax(cfg, tree: Mapping, device="cuda"
+                      ) -> Dict[str, torch.Tensor]:
+    """A tree shaped as the JAX package's LM parameters (the parameters, a
+    gradient, an AdamW moment; numpy leaves) as the port's flat mapping
+    from parameter name (``LM.named_parameters()``) to tensor."""
+    return {k: p.detach() for k, p in
+            lm_params_from_jax(cfg, tree, device).named_parameters()}
+
+
+def adamw_state_from_jax(cfg, state: Any, device="cuda") -> AdamWState:
+    """The port's AdamW state from the reference's ``AdamWState`` (mu and
+    nu trees shaped as the parameters, count; numpy leaves): the moments
+    keyed by the port's parameter names, each in its own dtype."""
+    dev = resolve_device(device)
+    return AdamWState(mu=lm_named_from_jax(cfg, state.mu, dev),
+                      nu=lm_named_from_jax(cfg, state.nu, dev),
+                      count=torch.tensor(int(np.asarray(state.count)),
+                                         dtype=torch.int32, device=dev))
 
 
 def lm_cache_from_jax(cache: Mapping, device="cuda") -> Dict[str, Any]:

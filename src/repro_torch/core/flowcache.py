@@ -117,10 +117,10 @@ class FlowCache:
             hi = np.concatenate([hi, np.zeros(Fp - F, np.uint32)])
         qlo = torch.from_numpy(lo).to(self.device)
         qhi = torch.from_numpy(hi).to(self.device)
-        slot, pid, fresh = fl.lookup(*planes, qlo, qhi, self.epoch,
-                                     window=self.window)
-        # One device->host copy for the three outputs.
-        out = torch.stack([slot, pid, fresh.to(torch.int32)]).cpu().numpy()
+        # the kernel writes the three outputs as one (3, F) buffer: one
+        # device->host copy
+        out = fl.lookup_packed(*planes, qlo, qhi, self.epoch,
+                               window=self.window).cpu().numpy()
         return (out[0, :F].astype(np.int64), out[1, :F],
                 out[2, :F].astype(bool))
 

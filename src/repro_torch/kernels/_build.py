@@ -39,12 +39,13 @@ _F32 = ctypes.c_float
 # C launcher -> argument types; every launcher returns a cudaError_t code.
 SIGNATURES = {
     "meili_flow_lookup": [_P, _P, _P, _P, _I64, _P, _P, _I64, _I32, _I32,
-                          _P, _P, _P, _P],
+                          _P, _P],
     "meili_dfa_regex": [_P, _I64, _I64, _P, _P, _P] + [_I32] * 6 + [_P, _P],
     "meili_arx_cipher": [_P, _I64, _I64, _P, _P, _P],
     "meili_keyed_hash": [_P, _I64, _I64, _P, _P, _P],
     "meili_flash_attention": [_P, _P, _P, _P] + [_I32] * 8 + [_F32]
-                             + [_I32] * 3 + [_P] * 3,
+                             + [_I32] * 3 + [_P] * 4,
+    "meili_flash_attention_bwd": [_P] * 10 + [_I32] * 8 + [_F32, _P],
     "meili_decode_attention": [_P] * 8 + [_I32] * 9 + [_F32] + [_I32] * 2
                               + [_P],
     "meili_ssd_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [_P],
@@ -56,6 +57,7 @@ KERNELS = {
     "arx_cipher": "meili_arx_cipher",
     "keyed_hash": "meili_keyed_hash",
     "flash_attention": "meili_flash_attention",
+    "flash_attention_bwd": "meili_flash_attention_bwd",
     "decode_attention": "meili_decode_attention",
     "ssd_scan": "meili_ssd_scan",
 }

@@ -50,7 +50,11 @@
 //   causal grid), the wrapper cuts their key ranges over several blocks
 //   (kmax tiles at most) and a second kernel combines the parts.
 // Masked probabilities are multiplied by 0 as the Pallas kernel does, so a
-// row with no valid key yields 0, never exp(NEG_INF - NEG_INF) = 1. Ragged
+// row with no valid key yields 0, never exp(NEG_INF - NEG_INF) = 1. For
+// training the caller may ask for each row's log-sum-exp of its scaled
+// logits, lse (B, Hq, Sq) f32, 1e30 for a row with no valid key as in the
+// reference's `_attention_blocked_fwd`; the backward (flash_attention_bwd.cu)
+// recomputes the probabilities from it. Ragged
 // Sq and Sk tails are masked (keys past Sk are zero-filled). K and V are
 // f32 here (the wrapper widens bf16 ones, exactly); Q may be f32 or bf16.
 #include "tf32x3.cuh"
@@ -133,7 +137,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                      int Sq, int Sk, int Hq, int Hkv, int G, int Gb,
                      int causal, int window, float scale, int q_bf16,
                      int kmax, int max_parts, float* __restrict__ o_part,
-                     float* __restrict__ ml_part) {
+                     float* __restrict__ ml_part, float* __restrict__ lse) {
   constexpr int NT = D / 8;     // output n-tiles of a warp
   constexpr int C4 = D / 4;     // 16-byte chunks of a row
   constexpr int TILE = kBK * D; // floats of a K tile
@@ -480,6 +484,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int half = 0; half < 2; ++half) {
     if (!(half ? ok1 : ok0)) continue;
     const float den = half ? safe1 : safe0;
+    if (lse != nullptr && c == 0) {
+      const int r = half ? r1 : r0;
+      const float l = half ? l1 : l0;
+      lse[(static_cast<int64_t>(b) * Hq + hk * G + hg0 + r % Gb) * Sq + p0 +
+          r / Gb] = l > 0.f ? (half ? m1 : m0) + logf(l) : 1e30f;
+    }
     const int64_t base = row_offset(half ? r1 : r0) + 2 * c;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -497,7 +507,7 @@ __global__ void __launch_bounds__(256)
                          const float* __restrict__ ml_part,
                          void* __restrict__ out, int B, int Sq, int Sk,
                          int Hq, int Gb, int causal, int window, int kmax,
-                         int q_bf16) {
+                         int q_bf16, float* __restrict__ lse) {
   const int64_t rows = static_cast<int64_t>(B) * Sq * Hq;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -522,6 +532,9 @@ __global__ void __launch_bounds__(256)
     acc.x += w * x.x; acc.y += w * x.y; acc.z += w * x.z; acc.w += w * x.w;
   }
   const float safe = l == 0.f ? 1.f : l;
+  if (lse != nullptr && col == 0)
+    lse[(row / (static_cast<int64_t>(Sq) * Hq) * Hq + row % Hq) * Sq + pos] =
+        l > 0.f ? m + logf(l) : 1e30f;
   const int64_t at = row * D + col;
   meili::store2(out, q_bf16, at, acc.x / safe, acc.y / safe);
   meili::store2(out, q_bf16, at + 2, acc.z / safe, acc.w / safe);
@@ -531,7 +544,7 @@ template <int D>
 int launch_flash(const void* q, const void* k, const void* v, void* out,
                  int B, int Sq, int Sk, int Hq, int Hkv, int causal,
                  int window, float scale, int q_bf16, int kmax,
-                 int max_parts, float* o_part, float* ml_part,
+                 int max_parts, float* o_part, float* ml_part, float* lse,
                  cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   if (smem > kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
@@ -553,13 +566,13 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, static_cast<const float*>(k), static_cast<const float*>(v), out, Sq,
       Sk, Hq, Hkv, G, Gb, causal, window, scale, q_bf16, kmax, max_parts,
-      o_part, ml_part);
+      o_part, ml_part, lse);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || max_parts == 1) return static_cast<int>(err);
   const int64_t n = static_cast<int64_t>(B) * Sq * Hq * (D / 4);
   flash_combine_kernel<D><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                             stream>>>(o_part, ml_part, out, B, Sq, Sk, Hq,
-                                      Gb, causal, window, kmax, q_bf16);
+                                      Gb, causal, window, kmax, q_bf16, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,13 +581,14 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 // `kmax` key tiles at most per block: a query tile with more is split over
 // blocks and combined, with f32 scratch o_part (max_parts, B, Sq, Hq, D)
 // and ml_part (max_parts, B, Sq, Hq, 2) from the caller (unused, may be
-// null, when max_parts is 1).
+// null, when max_parts is 1). `lse` (B, Hq, Sq) f32 is written when not
+// null.
 extern "C" int meili_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int Hq, int Hkv, int D,
                                      int causal, int window, float scale,
                                      int q_bf16, int kmax, int max_parts,
-                                     void* o_part, void* ml_part,
+                                     void* o_part, void* ml_part, void* lse,
                                      void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0)
@@ -585,22 +599,26 @@ extern "C" int meili_flash_attention(const void* q, const void* k,
       return launch_flash<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
                               window, scale, q_bf16, kmax,
                               max_parts, static_cast<float*>(o_part),
-                              static_cast<float*>(ml_part), s);
+                              static_cast<float*>(ml_part),
+                              static_cast<float*>(lse), s);
     case 64:
       return launch_flash<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
                               window, scale, q_bf16, kmax,
                               max_parts, static_cast<float*>(o_part),
-                              static_cast<float*>(ml_part), s);
+                              static_cast<float*>(ml_part),
+                              static_cast<float*>(lse), s);
     case 128:
       return launch_flash<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
                                window, scale, q_bf16, kmax,
                                max_parts, static_cast<float*>(o_part),
-                               static_cast<float*>(ml_part), s);
+                               static_cast<float*>(ml_part),
+                               static_cast<float*>(lse), s);
     case 256:
       return launch_flash<256>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
                                window, scale, q_bf16, kmax,
                                max_parts, static_cast<float*>(o_part),
-                               static_cast<float*>(ml_part), s);
+                               static_cast<float*>(ml_part),
+                               static_cast<float*>(lse), s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

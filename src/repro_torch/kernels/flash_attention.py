@@ -9,6 +9,12 @@ outputs 0. ``flash_attention_cuda`` launches the hand-written kernel
 (``csrc/flash_attention.cu``); ``flash_attention_torch`` is the plain
 PyTorch version of the same online-softmax recurrence, the CPU path and
 the kernel's oracle on the card. ``ops.attention`` picks between them.
+
+For training, both forwards can also return each row's log-sum-exp of its
+scaled logits, ``lse`` (B, Hq, Sq) f32 (1e30 for a row with no valid key),
+and the gradient is ``flash_attention_bwd_cuda`` (the hand-written kernels
+of ``csrc/flash_attention_bwd.cu``) or ``flash_attention_bwd_torch``, the
+plain port of the reference's ``ops._attention_blocked_bwd``.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from repro_torch import hw
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+LSE_EMPTY = 1e30      # lse of a row with no valid key: exp(s - lse) == 0
 BLOCK_ROWS = 128      # (query position, query head) rows per CUDA block
 BLOCK_K = 16          # keys per CUDA tile, double-buffered
 HEAD_DIMS = (16, 64, 128, 256)   # every config's, and d_head 16 of reduced()
@@ -56,11 +63,12 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None,
-                          block_k: int = 256) -> torch.Tensor:
+                          block_k: int = 256, return_lse: bool = False):
     """Plain version: the online-softmax recurrence of the reference's
     blocked path (``ops._attention_blocked_fwd``) over key blocks of
     ``block_k``, probabilities multiplied by the mask as the Pallas kernel
-    does. Any Sk (the last block may be short)."""
+    does. Any Sk (the last block may be short). With ``return_lse``
+    returns (out, lse (B, Hq, Sq) f32)."""
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -88,7 +96,54 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                     p, vb)
         m = m_new
     safe = torch.where(l == 0.0, 1.0, l)
-    return (acc / safe[..., None]).reshape(B, Sq, Hq, D).to(q.dtype)
+    out = (acc / safe[..., None]).reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0.0, m + torch.log(safe), LSE_EMPTY)
+    return out, lse.reshape(B, Sq, Hq).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None,
+                              block_k: int = 256):
+    """Plain version of the gradient: the reference's
+    ``ops._attention_blocked_bwd`` over key blocks of ``block_k`` (any Sk).
+    ``delta = rowsum(dO · O)``, p recomputed from ``lse`` (B, Hq, Sq),
+    ``ds = p (dp - delta) scale``. Returns (dq, dk, dv) in the dtypes of
+    q, k, v."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    dev = q.device
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    do = dout.float().reshape(B, Sq, Hkv, G, D)
+    delta = (do * out.float().reshape(B, Sq, Hkv, G, D)).sum(-1)
+    lse5 = lse.transpose(1, 2).reshape(B, Sq, Hkv, G)
+    qpos = torch.arange(Sq, device=dev) + (Sk - Sq)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
+    dk = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
+    lo, hi = key_range(0, Sq, Sq, Sk, causal, window)
+    for k0 in range(lo - lo % block_k, hi, block_k):
+        k1 = min(k0 + block_k, Sk)
+        kb = k[:, k0:k1].float()
+        vb = v[:, k0:k1].float()
+        logits = torch.einsum("bqhgd,bkhd->bqhgk", qf * scale, kb)
+        mask = _mask(qpos, torch.arange(k0, k1, device=dev), causal, window)
+        bias = torch.where(mask, 0.0, NEG_INF)[None, :, None, None, :]
+        p = torch.exp(logits + bias - lse5[..., None])
+        dv[:, k0:k1] = torch.einsum("bqhgk,bqhgd->bkhd", p, do)
+        dp = torch.einsum("bqhgd,bkhd->bqhgk", do, vb)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bqhgk,bkhd->bqhgd", ds, kb)
+        dk[:, k0:k1] = torch.einsum("bqhgk,bqhgd->bkhd", ds, qf)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def smem_bytes(head_dim: int) -> int:
@@ -178,11 +233,13 @@ def check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         return_lse: bool = False):
     """Launch the CUDA kernel; every tensor contiguous on one CUDA device.
     Long causal key ranges are split over blocks (``key_split``) and a
     second kernel combines them, on scratch allocated here; the call counts
-    as one launch of ``flash_attention``."""
+    as one launch of ``flash_attention``. With ``return_lse`` the kernel
+    also writes lse and the call returns (out, lse (B, Hq, Sq) f32)."""
     name = "flash_attention"
     dev = _build.require_cuda(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -204,8 +261,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: B={B}, Hkv={Hkv} exceed the grid")
     scale = float(scale) if scale is not None else D ** -0.5
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if B * Sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     kmax, parts = key_split(B, Sq, Sk, Hq, Hkv, causal, window,
                             hw.device_spec(dev.index or 0).sms)
     o_part = ml_part = None
@@ -222,13 +281,67 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   0 if window is None else int(window), scale,
                   int(q.dtype == torch.bfloat16), kmax, parts,
                   o_part.data_ptr() if parts > 1 else None,
-                  ml_part.data_ptr() if parts > 1 else None)
-    return out
+                  ml_part.data_ptr() if parts > 1 else None,
+                  lse.data_ptr() if return_lse else None)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None):
+    """Launch the backward kernels (``csrc/flash_attention_bwd.cu``: delta,
+    then dK/dV over key tiles, then dQ over query tiles, no atomics); every
+    tensor on one CUDA device. The kernels take f32: bf16 inputs are
+    widened here (exactly) and the gradients cast back to the inputs'
+    dtypes. Counts as one launch of ``flash_attention_bwd``. Returns
+    (dq, dk, dv)."""
+    name = "flash_attention_bwd"
+    _build.require_cuda(name, q, k, v, out, lse, dout)
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"{name}: want q (B, Sq, Hq, D) and k, v "
+                         f"(B, Sk, Hkv, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dk = k.shape
+    if k.shape[0] != B or Dk != D or Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{name}: out and dout must be shaped as q")
+    if lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be (B, Hq, Sq) float32, got "
+                         f"{lse.dtype}{tuple(lse.shape)}")
+    check_shapes(name, q, k, v)
+    check_shapes(name, out, dout, dout)
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    if max(B, Hkv) > 65535:
+        raise ValueError(f"{name}: B={B}, Hkv={Hkv} exceed the grid")
+    dev = q.device
+    scale = float(scale) if scale is not None else D ** -0.5
+    qf, kf, vf, of, dof = (t.float().contiguous()
+                           for t in (q, k, v, out, dout))
+    dq = torch.empty_like(qf)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    if B * Sq == 0:
+        return dq.to(q.dtype), dk.zero_().to(k.dtype), dv.zero_().to(v.dtype)
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    _build.launch(name, dev, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                  of.data_ptr(), dof.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal),
+                  0 if window is None else int(window), scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def work(q_shape, k_shape, causal: bool, window: Optional[int]) -> int:
     """Query-key pairs inside the mask, summed over batch and heads: the
-    unmasked band whose two products (QKᵀ and PV, 2·D flops each) a kernel
+    unmasked band whose two products (QKᵀ and PV, 2·D flops each) a
+    forward must do, and whose five (QKᵀ, dO Vᵀ, dV, dK, dQ) a backward
     must do."""
     B, Sq, Hq, _ = q_shape
     Sk = k_shape[1]

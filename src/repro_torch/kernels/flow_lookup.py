@@ -14,12 +14,16 @@ to the JAX package's numpy/jnp/Pallas versions in the tests:
   * ``lookup_torch``  — the plain PyTorch version (CPU tensors, and the
                         kernel's oracle on the card);
   * ``lookup_cuda``   — the hand-written kernel (``csrc/flow_lookup.cu``,
-                        one thread per query, planes read through L2).
+                        a group of lanes per query loading the whole
+                        window at once, the first match by ballot).
 
-``lookup`` picks the kernel for CUDA tensors and the plain version for CPU
-tensors. Keys are int64 flow ids split into two uint32 planes (lo, hi); the
-bucket hash is the same wraparound uint32 mix everywhere. A slot is live iff
-its pid plane is >= 0. Outputs per query:
+``lookup_packed`` returns the three outputs as one (3, F) int32 tensor
+(rows slot, pid, fresh as 0/1), which the kernel writes in place, so a
+caller moves them to the host in one copy; ``lookup`` returns them as
+three tensors. Both pick the kernel for CUDA tensors and the plain
+version for CPU tensors. Keys are int64 flow ids split into two uint32
+planes (lo, hi); the bucket hash is the same wraparound uint32 mix
+everywhere. A slot is live iff its pid plane is >= 0. Outputs per query:
 
   slot  — int32 table slot holding the key (any epoch), or -1 if absent;
   pid   — int32 cached pipeline id if the entry is live AND epoch-fresh,
@@ -114,7 +118,8 @@ def lookup_torch(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch: int,
 # -- CUDA kernel ----------------------------------------------------------------
 
 def lookup_cuda(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch: int,
-                window: int):
+                window: int) -> torch.Tensor:
+    """Launch the kernel; returns the (3, F) int32 rows slot, pid, fresh."""
     name = "flow_lookup"
     dev = _build.require_cuda(name, key_lo, key_hi, pid, epoch, q_lo, q_hi)
     for what, t, dt in (("key_lo", key_lo, torch.uint32),
@@ -133,14 +138,28 @@ def lookup_cuda(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch: int,
     if q_hi.shape != (F,) or q_lo.dim() != 1 or not 1 <= window <= cap:
         raise ValueError(f"{name}: queries must be two (F,) planes and "
                          f"1 <= window <= C")
-    slot = torch.empty(F, dtype=torch.int32, device=dev)
-    out_pid = torch.empty(F, dtype=torch.int32, device=dev)
-    fresh = torch.empty(F, dtype=torch.bool, device=dev)
+    out = torch.empty((3, F), dtype=torch.int32, device=dev)
     _build.launch(name, dev, key_lo.data_ptr(), key_hi.data_ptr(),
                   pid.data_ptr(), epoch.data_ptr(), cap, q_lo.data_ptr(),
                   q_hi.data_ptr(), F, int(cur_epoch), int(window),
-                  slot.data_ptr(), out_pid.data_ptr(), fresh.data_ptr())
-    return slot, out_pid, fresh
+                  out.data_ptr())
+    return out
+
+
+def pack(slot, pid, fresh) -> torch.Tensor:
+    """(slot, pid, fresh) as the kernel's (3, F) int32 rows."""
+    return torch.stack([slot, pid, fresh.to(torch.int32)])
+
+
+def lookup_packed(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch: int,
+                  window: int) -> torch.Tensor:
+    """(3, F) int32 rows slot, pid, fresh (0/1): the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if q_lo.is_cuda:
+        return lookup_cuda(key_lo, key_hi, pid, epoch, q_lo, q_hi,
+                           cur_epoch, window)
+    return pack(*lookup_torch(key_lo, key_hi, pid, epoch, q_lo, q_hi,
+                              cur_epoch, window))
 
 
 def lookup(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch: int,
@@ -148,8 +167,9 @@ def lookup(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch: int,
     """(slot int32, pid int32, fresh bool): the kernel for CUDA tensors,
     the plain version for CPU tensors."""
     if q_lo.is_cuda:
-        return lookup_cuda(key_lo, key_hi, pid, epoch, q_lo, q_hi,
-                           cur_epoch, window)
+        out = lookup_cuda(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch,
+                          window)
+        return out[0], out[1], out[2].bool()
     return lookup_torch(key_lo, key_hi, pid, epoch, q_lo, q_hi, cur_epoch,
                         window)
 

@@ -63,15 +63,58 @@ def digest(words, key, *, impl: Optional[str] = None):
 # Attention (prefill) and decode attention (one token vs a KV cache).
 # ---------------------------------------------------------------------------
 
+class _Attention(torch.autograd.Function):
+    """Attention with its flash-style gradient, as the reference's custom
+    VJP ``_attention_blocked``: the forward keeps (q, k, v, out, lse) and
+    the backward recomputes the probabilities from lse. ``plain`` picks the
+    plain forward and backward, else B5 and its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, plain, block_k):
+        if plain:
+            out, lse = _fa.flash_attention_torch(
+                q, k, v, causal=causal, window=window, scale=scale,
+                block_k=block_k, return_lse=True)
+        else:
+            out, lse = _fa.flash_attention_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=causal, window=window, scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, plain, block_k)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale, plain, block_k = ctx.args
+        if plain:
+            grads = _fa.flash_attention_bwd_torch(
+                q, k, v, out, lse, dout, causal=causal, window=window,
+                scale=scale, block_k=block_k)
+        else:
+            grads = _fa.flash_attention_bwd_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
+                dout.contiguous(), causal=causal, window=window, scale=scale)
+        return grads + (None,) * 5
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None, impl: Optional[str] = None,
               block_k: int = 256) -> torch.Tensor:
     """Flash attention. q: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D).
-    ``block_k`` is the plain version's key block."""
+    ``block_k`` is the plain version's key block. Where autograd needs a
+    gradient of q, k or v, the call goes through ``_Attention``: B5 and
+    its backward kernel on the card, the plain pair on the CPU or with
+    ``impl="torch"``."""
     _check_impl(impl)
     scale_v = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    if impl == "torch" or not q.is_cuda:
+    plain = impl == "torch" or not q.is_cuda
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, window, scale_v, plain,
+                                block_k)
+    if plain:
         return _fa.flash_attention_torch(q, k, v, causal=causal,
                                          window=window, scale=scale_v,
                                          block_k=block_k)
@@ -108,5 +151,9 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     _check_impl(impl)
     if impl == "torch" or not x.is_cuda:
         return _ssd.ssd_scan_torch(x, a, b, c, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
+        raise NotImplementedError("B7 has no backward kernel yet (ROADMAP "
+                                  "A23): train the ssm family on the CPU "
+                                  "or with impl='torch'")
     return _ssd.ssd_scan_cuda(x.contiguous(), a.contiguous(), b.contiguous(),
                               c, chunk)

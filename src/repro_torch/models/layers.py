@@ -7,7 +7,9 @@ the MLP), so the functions take a plain ``dict`` as well as the
 ``ParamTree`` modules the model holds. The init functions
 draw the reference's distributions from an explicit ``torch.Generator``;
 they build plain dictionaries of tensors, which ``to_module`` turns into
-parameters.
+parameters. Parameters are built frozen (``requires_grad=False``), so
+serving records no autograd graph; training switches them on with
+``module.requires_grad_(True)``.
 """
 from __future__ import annotations
 

@@ -225,11 +225,11 @@ def _embed_inputs(params: LM, tokens: Optional[torch.Tensor],
     return torch.cat([parts[0].to(parts[1].dtype), parts[1]], dim=1)
 
 
-@torch.no_grad()
 def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
             extra_embeds: Optional[torch.Tensor] = None,
             impl: Optional[str] = None) -> torch.Tensor:
-    """Returns final hidden states (B, S, D)."""
+    """Returns final hidden states (B, S, D). Differentiable: autograd
+    records it where parameters require gradients (training)."""
     x = _embed_inputs(params, tokens, extra_embeds)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -250,6 +250,31 @@ def vocab_bias(cfg, dtype=torch.float32, device=None) -> torch.Tensor:
 def logits(cfg, params: LM, x: torch.Tensor) -> torch.Tensor:
     w = params.embed["table"].T if cfg.tie_embeddings else params.head["w"]
     return (x @ w).float() + vocab_bias(cfg, device=x.device)
+
+
+def lm_loss(cfg, params: LM, tokens: torch.Tensor,
+            extra_embeds: Optional[torch.Tensor] = None,
+            impl: Optional[str] = None, chunk: int = 512) -> torch.Tensor:
+    """Next-token cross-entropy, as the reference's ``lm_loss``: the
+    (S, vocab) logits are made chunk by chunk. Two of its details are
+    mirrored as they are: the logits carry no ``vocab_bias``, so the
+    padded vocab rows enter the log-sum-exp, and the predictions past the
+    last whole chunk are dropped (511 of 1,023 at S 1,024)."""
+    x = forward(cfg, params, tokens, extra_embeds, impl)
+    offset = 0 if extra_embeds is None else extra_embeds.shape[1]
+    xs = x[:, offset:offset + tokens.shape[1] - 1]            # predict text
+    tgt = tokens[:, 1:].long()
+    B, S, _ = xs.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    w = params.embed["table"].T if cfg.tie_embeddings else params.head["w"]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        lg = (xs[:, i * chunk:(i + 1) * chunk] @ w).float()  # (B, c, V)
+        lse = torch.logsumexp(lg, dim=-1)
+        tc = tgt[:, i * chunk:(i + 1) * chunk, None]
+        total = total + (lse - lg.gather(-1, tc)[..., 0]).sum()
+    return total / (B * n * chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -352,6 +352,90 @@ def test_lookup_kernel_equals_plain(cuda):
     assert bool(got[2].any()) and not bool(got[2].all())
 
 
+def _planes_with(cap, window, rng, n, dup_every=5):
+    """Host planes of n keys placed window-style from their buckets (some
+    windows wrap past C - 1 when C is small), every ``dup_every``-th key
+    placed twice (its second copy later in its window: the first live
+    match must win), epochs in {0, 1, 2}, a few copies dead (pid -1)."""
+    fids = rng.choice(np.int64(1) << 40, size=n, replace=False)
+    lo, hi = fl.split_fids(fids)
+    key_lo = np.zeros(cap, np.uint32)
+    key_hi = np.zeros(cap, np.uint32)
+    pid = np.full(cap, -1, np.int32)
+    ep = np.zeros(cap, np.int32)
+    base = fl.bucket_hash(lo, hi) & np.uint32(cap - 1)
+    for i in range(n):
+        copies = 2 if i % dup_every == 0 else 1
+        for w in range(window):
+            s = (int(base[i]) + w) & (cap - 1)
+            if pid[s] < 0 and key_lo[s] == 0:
+                key_lo[s], key_hi[s] = lo[i], hi[i]
+                pid[s] = -1 if (i % 11 == 3 and copies == 2) else i % 8
+                ep[s] = (i + copies) % 3
+                copies -= 1
+                if copies == 0:
+                    break
+    return (key_lo, key_hi, pid, ep), fids
+
+
+@pytest.mark.parametrize("cap,window,F", [
+    (1 << 17, 8, 8192),       # the flow cache's shape
+    (1 << 17, 8, 8191),       # F not a multiple of a block's queries
+    (64, 8, 333),             # windows wrapping past C - 1, duplicates
+    (64, 1, 300),             # one slot a window: one lane a query
+    (128, 40, 257),           # a window wider than a warp: rounds
+    (16, 16, 100),            # the whole table one window
+])
+def test_lookup_kernel_edges_equal_plain(cuda, cap, window, F):
+    rng = np.random.default_rng(cap + window + F)
+    (key_lo, key_hi, pid, ep), fids = _planes_with(cap, window, rng,
+                                                   min(cap, 60_000) * 3 // 4)
+    q = rng.choice(fids, size=F)
+    q[::4] |= np.int64(1) << 41                  # absent keys
+    qlo, qhi = fl.split_fids(q)
+    planes = [torch.from_numpy(a).to(cuda) for a in (key_lo, key_hi, pid, ep)]
+    ql, qh = torch.from_numpy(qlo).to(cuda), torch.from_numpy(qhi).to(cuda)
+    for cur in (0, 1, 2):                        # stale and fresh epochs
+        before = _build.launch_counts()["flow_lookup"]
+        got = fl.lookup_packed(*planes, ql, qh, cur, window)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()["flow_lookup"] == before + 1
+        assert got.dtype == torch.int32 and got.shape == (3, F)
+        want = fl.pack(*fl.lookup_torch(*planes, ql, qh, cur, window))
+        assert torch.equal(got, want)
+        host = fl.lookup_numpy(key_lo, key_hi, pid, ep, qlo, qhi, cur,
+                               window)
+        np.testing.assert_array_equal(got[0].cpu().numpy(), host[0])
+        assert bool((got[2] == 1).any()) and bool((got[0] == -1).any())
+
+
+def test_flow_cache_lookup_copies_once(cuda):
+    """``FlowCache.lookup`` on the card: one kernel launch and one
+    device-to-host copy of the packed (3, F) buffer per probe; equal to the
+    same cache on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.flowcache import FlowCache, FlowCacheConfig
+    rng = np.random.default_rng(4)
+    fids = rng.choice(np.int64(1) << 40, size=3000, replace=False)
+    pids = rng.integers(0, 8, 2000).astype(np.int32)
+    caches = [FlowCache(FlowCacheConfig(capacity=1 << 12), device=d)
+              for d in ("cpu", cuda)]
+    for c in caches:
+        c.insert(fids[:2000], pids, 0)
+    q = np.concatenate([fids[:1500], fids[2000:2500]])
+    caches[1].lookup(q)                          # uploads the planes
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = caches[1].lookup(q)
+        torch.cuda.synchronize()
+    d2h = [e for e in prof.events() if "DtoH" in e.name
+           or "Device -> Host" in e.name]
+    assert len(d2h) == 1, [e.name for e in d2h]
+    want = caches[0].lookup(q)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
 def test_kernel_wrappers_reject_bad_input(cuda):
     w = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
     key = torch.zeros(4, dtype=torch.uint32, device=cuda)
@@ -726,3 +810,165 @@ def test_reduced_mamba_on_card_equals_cpu(cuda):
     assert _build.launch_counts()["ssd_scan"] == cfg.n_layers
     torch.testing.assert_close(c_card["segments"][0][0]["h"].cpu(),
                                c_cpu["segments"][0][0]["h"], **SSD_TOL)
+
+
+# -- B5's backward and the training step -------------------------------------------
+
+# dK and dV sum up to Sk·G = 8,192 products an entry, dQ up to Sk, in
+# another order than the plain version's einsums (f32 FMAs against cuBLAS
+# f32): a few 1e-6 of their scale, held to atol = rtol = 1e-4.
+BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _bwd_inputs(cuda, B, Sq, Sk, Hq, Hkv, D, window, seed, dtype=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    dtype = dtype or torch.float32
+    q = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, Hkv, D), generator=g, device=cuda).to(dtype)
+    do = torch.randn((B, Sq, Hq, D), generator=g, device=cuda).to(dtype)
+    out, lse = fa.flash_attention_torch(q, k, v, window=window,
+                                        return_lse=True)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("S", [40, 128, 1024])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+def test_flash_bwd_kernel_equals_plain(cuda, D, window, G, S):
+    Hkv = 2 if S < 1024 else 1
+    B = 2 if S < 1024 else 1
+    args = _bwd_inputs(cuda, B, S, S, Hkv * G, Hkv, D, window, D + G + S)
+    before = _build.launch_counts()["flash_attention_bwd"]
+    got = fa.flash_attention_bwd_cuda(*args, window=window)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention_bwd"] == before + 1
+    want = fa.flash_attention_bwd_torch(*args, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == torch.float32, name
+        torch.testing.assert_close(a, b, **BWD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("Sq,Sk,window", [(64, 200, None), (100, 37, 9)])
+def test_flash_bwd_kernel_ragged_and_bf16(cuda, Sq, Sk, window):
+    """Sq != Sk (rows with no key when Sq > Sk), ragged tiles, and bf16
+    inputs widened by the wrapper, gradients cast back."""
+    args = _bwd_inputs(cuda, 2, Sq, Sk, 4, 2, 64, window, Sq + Sk)
+    got = fa.flash_attention_bwd_cuda(*args, window=window)
+    want = fa.flash_attention_bwd_torch(*args, window=window)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **BWD_TOL)
+    bf = [t.to(torch.bfloat16) if t.dtype == torch.float32 and t.dim() == 4
+          else t for t in args]
+    got = fa.flash_attention_bwd_cuda(*bf, window=window)
+    want = fa.flash_attention_bwd_torch(*bf, window=window)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), atol=2.0 ** -6,
+                                   rtol=2.0 ** -6)
+
+
+def test_flash_bwd_kernel_is_bit_reproducible(cuda):
+    args = _bwd_inputs(cuda, 4, 1024, 1024, 16, 16, 128, None, 0)
+    first = fa.flash_attention_bwd_cuda(*args)
+    second = fa.flash_attention_bwd_cuda(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("Hq,Hkv,S,window", [(16, 16, 1024, None),
+                                             (4, 1, 1024, 512),
+                                             (8, 2, 130, 40)])
+def test_flash_kernel_lse_equals_plain(cuda, Hq, Hkv, S, window):
+    """The forward's lse, on the split path too (causal S 1,024 cuts the
+    long query tiles' key ranges over blocks)."""
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q, k, v = (torch.randn((2, S, h, 128), generator=g, device=cuda)
+               for h in (Hq, Hkv, Hkv))
+    out, lse = fa.flash_attention_cuda(q, k, v, window=window,
+                                       return_lse=True)
+    pout, plse = fa.flash_attention_torch(q, k, v, window=window,
+                                          return_lse=True)
+    torch.testing.assert_close(out, pout, **F32_TOL)
+    torch.testing.assert_close(lse, plse, **F32_TOL)
+    assert torch.equal(fa.flash_attention_cuda(q, k, v, window=window), out)
+
+
+def test_attention_autograd_launches_both_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((2, 96, h, 64), generator=g, device=cuda)
+               .requires_grad_() for h in (8, 2, 2))
+    _build.reset_launch_counts()
+    out = ops.attention(q, k, v, window=32)
+    out.square().sum().backward()
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == 1 == counts["flash_attention_bwd"]
+    grads = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    ops.attention(q, k, v, window=32, impl="torch").square().sum().backward()
+    assert _build.launch_counts() == counts
+    for a, t in zip(grads, (q, k, v)):
+        torch.testing.assert_close(a, t.grad, **BWD_TOL)
+
+
+def test_ssd_under_autograd_on_card_raises(cuda):
+    """B7 has no backward kernel yet: a CUDA call that needs a gradient
+    raises rather than returning an output autograd cannot see through."""
+    x = torch.randn((1, 128, 2, 8), device=cuda, requires_grad=True)
+    a = torch.rand((1, 128, 2), device=cuda) * 0.5 + 0.5
+    b = torch.randn((1, 128, 2, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="A23"):
+        ops.ssd(x, a, b, b)
+    with torch.no_grad():
+        ops.ssd(x, a, b, b)
+
+
+def test_reduced_train_step_on_card_equals_cpu(cuda):
+    """Three ``make_train_step`` steps of reduced olmo-1b (accumulation 2)
+    on the card against the same on the CPU: losses and grad norms at
+    atol = rtol = 1e-4 (f32 through 4 layers), parameters and moments at
+    atol = rtol = 1e-4 but for a share under 1e-3 of the parameters (the
+    AdamW update of a near-zero gradient follows its low bits, see
+    ``test_torch_train.py``); exactly 2 x 4 forward and backward launches a
+    step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_arch("olmo-1b").reduced().replace(microbatch=2, d_head=64,
+                                                n_heads=2, n_kv_heads=1)
+    shape = ShapeConfig("t", 64, 4, "train")
+    runs = []
+    for dev in ("cpu", cuda):
+        model = build(cfg, dev)
+        params = build(cfg, "cpu").init(torch.Generator().manual_seed(0),
+                                        torch.float32).to(dev)
+        params.requires_grad_(True)
+        step_fn, opt_init = make_train_step(model, shape, base_lr=1e-3,
+                                            warmup=1, total_steps=10)
+        opt = opt_init(params)
+        rng = np.random.default_rng(0)
+        stats = []
+        _build.reset_launch_counts()
+        for s in range(3):
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab, size=(4, 64))).to(dev)
+            params, opt, loss, gn = step_fn(params, opt, {"tokens": toks},
+                                            s + 1)
+            stats.append((float(loss), float(gn)))
+        runs.append((params, opt, stats, _build.launch_counts()))
+    (p_cpu, o_cpu, s_cpu, _), (p_card, o_card, s_card, counts) = runs
+    assert counts["flash_attention"] == 3 * 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == 3 * 2 * cfg.n_layers
+    np.testing.assert_allclose(s_card, s_cpu, atol=1e-4, rtol=1e-4)
+    for k, v in o_cpu.mu.items():
+        torch.testing.assert_close(o_card.mu[k].cpu(), v, atol=1e-4,
+                                   rtol=1e-4)
+    loose = total = 0
+    for (k, a), b in zip(p_card.named_parameters(), p_cpu.parameters()):
+        close = torch.isclose(a.detach().cpu(), b.detach(), atol=1e-4,
+                              rtol=1e-4)
+        loose += int((~close).sum())
+        total += close.numel()
+    assert loose < 1e-3 * total
+

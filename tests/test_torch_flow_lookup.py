@@ -99,6 +99,27 @@ def test_plain_lookup_equals_numpy_jnp_and_pallas(cap, n, window, cur_epoch):
     assert (s >= 0).sum() > 0
 
 
+@pytest.mark.parametrize("cap,n,window", CASES)
+def test_packed_lookup_equals_pallas(cap, n, window):
+    """``lookup_packed``'s (3, F) int32 rows are the reference's slot, pid
+    and fresh (as 0/1), and ``lookup`` returns the same three."""
+    rng = np.random.default_rng(7 * cap + window)
+    planes, fids = _fill(rng, n, cap, window)
+    q = _queries(rng, fids)
+    lo, hi = fl.split_fids(q)
+    jp = [jnp.asarray(a) for a in planes]
+    want = jfl.lookup_pallas(*jp, jnp.asarray(lo), jnp.asarray(hi), 1,
+                             window, block_f=32, interpret=True)
+    tp = [torch.from_numpy(a.copy()) for a in planes]
+    args = (torch.from_numpy(lo), torch.from_numpy(hi), 1, window)
+    packed = fl.lookup_packed(*tp, *args)
+    assert packed.dtype == torch.int32 and packed.shape == (3, q.size)
+    for row, w in zip(packed, want):
+        np.testing.assert_array_equal(row.numpy(),
+                                      np.asarray(w).astype(np.int32))
+    assert torch.equal(fl.pack(*fl.lookup(*tp, *args)), packed)
+
+
 def test_bucket_hash_wraps_like_uint32():
     rng = np.random.default_rng(1)
     lo = np.concatenate([rng.integers(0, 2 ** 32, 500, dtype=np.uint64)
