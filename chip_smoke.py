@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Five paths, each driven with the launch counts set to 0 just before it
+Seven paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -43,6 +43,18 @@ and read just after:
    and data; then ``launch.train.main`` on the reduced config on the card,
    crashed at step 5 (``--fail-at``) and resumed (``--resume``), against an
    uninterrupted run: the final parameters equal bit for bit.
+
+6. MoE serving on moonshot-v1-16b-a3b at full width (48 layers, the first
+   dense, d_model 2,048, 16 heads of 128, 64 experts of d_ff 1,408 top-6,
+   vocab 163,840; 27.2 B bf16 parameters from a seeded generator): the
+   prefill of 4 x 1,024 tokens (B5 on every layer) and 32 decode steps (B6
+   on every layer), and the engine at ``launch.serve``'s defaults, each
+   with the kernels and with the plain versions; one bf16 rounding can
+   change a token's experts and part the two runs, so the gate holds each
+   layer to the same input (``moe_layer_checks``).
+7. The reduced phi3.5-moe, moonshot and jamba configs (f32) on the card
+   against the CPU: a prefill and 8 decode steps, then ``launch.serve
+   --reduced``; jamba's runs B5, B6 and B7 in one model.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -91,9 +103,11 @@ from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
-from repro_torch.models import lm, ssm  # noqa: E402
+from repro_torch.models import lm, moe, ssm  # noqa: E402
 from repro_torch.optim import make_schedule  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.serving.engine import PipelineInstance  # noqa: E402
+from repro_torch.serving.planner import plan_serving  # noqa: E402
 
 BATCH = 16384
 FLOWS = 10_000
@@ -163,8 +177,7 @@ TRAIN_LR = 3e-3           # the reference CLI's --lr, warmup 20
 TRAIN_WARMUP = 20
 # Tolerances of the kernel run against the plain run. The two differ only
 # in attention: B5's forward and backward agree with their plain versions
-# to ~1e-6 relative (3xTF32 and f32 FMAs against cuBLAS f32, sums in other
-# orders). Through 16 layers that moves a loss of ~10.9 and the gradients
+# to ~1e-6 relative (3xTF32 against cuBLAS f32, sums in other orders). Through 16 layers that moves a loss of ~10.9 and the gradients
 # by ~1e-5 relative at most: the losses are held to TRAIN_LOSS_TOL and the
 # grad norms, sums of squares of 1.2e9 gradients, to TRAIN_GNORM_TOL,
 # relative. AdamW's first update is lr · g / (|g| + eps): ±lr wherever |g|
@@ -175,9 +188,46 @@ TRAIN_WARMUP = 20
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GNORM_TOL = 1e-3
 TRAIN_PARAM_SHARE = 1e-3
-# B5's backward against its plain version (f32): dK and dV sum 1,024
-# products an entry in another order; held to atol = rtol = 1e-4.
+# B5's backward against its plain version (f32): each 3xTF32 product keeps
+# ~2**-22 of its operands' precision, each row tile's sum is added to the
+# total with an f32 add, and dK and dV sum 1,024 products an entry (dQ
+# up to 1,024) in another order than cuBLAS: ~1e-6 of their scale at
+# random signs, held to atol = rtol = 1e-4.
 BWD_TOL = dict(atol=1e-4, rtol=1e-4)
+# MoE serving phase (moonshot-v1-16b-a3b at full width, bf16 parameters)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# The routing-aware gate (``moe_layer_checks``) runs each layer on the
+# plain run's input with the kernels and with the plain versions; the two
+# differ only in the attention output, which B5 (B6) and its plain version
+# compute in f32 and round to bf16: one bf16 ulp apart at most, and an ulp
+# is at most 2**-7 of a layer's largest entry. The router input,
+# norm2(x + o(attn)), adds three roundings (the projection's, the residual
+# add's, the norm's): within 4 ulps, MOE_INPUT_TOL = 2**-5 of its largest
+# entry. A layer's output, on the tokens whose experts agree, adds the
+# MoE's: the expert products' three, the contribution's, the adds of its
+# k = 6 contributions and the residual add: within 16 ulps, MOE_LAYER_TOL
+# = 2**-3. A wrong B5 or B6 moves both by O(1). A token may change experts
+# only at a near tie of its router logits (the bound in ``_gate_layer``),
+# and at most MOE_FLIP_SHARE of a layer's tokens may, a cap on the near
+# ties that bf16 router logits leave.
+# Two values rounded to bf16 once each, from exact values that differ by
+# d, differ by at most d + 2**-7 of the larger (each rounding moves a
+# value by at most half an ulp, 2**-8 of it): the rounding term of the
+# routing and logit bounds.
+BF16_ROUND = 2.0 ** -7
+# cuBLAS sums a logit's 2,048 bf16 products (exact in f32) in f32 in its
+# own order: each run's sum is off by at most ~2,048 f32 roundings of
+# partial sums no larger than the row's largest logit at these scales,
+# under 2**-12 of it.
+LOGIT_SLACK = 2.0 ** -12
+MOE_INPUT_TOL = 2.0 ** -5
+MOE_LAYER_TOL = 2.0 ** -3
+MOE_FLIP_SHARE = 0.05
+# A bf16 kernel output against its plain version: two bf16 ulps.
+ATTN_BF16_TOL = dict(atol=2.0 ** -8, rtol=2.0 ** -6)
+# The MoE and hybrid families' reduced() configs on the card against the CPU
+REDUCED_MOE_ARCHS = ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b",
+                     "jamba-1.5-large-398b")
 # crash and resume, reduced olmo-1b on the card (a full-width checkpoint
 # would be ~14 GB on disk)
 RESUME_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
@@ -214,8 +264,9 @@ FUNCTIONS = {
     "arx_cipher": ("arx_cipher_kernel",),
     "keyed_hash": ("keyed_hash_kernel",),
     "flash_attention": ("flash_fwd_kernel", "flash_combine_kernel"),
-    "flash_attention_bwd": ("flash_bwd_delta_kernel",
-                            "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    "flash_attention_bwd": ("flash_bwd_delta_kernel", "flash_bwd_dkdv_tc",
+                            "flash_bwd_dq_tc", "flash_bwd_dkdv_kernel",
+                            "flash_bwd_dq_kernel"),
     "decode_attention": ("decode_attention_kernel",),
     "ssd_scan": ("ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan"),
 }
@@ -582,7 +633,7 @@ def _check_logits(name, got, want, tol, ref_margin=None, ref_tokens=None):
 def _profile(fn):
     """One call of ``fn`` under ``torch.profiler``: its wall ms (profiler
     on), the device ms summed over the kernels and copies it ran, and the
-    five kernels that took most device time, as (name, ms, calls)."""
+    eight kernels that took most device time, as (name, ms, calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -597,7 +648,7 @@ def _profile(fn):
         if e.device_type == DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"wall_ms_profiled": wall,
             "device_ms": sum(ms for ms, _ in by_name.values()),
             "device_launches": sum(n for _, n in by_name.values()),
@@ -823,12 +874,13 @@ def engine_run(arch, tol, launched, not_launched):
 def reduced_serving(arch):
     """``arch``'s ``reduced()`` config (head dim 16) on the card against the
     same parameters on the CPU. Prefill of REDUCED_BATCH prompts of
-    REDUCED_PROMPT tokens (B5 on every layer) and REDUCED_STEPS greedy
-    decode steps (B6 on the global layers) over an f32 cache, counts reset
-    just before and read just after; then ``launch.serve --reduced`` on the
-    card (B6 in the engine) against a CPU engine with the card run's plan,
-    parameters and requests. Logits are held to PREFILL_TOL (both f32,
-    sums in other orders, through 4 layers)."""
+    REDUCED_PROMPT tokens (B5 on every attention layer, B7 on every mamba
+    layer) and REDUCED_STEPS greedy decode steps (B6 on the global
+    attention layers) over an f32 cache, counts reset just before and read
+    just after; then ``launch.serve --reduced`` on the card (B6 in the
+    engine) against a CPU engine with the card run's plan, parameters and
+    requests. Logits are held to PREFILL_TOL (both f32, sums in other
+    orders, through 4 to 8 layers; MoE routes agree at f32)."""
     cfg = get_arch(arch).reduced().replace(remat=False)
     card, cpu = build(cfg, "cuda"), build(cfg, "cpu")
     params = cpu.init(torch.Generator().manual_seed(0), torch.float32)
@@ -857,16 +909,19 @@ def reduced_serving(arch):
         e, _ = _check_logits(f"reduced decode step {i}", lgs[i + 1].cpu(),
                              plg, PREFILL_TOL)
         err = max(err, e)
-    n_global = sum(1 for *_, layer in params.all_layers()
-                   if layer.spec.mixer == "attn")
-    if per_prefill["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"reduced prefill launched flash_attention "
-                             f"{per_prefill['flash_attention']} times, not "
-                             f"{cfg.n_layers}")
+    mixers = [layer.spec.mixer for *_, layer in params.all_layers()]
+    n_global = mixers.count("attn")
+    expect = {"flash_attention": (n_global + mixers.count("attn_local"), 0),
+              "decode_attention": (0, REDUCED_STEPS * n_global),
+              "ssd_scan": (mixers.count("mamba"), 0)}
+    for k, (per, dec) in expect.items():
+        got = (per_prefill[k], launches[k] - per_prefill[k])
+        if got != (per, dec):
+            raise AssertionError(f"reduced {arch}: {k} launched {got[0]} "
+                                 f"times in the prefill and {got[1]} in "
+                                 f"{REDUCED_STEPS} decode steps, not "
+                                 f"{per} and {dec}")
     decode = launches["decode_attention"] - per_prefill["decode_attention"]
-    if decode != REDUCED_STEPS * n_global:
-        raise AssertionError(f"reduced decode launched decode_attention "
-                             f"{decode} times, not {REDUCED_STEPS * n_global}")
 
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -899,8 +954,8 @@ def reduced_serving(arch):
         "batch": REDUCED_BATCH, "prompt_len": REDUCED_PROMPT,
         "decode_steps": REDUCED_STEPS,
         "logit_max_abs_err_vs_cpu": err,
-        "launches_per_prefill": {k: per_prefill[k] for k in
-                                 ("flash_attention", "decode_attention")},
+        "family": cfg.family,
+        "launches_per_prefill": {k: per_prefill[k] for k in expect},
         "decode_attention_per_step": decode / REDUCED_STEPS,
         "engine": {"pipelines": rep.plan.num_pipelines,
                    "requests": rep.requests, "tokens": rep.tokens,
@@ -1360,6 +1415,7 @@ def train_attention_rows(launches_train):
                                         retain_graph=True)
     lib_err = max(float((a.transpose(1, 2) - b).abs().max())
                   for a, b in zip(lib_b(), want))
+    f64 = _bwd_f64_errors(dev, g, D)
     nbytes_b = 4 * el(q) + 4 * el(k) + el(lse)
     ops_b = pairs * 5 * 2 * D
     bound_s, bound_by = hw.bound_seconds(nbytes_b, ops_b, peak)
@@ -1382,8 +1438,569 @@ def train_attention_rows(launches_train):
                         "torch.nn.functional.scaled_dot_product_attention",
         "library_max_abs_err": lib_err,
         "library_kernels": _device_kernels(lib_b),
+        "f64_reference": f64,
     }
     return fwd, bwd
+
+
+def _bwd_f64_errors(dev, g, D):
+    """B5's backward and its plain version in f32 against the plain pair in
+    f64, at S 1,024 with 8 query heads over one KV head (8,192 rows sum
+    into each key's dK and dV): the max abs error of each gradient, and
+    its largest entry. The kernel must be within BWD_TOL of f64."""
+    B, S, Hq, Hkv = 1, 1024, 8, 1
+    q, do = (torch.randn((B, S, Hq, D), generator=g, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=g, device=dev)
+            for _ in range(2))
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    out64, lse64 = fa.flash_attention_torch(q64, k64, v64, return_lse=True)
+    want = fa.flash_attention_bwd_torch(q64, k64, v64, out64, lse64, do64)
+    out, lse = out64.float(), lse64.float()
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    plain = fa.flash_attention_bwd_torch(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    if not all(torch.allclose(a.double(), b, **BWD_TOL)
+               for a, b in zip(got, want)):
+        raise AssertionError("flash_attention_bwd: kernel differs from the "
+                             "f64 plain pair past BWD_TOL")
+    err = lambda xs: [float((a.double() - b).abs().max())
+                      for a, b in zip(xs, want)]
+    return {"shape": f"B={B} Sq=Sk={S} Hq={Hq} Hkv={Hkv} D={D} causal",
+            "max_abs_err_dq_dk_dv": err(got),
+            "plain_f32_max_abs_err_dq_dk_dv": err(plain),
+            "max_abs_dq_dk_dv": [float(b.abs().max()) for b in want]}
+
+
+# -- MoE serving ----------------------------------------------------------------
+
+class _Routes:
+    """While installed, records every MoE layer's routing, in call order:
+    from ``moe.route`` the router inputs (with ``keep_inputs``) and the
+    chosen expert ids, from ``moe.dispatch`` which choices were kept under
+    the capacity; ``ids`` holds each token's kept experts, ascending, with
+    -1 for a choice dropped past capacity. Two runs route a token alike
+    when these are equal: a route changed in one token can push another,
+    later in an expert's order, past its capacity."""
+
+    def __init__(self, keep_inputs=False):
+        self.keep_inputs = keep_inputs
+        self.calls = []
+
+    def __enter__(self):
+        self._route, self._dispatch = moe.route, moe.dispatch
+
+        def route(p, xf, cfg):
+            probs, gate_w, ids = self._route(p, xf, cfg)
+            self.calls.append({
+                "x": xf if self.keep_inputs else None,
+                "router": p["router"] if self.keep_inputs else None})
+            return probs, gate_w, ids
+
+        def dispatch(ids, T, E, C):
+            dest = self._dispatch(ids, T, E, C)
+            kept = torch.where(dest < E * C, ids, -1)
+            self.calls[-1]["ids"] = kept.sort(-1).values
+            return dest
+        moe.route, moe.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        moe.route, moe.dispatch = self._route, self._dispatch
+
+
+def _route_flips(got, want):
+    """Per call, the tokens whose chosen experts differ between two
+    recorded runs of the same calls."""
+    if len(got.calls) != len(want.calls):
+        raise AssertionError(f"{len(got.calls)} routed calls against "
+                             f"{len(want.calls)}")
+    return [(a["ids"] != b["ids"]).any(-1)
+            for a, b in zip(got.calls, want.calls)]
+
+
+def _top_k_set(logits, k):
+    """Each row's k largest entries' indices, ascending; ties to the lower
+    index, as ``moe.route`` breaks them."""
+    top = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    return torch.sort(top[:, :k], dim=-1).values
+
+
+def _gate_layer(i, rk, rp, out_k, out_p, cfg, worst):
+    """One layer of the routing-aware gate (``moe_layer_checks``): the
+    recorded routes of the kernel run ``rk`` and the plain run ``rp`` of
+    the same layer on the same input, and their outputs. Returns the
+    tokens whose kept experts agree."""
+    T = out_p.numel() // out_p.shape[-1]
+    same = torch.ones(T, dtype=torch.bool, device=out_p.device)
+    if rk.calls:
+        (ck,), (cp,) = rk.calls, rp.calls
+        xk, xp = ck["x"].float(), cp["x"].float()
+        err = float((xk - xp).abs().max()) / float(xp.abs().max())
+        worst["router_input_max_rel_err"] = max(
+            worst["router_input_max_rel_err"], err)
+        if err > MOE_INPUT_TOL:
+            raise AssertionError(
+                f"layer {i}: router inputs differ by {err} of their largest "
+                f"entry (tolerance {MOE_INPUT_TOL})")
+        same = (ck["ids"] == cp["ids"]).all(-1)
+        lk = (ck["x"] @ cp["router"]).float()
+        lp = (cp["x"] @ cp["router"]).float()
+        top = torch.sort(lp, dim=-1, descending=True).values
+        gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+        bound = (((xk - xp) @ cp["router"].float()).abs().amax(-1)
+                 + BF16_ROUND * torch.maximum(lk.abs().amax(-1),
+                                              lp.abs().amax(-1)))
+        near = gap <= 2 * bound
+        chose = (_top_k_set(lk, cfg.top_k)
+                 == _top_k_set(lp, cfg.top_k)).all(-1)
+        if bool((~chose & ~near).any()):
+            t = int((~chose & ~near).nonzero()[0])
+            raise AssertionError(
+                f"layer {i}: token {t} changed experts at a logit gap "
+                f"{float(gap[t])} over twice its bound {float(bound[t])}")
+        worst["capacity_only_changes"] += int((chose & ~same).sum())
+        n_flip = int((~same).sum())
+        worst["route_flips"] += n_flip
+        worst["routed_tokens"] += T
+        worst["max_layer_flip_share"] = max(worst["max_layer_flip_share"],
+                                            n_flip / T)
+        worst["max_layer_near_tie_share"] = max(
+            worst["max_layer_near_tie_share"], float(near.float().mean()))
+        if n_flip > MOE_FLIP_SHARE * T:
+            raise AssertionError(f"layer {i}: {n_flip} of {T} tokens "
+                                 f"changed experts")
+    d = (out_k.float() - out_p.float()).reshape(T, -1).abs()
+    err = float((d * same[:, None]).max()) / float(out_p.float().abs().max())
+    worst["layer_output_max_rel_err"] = max(
+        worst["layer_output_max_rel_err"], err)
+    if err > MOE_LAYER_TOL:
+        raise AssertionError(
+            f"layer {i}: outputs differ by {err} of their largest entry on "
+            f"tokens whose experts agree (tolerance {MOE_LAYER_TOL})")
+    return same
+
+
+def _gate_logits(cfg, params, hk, hp, agree, worst):
+    """Logits of the last layer's two outputs, on the tokens whose kept
+    experts agreed in every layer, entry by entry: within what the
+    difference of the normed hidden states moves them by (its product
+    with the head in f32), plus each run's bf16 rounding of its logits
+    (BF16_ROUND of the larger for the two) and LOGIT_SLACK of the row's
+    largest logit for the two runs' f32 sums in cuBLAS's order."""
+    _, norm_apply = lm.make_norm(cfg)
+    w = params.embed["table"].T if cfg.tie_embeddings else params.head["w"]
+    nk = norm_apply(params.final_norm, hk.reshape(-1, hk.shape[-1])[agree])
+    np_ = norm_apply(params.final_norm, hp.reshape(-1, hp.shape[-1])[agree])
+    real = slice(0, cfg.vocab)
+    for j in range(0, nk.shape[0], 256):
+        a, b = nk[j:j + 256], np_[j:j + 256]
+        la = lm.logits(cfg, params, a)[:, real]
+        lb = lm.logits(cfg, params, b)[:, real]
+        d = (la - lb).abs()
+        big = torch.maximum(la.abs(), lb.abs())
+        bound = (((a.float() - b.float()) @ w.float())[:, real].abs()
+                 + BF16_ROUND * big + LOGIT_SLACK * big.amax(-1, True))
+        worst["logit_max_abs_err"] = max(worst["logit_max_abs_err"],
+                                         float(d.max()))
+        worst["logit_max_bound_share"] = max(
+            worst["logit_max_bound_share"], float((d / bound).max()))
+        if bool((d > bound).any()):
+            raise AssertionError(f"logits differ by {float(d.max())}, over "
+                                 f"the bound of their hidden states")
+
+
+def moe_layer_checks(model, params, prompts, cache):
+    """The routing-aware gate, layer by layer. Every layer of the prefill
+    gets the plain run's input and runs with the kernels and with the
+    plain versions (``lm._apply_layer``); every layer of one decode step
+    (B6 over ``cache``, copied for each run) likewise (``lm.decode_layer``).
+    The two runs of a layer differ only in B5's (B6's) output, so for each
+    MoE layer:
+
+    * the router inputs (``norm2`` of the residual, bf16) must agree
+      within MOE_INPUT_TOL of their largest entry;
+    * a token's chosen experts may differ only where the gap between its
+      k-th and (k+1)-th router logits is at most 2 L, L = max_e |dx·r_e|
+      + BF16_ROUND max |logit|: the input difference moves no logit by
+      more than the first term (the product of the two runs' router
+      inputs' difference with the router, in f32), and each run rounds
+      its logits to bf16 once; so a route that flips is a near tie;
+    * a token's kept experts may differ besides only through capacity: a
+      changed route earlier in an expert's order pushes it past the
+      expert's capacity or back;
+    * at most MOE_FLIP_SHARE of a layer's tokens may change experts;
+    * the layer outputs of the tokens whose experts agree must be within
+      MOE_LAYER_TOL of the output's largest entry (the dense first layer
+      is held to this alone).
+
+    After the last layer, the logits of the tokens whose experts agreed in
+    every layer are held to ``_gate_logits``' bound."""
+    cfg = model.cfg
+    B, S = prompts.shape
+    worst = dict.fromkeys(("router_input_max_rel_err", "route_flips",
+                           "capacity_only_changes",
+                           "routed_tokens", "max_layer_flip_share",
+                           "max_layer_near_tie_share",
+                           "layer_output_max_rel_err", "logit_max_abs_err",
+                           "logit_max_bound_share"), 0)
+    report = {}
+    with torch.no_grad():
+        x = lm.embed(params.embed, prompts)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device)[None].expand(B, S)
+        agree = torch.ones(B * S, dtype=torch.bool, device=x.device)
+        for i, (*_, layer) in enumerate(params.all_layers()):
+            with _Routes(keep_inputs=True) as rk:
+                out_k, _ = lm._apply_layer(cfg, layer, x, positions, None)
+            with _Routes(keep_inputs=True) as rp:
+                out_p, _ = lm._apply_layer(cfg, layer, x, positions, "torch")
+            agree &= _gate_layer(i, rk, rp, out_k, out_p, cfg, worst)
+            x = out_p
+        _gate_logits(cfg, params, out_k, out_p, agree, worst)
+        report["prefill"] = dict(worst, tokens=B * S,
+                                 tokens_agreeing_in_every_layer=int(
+                                     agree.sum()))
+        worst = dict.fromkeys(worst, 0)
+        pos = int(cache["pos"])
+        x = lm.embed(params.embed, torch.arange(B, device=x.device) + 7)
+        agree = torch.ones(B, dtype=torch.bool, device=x.device)
+        for i, (si, rep, bpos, layer) in enumerate(params.all_layers()):
+            c = lm.layer_cache(cache["segments"][si][bpos], rep)
+            with _Routes(keep_inputs=True) as rk:
+                out_k = lm.decode_layer(cfg, layer, x,
+                                        {k: t.clone() for k, t in c.items()},
+                                        pos, None)
+            with _Routes(keep_inputs=True) as rp:
+                out_p = lm.decode_layer(cfg, layer, x,
+                                        {k: t.clone() for k, t in c.items()},
+                                        pos, "torch")
+            agree &= _gate_layer(i, rk, rp, out_k, out_p, cfg, worst)
+            x = out_p
+        _gate_logits(cfg, params, out_k, out_p, agree, worst)
+        report["decode_step"] = dict(worst, tokens=B,
+                                     tokens_agreeing_in_every_layer=int(
+                                         agree.sum()))
+    flips = sum(r["route_flips"] for r in report.values())
+    routed = sum(r["routed_tokens"] for r in report.values())
+    report.update(route_flips=flips, routed_tokens=routed,
+                  flip_share=flips / routed,
+                  tolerances={"router_input": MOE_INPUT_TOL,
+                              "layer_output": MOE_LAYER_TOL,
+                              "flip_share_per_layer": MOE_FLIP_SHARE})
+    return report
+
+
+def moe_prefill_decode(model, params, prompts, cache_len):
+    """moonshot's serving path: prefill + DECODE_STEPS greedy decode steps
+    with the kernels (counts reset just before, read just after), then the
+    same prefill and the same decode inputs with the plain versions, the
+    routes of both recorded. Launch counts must be exact and every logit
+    finite. Through 48 bf16 layers each run's roundings compound, and once
+    a token changes experts the two runs compute on different activations:
+    the logits' difference on the sequences whose experts agreed so far,
+    the tokens that changed experts and the share of equal greedy tokens
+    are reported; the gate is ``moe_layer_checks``, which holds every
+    layer to the same input."""
+    B, S = prompts.shape
+    model.prefill(params, {"tokens": prompts}, max_len=cache_len)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with _Routes() as rk:
+        t0 = time.perf_counter()
+        lg0, cache = model.prefill(params, {"tokens": prompts},
+                                   max_len=cache_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        after_prefill = _build.launch_counts()
+        toks, lgs, step_ms = [lg0.argmax(-1)], [lg0], []
+        for _ in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache, toks[-1])
+            toks.append(lg.argmax(-1))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            lgs.append(lg)
+    launches = _build.launch_counts()
+    decode_launches = {k: launches[k] - after_prefill[k] for k in launches}
+    profiles = {
+        "prefill": _profile(lambda: model.prefill(
+            params, {"tokens": prompts}, max_len=cache_len)),
+        "decode_step": _profile(lambda: model.decode_step(
+            params, cache, toks[-1])),
+    }
+    with _Routes() as rp:
+        t0 = time.perf_counter()
+        plg, pcache = model.prefill(params, {"tokens": prompts},
+                                    max_len=cache_len, impl="torch")
+        torch.cuda.synchronize()
+        plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+        plgs, plain_step_ms = [plg], []
+        for i in range(DECODE_STEPS):
+            t0 = time.perf_counter()
+            plg, pcache = model.decode_step(params, pcache, toks[i],
+                                            impl="torch")
+            torch.cuda.synchronize()
+            plain_step_ms.append((time.perf_counter() - t0) * 1e3)
+            plgs.append(plg)
+    del pcache
+    n_moe = model.cfg.n_layers - model.cfg.first_dense
+    flips = _route_flips(rk, rp)        # n_moe prefill calls, then per step
+    clean = torch.ones(B, dtype=torch.bool, device=prompts.device)
+    err, checked, agree, flipped_prefill = 0.0, 0, 0, 0
+    for step in range(DECODE_STEPS + 1):
+        calls = (flips[:n_moe] if step == 0 else
+                 flips[n_moe * step:n_moe * (step + 1)])
+        for f in calls:
+            rows = f.reshape(B, -1).any(-1)
+            clean &= ~rows
+            if step == 0:
+                flipped_prefill += int(f.sum())
+        got, want = lgs[step], plgs[step]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"non-finite logits at step {step}")
+        if bool(clean.any()):
+            err = max(err, float((got[clean] - want[clean]).abs().max()))
+            checked += int(clean.sum())
+        agree += int((want.argmax(-1) == toks[step]).sum())
+    expect = {"flash_attention": (model.cfg.n_layers, 0),
+              "decode_attention": (0, model.cfg.n_layers),
+              "ssd_scan": (0, 0)}
+    for k, (per_prefill, per_step) in expect.items():
+        if after_prefill[k] != per_prefill:
+            raise AssertionError(f"prefill launched {k} {after_prefill[k]} "
+                                 f"times, not {per_prefill}")
+        if decode_launches[k] != per_step * DECODE_STEPS:
+            raise AssertionError(f"{DECODE_STEPS} decode steps launched {k} "
+                                 f"{decode_launches[k]} times, not "
+                                 f"{per_step * DECODE_STEPS}")
+    return {
+        "arch": model.cfg.name, "batch": B, "prompt_len": S,
+        "cache_len": cache_len, "decode_steps": DECODE_STEPS,
+        "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
+        "decode_ms_per_step": statistics.median(step_ms[1:]),
+        "decode_ms_first_step": step_ms[0],
+        "plain_decode_ms_per_step": statistics.median(plain_step_ms[1:]),
+        "launches": launches,
+        "launches_per_prefill": {k: after_prefill[k] for k in expect},
+        "launches_per_decode_step": {k: decode_launches[k] / DECODE_STEPS
+                                     for k in expect},
+        "prefill_tokens_with_changed_experts": flipped_prefill,
+        "prefill_routed_tokens": n_moe * B * S,
+        "sequences_with_agreeing_experts_at_end": int(clean.sum()),
+        "logits_checked_rows": checked,
+        "logit_max_abs_err_where_experts_agree": err,
+        "greedy_tokens_equal_to_plain": agree,
+        "greedy_tokens_total": B * (DECODE_STEPS + 1),
+        "profiles": profiles,
+    }, cache
+
+
+def moe_engine_run(model, params):
+    """The engine at ``launch.serve``'s reference defaults (16 requests x 16
+    tokens, 8 slots, max_len 64) on the bf16 model: Algorithm 1 plans from
+    the measured segment latencies as ``serve.run`` does, then the engine
+    serves with the kernels (counts reset just before, read just after)
+    and with the plain versions on the same plan. The routes of both runs
+    are recorded with the requests each pipeline step served. Both must
+    serve the same schedule, every request to its 16 tokens; the tokens
+    equal up to each request's first difference, and the requests that
+    changed experts in some layer, are reported."""
+    cfg = model.cfg
+    lat = serve.measure_segment_latencies(model, params, 8, 64)
+    plan = plan_serving(model, lat)
+    runs = []
+    for impl in (None, "torch"):
+        eng = ServingEngine(model, params, num_pipelines=plan.num_pipelines,
+                            slots_per_pipeline=8, max_len=64, impl=impl)
+        steps = []
+        step = PipelineInstance.step
+
+        def traced(self, step=step, steps=steps):
+            if self.active:
+                steps.append({s: r.rid for s, r in self.active.items()})
+            step(self)
+        for req in serve.make_requests(cfg, 16, 16):
+            eng.submit(req)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        PipelineInstance.step = traced
+        try:
+            with _Routes() as routes:
+                t0 = time.perf_counter()
+                done = eng.run(max_steps=64 - 8)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            PipelineInstance.step = step
+        runs.append((eng, done, steps, routes, seconds,
+                     _build.launch_counts()))
+    (eng, done, steps, rk, sec, launches), (_, pdone, psteps, rp, psec, _) = \
+        runs
+    if len(done) != 16 or len(pdone) != 16 or steps != psteps:
+        raise AssertionError("the two engines served different schedules")
+    if launches["decode_attention"] < 1 or launches["flash_attention"]:
+        raise AssertionError(f"moe engine launches {launches}")
+    n_moe = cfg.n_layers - cfg.first_dense
+    flips = _route_flips(rk, rp)
+    flipped = set()                     # requests that changed experts
+    for s, slots in enumerate(steps):
+        for f in flips[n_moe * s:n_moe * (s + 1)]:
+            flipped.update(slots[slot] for slot in
+                           f.nonzero().flatten().tolist() if slot in slots)
+    same = 0
+    for g, w in zip(done, pdone):
+        if g.rid != w.rid:
+            raise AssertionError("engine runs completed different requests")
+        if len(g.out) != 16 or len(w.out) != 16:
+            raise AssertionError(f"request {g.rid}: {len(g.out)} and "
+                                 f"{len(w.out)} tokens, want 16")
+        for a, b in zip(g.out, w.out):
+            if a != b:
+                break
+            same += 1
+    tokens = sum(len(r.out) for r in done)
+    return eng, {
+        "pipelines": plan.num_pipelines, "R": plan.R,
+        "latencies_s": plan.latencies, "requests": 16, "tokens": tokens,
+        "seconds": sec, "tokens_per_s": tokens / sec,
+        "plain_tokens_per_s": tokens / psec,
+        "tokens_equal_to_plain": same,
+        "requests_with_changed_experts": len(flipped),
+        "launches": launches,
+    }
+
+
+def moe_attention_rows(model, cache, engine, launches_pd, launches_engine):
+    """B5 and B6 at moonshot's shapes, as ``moonshot`` variant rows: B5 over
+    bf16 q, k, v (4, 1,024, 16, 128) causal (the wrapper widens K and V to
+    f32, as on the path), B6 over the prefilled bf16 cache (4, 1,536, 16,
+    128) with a bf16 query (G 1), and over the engine's f32 cache; each
+    against its plain version at two bf16 ulps (ATTN_BF16_TOL), timed
+    beside its bound and SDPA."""
+    cfg = model.cfg
+    dev = model.device
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S, H, D = SERVE_BATCH, PROMPT_LEN, cfg.n_heads, cfg.head_dim
+    q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    el = lambda t: t.numel() * t.element_size()
+    specs = [dict(
+        name="flash_attention", label="moonshot",
+        run=lambda: fa.flash_attention_cuda(q, k, v),
+        plain=lambda: fa.flash_attention_torch(q, k, v),
+        lib=lambda: sdpa(qt, kt, vt, is_causal=True),
+        shape=f"B={B} Sq=Sk={S} Hq=Hkv={H} D={D} bf16 causal (K, V widened "
+              f"to f32 by the wrapper)",
+        nbytes=el(q) * 2 + el(k) + el(v),
+        ops=fa.work(q.shape, k.shape, True, None) * 4 * D,
+        peak=hw.peak_flops(q.dtype, k.dtype))]
+    eng_cache = max((p.cache for p in engine.pipelines),
+                    key=lambda c: c["pos"])
+    for label, c, n_valid in (
+            ("moonshot", cache, PROMPT_LEN + DECODE_STEPS),
+            ("moonshot-engine", eng_cache, eng_cache["pos"])):
+        ck = c["segments"][0][0]["k"][0]
+        cv = c["segments"][0][0]["v"][0]
+        Bd, Sd = ck.shape[:2]
+        dq = torch.randn((Bd, H, D), generator=g, device=dev).to(
+            torch.bfloat16)
+        kv_len = torch.full((Bd,), n_valid, dtype=torch.int32, device=dev)
+        ckf, cvf = (x.transpose(1, 2).to(torch.bfloat16) for x in (ck, cv))
+        dmask = (torch.arange(Sd, device=dev)[None, :]
+                 < kv_len[:, None])[:, None, None, :]
+        valid_rows = int(kv_len.clamp(0, Sd).sum())
+        specs.append(dict(
+            name="decode_attention", label=label,
+            run=lambda a=(dq, ck, cv, kv_len): da.decode_attention_cuda(*a),
+            plain=lambda a=(dq, ck, cv, kv_len): da.decode_attention_torch(
+                *a),
+            lib=lambda a=(dq[:, :, None], ckf, cvf), m=dmask: sdpa(
+                *a, attn_mask=m),
+            shape=f"B={Bd} S={Sd} kv_len={n_valid} Hq=Hkv={H} D={D} q bf16, "
+                  f"cache {str(ck.dtype).split('.')[-1]}",
+            nbytes=el(dq) * 2 + el(kv_len)
+            + valid_rows * H * D * 2 * ck.element_size(),
+            ops=da.work(kv_len, Sd, H) * 4 * D,
+            peak=hw.peak_flops(dq.dtype, ck.dtype)))
+    out = []
+    for s in specs:
+        got, want = s["run"](), s["plain"]()
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if got.dtype != torch.bfloat16 or not torch.allclose(
+                got.float(), want.float(), **ATTN_BF16_TOL):
+            raise AssertionError(f"{s['name']} ({s['label']}): kernel "
+                                 f"differs from its plain version by {err}")
+        name = s["name"]
+        bound_s, bound_by = hw.bound_seconds(s["nbytes"], s["ops"], s["peak"])
+        launches = (launches_engine if s["label"].endswith("engine")
+                    else launches_pd)[name]
+        out.append((name, s["label"], {
+            "name": name, "variant": s["label"], "launches": launches,
+            "shape": s["shape"], "max_abs_err": err,
+            "ms": _time_ms(s["run"], KERNEL_REPS, flush),
+            "ms_l2_warm": _time_ms(s["run"], KERNEL_REPS, _NoFlush()),
+            "plain_ms": _time_ms(s["plain"], PLAIN_REPS, flush),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": int(s["nbytes"]), "ops": int(s["ops"]),
+            "peak_flops": s["peak"],
+            "library_ms": _time_ms(s["lib"], KERNEL_REPS, flush),
+            "library_call":
+                "torch.nn.functional.scaled_dot_product_attention",
+        }))
+    return out
+
+
+def moe_phase():
+    """moonshot-v1-16b-a3b at full width, bf16 parameters from a generator
+    seeded 0 (~54 GB on the card): the layer-by-layer routing gate, the
+    serving path (prefill 4 x 1,024 into a 1,536-deep bf16 cache, 32
+    decode steps) with the kernels and plain, the engine at its defaults,
+    and B5/B6 rows at its shapes."""
+    t0 = time.perf_counter()
+    model = build(get_arch(MOE_ARCH), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        2, model.cfg.vocab, size=(SERVE_BATCH, PROMPT_LEN))).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serving: {MOE_ARCH} at full width, {n_params} parameters (bf16, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card) "
+          f"made in {time.perf_counter() - t0:.2f} s")
+    pd, cache = moe_prefill_decode(model, params, prompts, CACHE_LEN)
+    print_serving("moe ", pd)
+    print(f"moe greedy tokens equal to the plain run: "
+          f"{pd['greedy_tokens_equal_to_plain']}/{pd['greedy_tokens_total']};"
+          f" prefill tokens that changed experts in some layer: "
+          f"{pd['prefill_tokens_with_changed_experts']} of "
+          f"{pd['prefill_routed_tokens']}")
+    gate = moe_layer_checks(model, params, prompts, cache)
+    pre = gate["prefill"]
+    print(f"moe routing gate, layer by layer: {gate['route_flips']} of "
+          f"{gate['routed_tokens']} routed tokens changed experts (share "
+          f"{gate['flip_share']:.5f}, at most "
+          f"{pre['max_layer_flip_share']:.5f} in a prefill layer, all at "
+          f"near ties); prefill router inputs within "
+          f"{pre['router_input_max_rel_err']:.4g}, layer outputs within "
+          f"{pre['layer_output_max_rel_err']:.4g} of their largest entry")
+    print("moe routing gate " + json.dumps(gate))
+    torch.cuda.empty_cache()
+    engine, eng = moe_engine_run(model, params)
+    print(f"moe engine tokens/s: {eng['tokens_per_s']:.1f} ({eng['tokens']} "
+          f"tokens, {eng['requests']} requests over {eng['pipelines']} "
+          f"pipelines; plain versions {eng['plain_tokens_per_s']:.1f})")
+    print("moe engine launches: " + json.dumps(eng["launches"]))
+    print("moe engine " + json.dumps(eng))
+    rows = moe_attention_rows(model, cache, engine, pd["launches"],
+                              eng["launches"])
+    del model, params, cache, engine, prompts
+    torch.cuda.empty_cache()
+    return rows, pd["launches"], eng["launches"]
 
 
 def main() -> int:
@@ -1548,6 +2165,34 @@ def main() -> int:
     by_name["flash_attention"]["launches_by_path"]["train"] = (
         launches_train["flash_attention"])
     kernels.append(bwd_row)
+    torch.cuda.empty_cache()
+
+    # MoE serving: moonshot-v1-16b-a3b at full width, bf16 parameters
+    moe_rows, moe_pd, moe_eng = moe_phase()
+    for name, label, row in moe_rows:
+        by_name[name].setdefault("variants", {})[label] = row
+    by_name["flash_attention"]["launches_by_path"]["moonshot"] = (
+        moe_pd["flash_attention"])
+    by_name["decode_attention"]["launches_by_path"]["moonshot"] = (
+        moe_pd["decode_attention"])
+    by_name["decode_attention"]["launches_by_path"]["moonshot_engine"] = (
+        moe_eng["decode_attention"])
+
+    # the MoE and hybrid families reduced, card against CPU
+    for arch in REDUCED_MOE_ARCHS:
+        red, red_pd, red_eng = reduced_serving(arch)
+        print(f"reduced {arch} ({red['family']}, d_head {red['d_head']}) on "
+              f"the card: logits within {red['logit_max_abs_err_vs_cpu']} of "
+              f"the CPU run; launches per prefill "
+              f"{json.dumps(red['launches_per_prefill'])}; engine "
+              f"{red['engine']['tokens_equal_to_cpu']}/"
+              f"{red['engine']['tokens']} tokens equal to the CPU engine's")
+        print("reduced serving " + json.dumps(red))
+        for name in ("flash_attention", "decode_attention", "ssd_scan"):
+            if red_pd[name] or red_eng[name]:
+                paths = by_name[name]["launches_by_path"]
+                paths[f"reduced {arch}"] = red_pd[name]
+                paths[f"reduced {arch} engine"] = red_eng[name]
     for row in kernels:
         row["ptxas"] = _ptxas_of(ptxas, row["name"])
         _with_bound_share(row)

@@ -59,6 +59,12 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     return m
 
 
+def _acc_dtype(q: torch.Tensor) -> torch.dtype:
+    """f32 math for f32 and bf16 inputs; f64 inputs (finite-difference
+    checks of the plain pair) stay f64."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
@@ -74,16 +80,17 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     dev = q.device
-    qf = q.float().reshape(B, Sq, Hkv, G, D) * scale
+    f = _acc_dtype(q)
+    qf = q.to(f).reshape(B, Sq, Hkv, G, D) * scale
     qpos = torch.arange(Sq, device=dev) + (Sk - Sq)
-    acc = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
-    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, Hkv, G, D), dtype=f, device=dev)
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=f, device=dev)
+    l = torch.zeros((B, Sq, Hkv, G), dtype=f, device=dev)
     lo, hi = key_range(0, Sq, Sq, Sk, causal, window)
     for k0 in range(lo - lo % block_k, hi, block_k):
         k1 = min(k0 + block_k, Sk)
-        kb = k[:, k0:k1].float()
-        vb = v[:, k0:k1].float()
+        kb = k[:, k0:k1].to(f)
+        vb = v[:, k0:k1].to(f)
         logits = torch.einsum("bqhgd,bkhd->bqhgk", qf, kb)
         mask = _mask(qpos, torch.arange(k0, k1, device=dev), causal, window)
         mb = mask[None, :, None, None, :]
@@ -120,19 +127,20 @@ def flash_attention_bwd_torch(q: torch.Tensor, k: torch.Tensor,
     G = Hq // Hkv
     scale = scale if scale is not None else D ** -0.5
     dev = q.device
-    qf = q.float().reshape(B, Sq, Hkv, G, D)
-    do = dout.float().reshape(B, Sq, Hkv, G, D)
-    delta = (do * out.float().reshape(B, Sq, Hkv, G, D)).sum(-1)
+    f = _acc_dtype(q)
+    qf = q.to(f).reshape(B, Sq, Hkv, G, D)
+    do = dout.to(f).reshape(B, Sq, Hkv, G, D)
+    delta = (do * out.to(f).reshape(B, Sq, Hkv, G, D)).sum(-1)
     lse5 = lse.transpose(1, 2).reshape(B, Sq, Hkv, G)
     qpos = torch.arange(Sq, device=dev) + (Sk - Sq)
-    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
-    dk = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
-    dv = torch.zeros((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
+    dq = torch.zeros((B, Sq, Hkv, G, D), dtype=f, device=dev)
+    dk = torch.zeros((B, Sk, Hkv, D), dtype=f, device=dev)
+    dv = torch.zeros((B, Sk, Hkv, D), dtype=f, device=dev)
     lo, hi = key_range(0, Sq, Sq, Sk, causal, window)
     for k0 in range(lo - lo % block_k, hi, block_k):
         k1 = min(k0 + block_k, Sk)
-        kb = k[:, k0:k1].float()
-        vb = v[:, k0:k1].float()
+        kb = k[:, k0:k1].to(f)
+        vb = v[:, k0:k1].to(f)
         logits = torch.einsum("bqhgd,bkhd->bqhgk", qf * scale, kb)
         mask = _mask(qpos, torch.arange(k0, k1, device=dev), causal, window)
         bias = torch.where(mask, 0.0, NEG_INF)[None, :, None, None, :]
@@ -293,7 +301,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              window: Optional[int] = None,
                              scale: Optional[float] = None):
     """Launch the backward kernels (``csrc/flash_attention_bwd.cu``: delta,
-    then dK/dV over key tiles, then dQ over query tiles, no atomics); every
+    then dK/dV over key tiles, then dQ over query tiles, no atomics; 3xTF32
+    on the tensor cores at head dims 16, 64 and 128, f32 FMAs at 256); every
     tensor on one CUDA device. The kernels take f32: bf16 inputs are
     widened here (exactly) and the gradients cast back to the inputs'
     dtypes. Counts as one launch of ``flash_attention_bwd``. Returns

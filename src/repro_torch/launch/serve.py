@@ -9,6 +9,10 @@ Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
       --requests 16 --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch moonshot-v1-16b-a3b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-1.5-large-398b --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -51,9 +55,13 @@ def measure_segment_latencies(model, params, batch: int,
                               max_len: int) -> Dict[str, float]:
     """Wall-clock one decode pass per segment (one repetition timed three
     times, scaled by the repetition count), synchronized around the timing
-    when on the card."""
+    when on the card. The pass carries activations in the parameters'
+    dtype, as a decode step's embedding lookup gives them (the reference
+    passes f32 zeros, which JAX promotes against bf16 weights; PyTorch
+    does not mix the two in a product)."""
     cfg = model.cfg
     dev = model.device
+    dtype = params.embed["table"].dtype
     cache = model.init_cache(batch, max_len, torch.float32)
     names = segment_stage_names(cfg)
     fn = _decode_body_fn(cfg)
@@ -61,7 +69,7 @@ def measure_segment_latencies(model, params, batch: int,
     for i, seg in enumerate(lm_mod.build_schedule(cfg)):
         layers = params.layers(i, 0)
         cs = [lm_mod.layer_cache(c, 0) for c in cache["segments"][i]]
-        x = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=dev)
+        x = torch.zeros((batch, cfg.d_model), dtype=dtype, device=dev)
         fn(layers, cs, x, 1)
         _sync(dev)
         t0 = time.perf_counter()

@@ -1,4 +1,5 @@
-"""Decoder LM over a *layer schedule*: the dense and ssm families.
+"""Decoder LM over a *layer schedule*: the dense, MoE, ssm and hybrid
+families.
 
 A schedule is a list of Segments; each Segment has a ``body`` (an ordered
 tuple of LayerSpec — mixer x ffn kinds) repeated ``count`` times. The
@@ -6,7 +7,10 @@ reference scans each segment over stacked parameters; here the layers are
 ``DecoderLayer`` modules held in one ``nn.ModuleList`` per segment, in the
 order the scan visits them: repetition, then body position. gemma3's 5:1
 local:global pattern is a 6-layer body x4 plus a 2-layer tail; mamba2's
-48 mamba layers (no MLP) are one segment.
+48 mamba layers (no MLP) are one segment; moonshot's leading dense layer
+is a segment of its own before 47 attention + MoE layers; jamba's 8-layer
+body puts attention at position 4 among mamba layers and a MoE FFN on
+every odd position.
 
 Each Segment is a Meili pipeline *stage* with its own profiled latency
 (``serving/planner.py``). The cache keeps the reference's layout: per
@@ -15,8 +19,6 @@ segment, per body position, a dict of leaves stacked over the repetitions —
 "conv_BC", "h"}`` for mamba — and ``decode_step`` updates it in place;
 ``cache["pos"]`` is a Python int shared by every row, as the reference's
 scalar is.
-
-MoE layers wait for a later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,14 +30,13 @@ from torch import nn
 
 from repro_torch.hw import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        make_norm, mlp, mlp_init, pad_vocab,
                                        to_module)
 
 Tree = Dict
-
-_PENDING = {"moe": "ROADMAP A20 (models/moe.py)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,13 +81,6 @@ def build_schedule(cfg) -> List[Segment]:
     return [Segment((LayerSpec("attn", "mlp"),), L)]
 
 
-def _require_ported(spec: LayerSpec) -> None:
-    for kind in (spec.mixer, spec.ffn):
-        if kind in _PENDING:
-            raise NotImplementedError(
-                f"{kind} layers are not ported yet: {_PENDING[kind]}")
-
-
 # ---------------------------------------------------------------------------
 # Modules + init
 # ---------------------------------------------------------------------------
@@ -97,13 +91,13 @@ def _is_attn(spec: LayerSpec) -> bool:
 
 class DecoderLayer(nn.Module):
     """One pre-norm decoder layer: norm1 -> mixer (attention or mamba) ->
-    residual, then, unless ``ffn`` is "none", norm2 -> MLP -> residual.
-    Parameters are nested dicts keyed as the reference's layer tree
-    (``norm1``, ``attn`` or ``mamba``, ``norm2``, ``mlp``)."""
+    residual, then, unless ``ffn`` is "none", norm2 -> MLP or MoE ->
+    residual. Parameters are nested dicts keyed as the reference's layer
+    tree (``norm1``, ``attn`` or ``mamba``, ``norm2``, ``mlp`` or
+    ``moe``)."""
 
     def __init__(self, cfg, spec: LayerSpec, params: Mapping):
         super().__init__()
-        _require_ported(spec)
         self.spec = spec
         self.norm1 = to_module(params["norm1"])
         if _is_attn(spec):
@@ -112,21 +106,23 @@ class DecoderLayer(nn.Module):
             self.mamba = to_module(params["mamba"])
         if spec.ffn != "none":
             self.norm2 = to_module(params["norm2"])
-            self.mlp = to_module(params["mlp"])
+            setattr(self, spec.ffn, to_module(params[spec.ffn]))
 
 
 def layer_init(gen: torch.Generator, cfg, spec: LayerSpec, dtype,
                device) -> Tree:
-    _require_ported(spec)
     norm_init, _ = make_norm(cfg)
     p = {"norm1": norm_init(dtype, device)}
     if _is_attn(spec):
         p["attn"] = attn_mod.attn_init(gen, cfg, dtype, device)
     else:
         p["mamba"] = ssm_mod.mamba_init(gen, cfg, dtype, device)
-    if spec.ffn != "none":
+    if spec.ffn == "mlp":
         p["norm2"] = norm_init(dtype, device)
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    elif spec.ffn == "moe":
+        p["norm2"] = norm_init(dtype, device)
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
     return p
 
 
@@ -209,7 +205,8 @@ def _apply_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
     x = x + y
     if spec.ffn != "none":
         h = norm_apply(layer.norm2, x)
-        x = x + mlp(layer.mlp, h)
+        x = x + (moe_mod.moe_ffn(layer.moe, h, cfg) if spec.ffn == "moe"
+                 else mlp(layer.mlp, h))
     return x, kv
 
 
@@ -297,7 +294,6 @@ def _new_cache(cfg, batch: int, max_len: int, dtype, dev,
     for seg in build_schedule(cfg):
         seg_c = []
         for spec in seg.body:
-            _require_ported(spec)
             if _is_attn(spec):
                 kshape = (seg.count, batch, max_len, cfg.n_kv_heads,
                           cfg.head_dim)
@@ -349,6 +345,8 @@ def decode_layer(cfg, layer: DecoderLayer, h: torch.Tensor,
     if layer.spec.ffn == "none":
         return h
     hn = norm_apply(layer.norm2, h)
+    if layer.spec.ffn == "moe":
+        return h + moe_mod.moe_ffn(layer.moe, hn[:, None], cfg)[:, 0]
     return h + mlp(layer.mlp, hn)
 
 

@@ -2,11 +2,10 @@
 
 ``build(cfg)`` returns a Model exposing ``init`` (an ``lm.LM`` module on a
 device), ``loss`` (training), ``forward``, ``prefill``, ``decode_step`` and
-``init_cache`` over the dense and ssm families, and ``param_struct``,
-``input_specs`` and ``param_counts``, which give shapes and dtypes on the
-meta device (no allocation; the port has no sharding axes). encdec raises
-here (ROADMAP A21), and the MoE and hybrid families raise where their MoE
-layers are built (ROADMAP A20).
+``init_cache`` over the dense, MoE, ssm and hybrid families, and
+``param_struct``, ``input_specs`` and ``param_counts``, which give shapes
+and dtypes on the meta device (no allocation; the port has no sharding
+axes). encdec raises here (ROADMAP A21).
 """
 from __future__ import annotations
 
@@ -38,10 +37,19 @@ class Model:
         return lm_mod.init_lm(self.cfg, torch.Generator(), dtype, META)
 
     def param_counts(self) -> Tuple[int, int]:
-        """(total, active) parameter counts; the ported families route no
-        experts, so the two are equal."""
-        total = sum(p.numel() for p in self.param_struct().parameters())
-        return total, total
+        """(total, active) parameter counts. Active discounts the routed
+        experts' weights (a MoE layer's gate, up and down) by top_k /
+        n_experts, as the reference does (MoE MODEL_FLOPS uses
+        6·N_active·D)."""
+        total = active = 0
+        for name, p in self.param_struct().named_parameters():
+            n = p.numel()
+            total += n
+            if ".moe." in name and not name.endswith(".router"):
+                active += n * self.cfg.top_k // self.cfg.n_experts
+            else:
+                active += n
+        return total, active
 
     # -- steps ------------------------------------------------------------------
     def loss(self, params: lm_mod.LM, batch: Dict[str, torch.Tensor],

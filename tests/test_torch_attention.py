@@ -412,3 +412,22 @@ def test_bound_seconds_takes_the_larger_of_bytes_and_operations():
         pairs * 1024 / 67e12)
     assert da.work(torch.tensor([5, 40, 0], dtype=torch.int32), 32, 4) == \
         (5 + 32 + 0) * 4
+
+
+@pytest.mark.parametrize("causal,window,Hq,Hkv,Sk", [
+    (True, None, 2, 1, 7), (True, 3, 4, 2, 7), (False, None, 2, 2, 9)])
+def test_plain_attention_pair_passes_gradcheck(causal, window, Hq, Hkv, Sk):
+    """The plain pair that the backward kernel is held to (the forward
+    with its lse, ``flash_attention_bwd_torch``), as autograd runs it
+    (``ops._Attention``), in f64: its dq, dk and dv equal central finite
+    differences of the forward (``torch.autograd.gradcheck``: eps 1e-6,
+    differences of f64 sums of O(1) terms, atol 1e-6, rtol 1e-5). Key
+    blocks of 4 split the keys, so the blocked recurrence is crossed."""
+    rng = np.random.default_rng(Hq + Sk)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).requires_grad_()
+               for shape in ((1, 6, Hq, 4), (1, Sk, Hkv, 4), (1, Sk, Hkv, 4)))
+    fn = lambda q, k, v: ops._Attention.apply(q, k, v, causal, window, 0.5,
+                                             True, 4)
+    assert fn(q, k, v).dtype == torch.float64
+    assert torch.autograd.gradcheck(fn, (q, k, v), eps=1e-6, atol=1e-6,
+                                    rtol=1e-5)

@@ -34,7 +34,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flow_lookup as fl
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels import ops, ref
-from repro_torch.models import build
+from repro_torch.models import build, moe
 
 SNORT = ["attack", "GET /admin", "cmd.exe", "/etc/passwd", "SELECT *"]
 
@@ -815,8 +815,9 @@ def test_reduced_mamba_on_card_equals_cpu(cuda):
 # -- B5's backward and the training step -------------------------------------------
 
 # dK and dV sum up to Sk·G = 8,192 products an entry, dQ up to Sk, in
-# another order than the plain version's einsums (f32 FMAs against cuBLAS
-# f32): a few 1e-6 of their scale, held to atol = rtol = 1e-4.
+# another order than the plain version's einsums (3xTF32 tile sums added
+# in f32 against cuBLAS f32; f32 FMAs at D 256): a few 1e-6 of their
+# scale, held to atol = rtol = 1e-4.
 BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -925,6 +926,21 @@ def test_ssd_under_autograd_on_card_raises(cuda):
         ops.ssd(x, a, b, b)
 
 
+def test_plain_attention_pair_gradcheck_on_card(cuda):
+    """The plain pair the backward kernel is held to, in f64 on the card:
+    dq, dk, dv equal central finite differences of the forward
+    (``torch.autograd.gradcheck``, as ``test_torch_attention.py`` holds
+    it on the CPU)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda,
+                           dtype=torch.float64).requires_grad_()
+               for shape in ((1, 6, 4, 4), (1, 7, 2, 4), (1, 7, 2, 4)))
+    fn = lambda q, k, v: ops._Attention.apply(q, k, v, True, 3, 0.5, True,
+                                             4)
+    assert torch.autograd.gradcheck(fn, (q, k, v), eps=1e-6, atol=1e-6,
+                                    rtol=1e-5)
+
+
 def test_reduced_train_step_on_card_equals_cpu(cuda):
     """Three ``make_train_step`` steps of reduced olmo-1b (accumulation 2)
     on the card against the same on the CPU: losses and grad norms at
@@ -972,3 +988,95 @@ def test_reduced_train_step_on_card_equals_cpu(cuda):
         total += close.numel()
     assert loose < 1e-3 * total
 
+
+
+# -- the MoE and hybrid families --------------------------------------------------
+
+def test_decode_kernel_bf16_query_over_f32_cache(cuda):
+    """A bf16 model's engine keeps an f32 cache: B6 takes a bf16 query over
+    f32 keys and values (moonshot's G 1, D 128), held to two bf16 ulps."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn((8, 16, 128), generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((8, 64, 16, 128), generator=g, device=cuda)
+            for _ in range(2))
+    lens = torch.tensor([40, 41, 64, 1, 17, 70, 33, 2], dtype=torch.int32,
+                        device=cuda)
+    got = ops.decode_attention(q, k, v, lens)
+    _close(got, da.decode_attention_torch(q, k, v, lens), torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b",
+                                  "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_reduced_moe_and_hybrid_on_card_equal_cpu(cuda, name):
+    """Reduced phi3.5-moe and moonshot (attention + MoE layers) and jamba
+    (mamba, attention and MoE layers in one body: B5, B6 and B7 in one
+    model) on the card against the same f32 parameters on the CPU: prefill
+    and 8 decode steps, logits at atol = rtol = 1e-4 (f32 through 4-8
+    layers; the routes agree at f32), exact launch counts, and two card
+    prefills bit-equal."""
+    cfg = get_arch(name).reduced().replace(remat=False)
+    cpu_model, card_model = build(cfg, "cpu"), build(cfg, cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0), torch.float32)
+    card_params = cpu_model.init(torch.Generator().manual_seed(0),
+                                 torch.float32).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(3, 40)))
+    _build.reset_launch_counts()
+    lg_card, c_card = card_model.prefill(card_params,
+                                         {"tokens": toks.to(cuda)},
+                                         max_len=64,
+                                         cache_dtype=torch.float32)
+    per_prefill = _build.launch_counts()
+    again, _ = card_model.prefill(card_params, {"tokens": toks.to(cuda)},
+                                  max_len=64, cache_dtype=torch.float32)
+    assert torch.equal(lg_card, again)
+    lg_cpu, c_cpu = cpu_model.prefill(params, {"tokens": toks}, max_len=64,
+                                      cache_dtype=torch.float32)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    _build.reset_launch_counts()
+    for t in range(8):
+        nxt = toks[:, t]
+        lg_card, c_card = card_model.decode_step(card_params, c_card,
+                                                 nxt.to(cuda))
+        lg_cpu, c_cpu = cpu_model.decode_step(params, c_cpu, nxt)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4,
+                                   rtol=1e-4)
+    mixers = [layer.spec.mixer for *_, layer in card_params.all_layers()]
+    assert per_prefill["flash_attention"] == mixers.count("attn")
+    assert per_prefill["ssd_scan"] == mixers.count("mamba")
+    counts = _build.launch_counts()
+    assert counts["decode_attention"] == 8 * mixers.count("attn")
+    assert counts["ssd_scan"] == 0
+
+
+@pytest.mark.parametrize("E,k", [(8, 2), (64, 6)])
+def test_moe_ffn_bf16_on_card_equals_cpu(cuda, E, k):
+    """The MoE FFN in bf16 on the card against the CPU, from the same
+    parameters: routes equal wherever the k-th and (k+1)-th router logits
+    are more than two bf16 ulps of the largest apart (cuBLAS and the CPU
+    sum the router product in other orders, each rounds to bf16 once),
+    outputs of the tokens whose routes agree within four bf16 ulps (atol
+    = rtol = 2**-6, see ``test_torch_moe.py``), and two card calls
+    bit-equal (the combine is a fixed-order sum, no atomics)."""
+    cfg = get_arch("moonshot-v1-16b-a3b").reduced().replace(
+        n_experts=E, top_k=k, d_model=256, d_ff=128)
+    p = moe.moe_init(torch.Generator().manual_seed(E), cfg, torch.bfloat16,
+                     "cpu")
+    x = torch.randn((4, 64, 256), generator=torch.Generator().manual_seed(k)
+                    ).to(torch.bfloat16)
+    pc = {n: t.to(cuda) for n, t in p.items()}
+    got = moe.moe_ffn(pc, x.to(cuda), cfg)
+    assert torch.equal(got, moe.moe_ffn(pc, x.to(cuda), cfg))
+    want = moe.moe_ffn(p, x, cfg)
+    xf = x.reshape(-1, 256)
+    _, _, ids = moe.route(p, xf, cfg)
+    _, _, cids = moe.route(pc, xf.to(cuda), cfg)
+    same = (ids.sort(-1).values == cids.cpu().sort(-1).values).all(-1)
+    lg = (xf @ p["router"]).float()
+    top = lg.sort(-1, descending=True).values
+    near = top[:, k - 1] - top[:, k] <= 2 * 2.0 ** -7 * lg.abs().amax(-1)
+    assert bool((same | near).all())
+    torch.testing.assert_close(got.cpu().float().reshape(-1, 256)[same],
+                               want.float().reshape(-1, 256)[same],
+                               atol=2.0 ** -6, rtol=2.0 ** -6)

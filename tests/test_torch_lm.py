@@ -2,12 +2,17 @@
 
 Reduced gemma3-1b (local + global layers, MQA, RMSNorm), the same with a
 5th layer (a tail segment), reduced olmo-1b (GQA, non-parametric
-LayerNorm), olmo with as many KV heads as query heads (MHA), and reduced
-mamba2-370m (4 mamba layers, no MLP; d_inner 128, H 16, N 16, P 8). The
+LayerNorm), olmo with as many KV heads as query heads (MHA), reduced
+mamba2-370m (4 mamba layers, no MLP; d_inner 128, H 16, N 16, P 8), and
+the MoE and hybrid families: reduced moonshot-v1-16b-a3b (a dense layer,
+then 3 attention + MoE layers, 4 experts top-2), phi3.5-moe-42b-a6.6b (4
+attention + MoE layers, untied head) and jamba-1.5-large-398b (two 4-layer
+bodies of mamba and attention mixers, MoE on every odd position). The
 JAX package's ``init`` parameters (float32) cross over through
 ``convert.lm_params_from_jax``; the same token arrays go to both packages,
 JAX with ``impl="blocked"`` for the attention models and
-``impl="interpret"`` (the Pallas SSD kernel in interpret mode) for mamba,
+``impl="interpret"`` (the Pallas SSD kernel in interpret mode) for mamba
+and jamba,
 whose blocked path is not finite at Mamba-2's decays over a 128-step chunk
 (``test_torch_ssd.py``), and the port on the CPU (the plain versions).
 
@@ -58,12 +63,17 @@ VARIANTS = {
     "olmo-1b": ("olmo-1b", {}),
     "olmo-1b-mha": ("olmo-1b", {"n_kv_heads": 4}),
     "mamba2-370m": ("mamba2-370m", {}),
+    "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}),
+    "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", {}),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", {}),
 }
 
 
 def _impl(variant):
-    """The JAX path each variant is held against."""
-    return "interpret" if variant.startswith("mamba") else "blocked"
+    """The JAX path each variant is held against: the Pallas SSD in
+    interpret mode wherever the model has mamba layers."""
+    return ("interpret" if variant.startswith(("mamba", "jamba"))
+            else "blocked")
 
 
 def _cfgs(variant):
@@ -233,15 +243,16 @@ def test_init_draws_reference_distributions():
 
 
 def test_unported_families_raise():
-    with pytest.raises(KeyError, match="ROADMAP A20"):
-        get_arch("jamba-1.5-large-398b")
+    for arch in ("minicpm-2b", "qwen2.5-32b", "llava-next-34b",
+                 "seamless-m4t-medium"):
+        with pytest.raises(KeyError, match="ROADMAP A21"):
+            get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
-    cfg = ARCHS["moonshot-v1-16b-a3b"].reduced()
+    cfg = ARCHS["seamless-m4t-medium"].reduced()
     from repro_torch.configs.base import ArchConfig
-    tcfg = ArchConfig(**cfg.__dict__)
-    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
-        lm.init_lm(tcfg, torch.Generator(), torch.float32, "cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
+        build(ArchConfig(**cfg.__dict__), "cpu")
 
 
 @pytest.mark.parametrize("variant", ["gemma3-1b", "olmo-1b-mha",

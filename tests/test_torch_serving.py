@@ -3,7 +3,8 @@ package.
 
 * ``plan_serving`` gives the same replication factors R and pipeline count
   as the reference for the same latency dict, and the stage names agree.
-* ``ServingEngine.run`` on reduced gemma3-1b and reduced mamba2-370m, with
+* ``ServingEngine.run`` on reduced gemma3-1b, mamba2-370m, moonshot-v1-16b-a3b
+  (MoE) and jamba-1.5-large-398b (hybrid), with
   the reference's ``init`` parameters carried across, completes the same
   requests in the same order with the same tokens. Greedy tokens may differ only where the choice was a
   near tie: the rule is that a request's tokens agree up to its first
@@ -37,6 +38,9 @@ MARGIN_TOL = 2e-4
     ("gemma3-1b", [1e-3, 1e-3]),
     ("olmo-1b", [5e-3]),
     ("mamba2-370m", [3e-3]),
+    ("moonshot-v1-16b-a3b", [1e-4, 4e-3]),
+    ("phi3.5-moe-42b-a6.6b", [2e-3]),
+    ("jamba-1.5-large-398b", [6e-3]),
 ])
 def test_plan_serving_equals_reference(name, latencies):
     jcfg, tcfg = ARCHS[name], get_arch(name)
@@ -118,6 +122,32 @@ def test_mamba_engine_run_equals_reference(pipelines, slots, requests):
     _engines_agree("mamba2-370m", pipelines, slots, requests)
 
 
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_hybrid_engine_run_equals_reference(arch):
+    """Reduced moonshot (a dense segment, then attention + MoE layers) and
+    reduced jamba (mamba, attention and MoE layers in one body); decode
+    routes each step's tokens (T = B: capacity 128 a expert, no drops)."""
+    _engines_agree(arch, 2, 4, 8)
+
+
+@pytest.mark.parametrize("arch,stages", [
+    ("moonshot-v1-16b-a3b", ["seg0[attn/mlp]x1", "seg1[attn/moe]x3"]),
+    ("jamba-1.5-large-398b",
+     ["seg0[attn/mlp+mamba/mlp+mamba/moe]x2"]),
+])
+def test_serve_moe_and_hybrid_on_cpu(capsys, arch, stages):
+    """``launch.serve --arch <arch> --reduced --device cpu`` at the
+    reference's defaults: the planner profiles each segment and the engine
+    serves all 16 requests, 16 tokens each."""
+    rep = serve.run(["--arch", arch, "--reduced", "--device", "cpu"])
+    assert rep.plan.stages == stages
+    assert rep.plan.stages == jplanner.segment_stage_names(
+        ARCHS[arch].reduced())
+    assert len(rep.done) == 16 and rep.tokens == 256
+    assert "16/16 requests" in capsys.readouterr().out
+
+
 def test_serve_main_on_cpu(capsys):
     """The serve entry point end to end on the CPU at the reference's
     defaults (reduced gemma3-1b): every request completes with its
@@ -149,13 +179,24 @@ def test_segment_latencies_profile_every_layer_cache():
     """The per-segment profiler hands each layer its own cache slice, so it
     times a mamba segment (conv tails and SSM state) as it times attention
     segments: one positive latency per segment."""
-    for arch in ("mamba2-370m", "gemma3-1b"):
+    for arch in ("mamba2-370m", "gemma3-1b", "jamba-1.5-large-398b"):
         cfg = get_arch(arch).reduced().replace(remat=False)
         model = build(cfg, "cpu")
         params = model.init(torch.Generator().manual_seed(0), torch.float32)
         lat = serve.measure_segment_latencies(model, params, 2, 8)
         assert list(lat) == planner.segment_stage_names(cfg)
         assert all(v > 0 for v in lat.values())
+
+
+def test_segment_latencies_of_a_bf16_model():
+    """A bf16 model (as moonshot serves at full width) is profiled with
+    bf16 activations, the dtype its decode steps carry."""
+    cfg = get_arch("moonshot-v1-16b-a3b").reduced().replace(remat=False)
+    model = build(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0), torch.bfloat16)
+    lat = serve.measure_segment_latencies(model, params, 2, 8)
+    assert list(lat) == planner.segment_stage_names(cfg)
+    assert all(v > 0 for v in lat.values())
 
 
 def test_serve_defaults_to_the_card():
