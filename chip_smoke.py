@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Seven paths, each driven with the launch counts set to 0 just before it
+Ten paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -51,10 +51,29 @@ and read just after:
    on every layer), and the engine at ``launch.serve``'s defaults, each
    with the kernels and with the plain versions; one bf16 rounding can
    change a token's experts and part the two runs, so the gate holds each
-   layer to the same input (``moe_layer_checks``).
+   layer to the same input (``bf16_layer_checks``).
 7. The reduced phi3.5-moe, moonshot and jamba configs (f32) on the card
    against the CPU: a prefill and 8 decode steps, then ``launch.serve
    --reduced``; jamba's runs B5, B6 and B7 in one model.
+8. The encoder-decoder family on seamless-m4t-medium at full width (12
+   encoder and 12 decoder layers, d_model 1,024, 16 heads of 64, vocab
+   256,206; f32 parameters from a seeded generator): the prefill of 4 x
+   (1,024 stub frames + 1,024 tokens) (B5 bidirectional on each encoder
+   layer, causal self- and bidirectional cross-attention on each decoder
+   layer: 36 launches) and 32 greedy decode steps from ``init_cache(4,
+   1,536)`` (B6 on each decoder layer's self cache and 4,096-frame cross
+   cache: 24 a step), held against the plain versions.
+9. The reduced minicpm-2b, qwen2.5-32b and llava-next-34b (8 stub patches
+   ahead of the prompts) on the card against the CPU as in 7, the reduced
+   seamless prefill and 8 decode steps, and one ``make_train_step`` step
+   each of reduced seamless (B5 forward and backward non-causal) and
+   minicpm (WSD schedule) against the CPU.
+10. Dense serving on qwen2.5-32b at full width (64 layers, d_model 5,120,
+   40 query heads over 8 KV heads of 128 (G 5), QKV bias, d_ff 27,648,
+   vocab 152,064, untied head; 32.8 B bf16 parameters, ~61 GiB): the
+   prefill of 4 x 1,024 tokens (64 B5) and 32 decode steps (64 B6 a
+   step), the engine as ``launch.serve`` builds it, kernels against plain;
+   the gate holds each layer to the plain run's input, as for moonshot.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -95,7 +114,7 @@ from repro_torch.core.executor import ParallelDataPlane, _bucket  # noqa: E402
 from repro_torch.core.graph import bits, run_pipeline, tree_leaves  # noqa: E402
 from repro_torch.core.orchestrator import flow_ids  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
-from repro_torch.kernels import _build, crypto, dfa_regex, ref  # noqa: E402
+from repro_torch.kernels import _build, crypto, dfa_regex, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flow_lookup as fl  # noqa: E402
@@ -196,7 +215,7 @@ TRAIN_PARAM_SHARE = 1e-3
 BWD_TOL = dict(atol=1e-4, rtol=1e-4)
 # MoE serving phase (moonshot-v1-16b-a3b at full width, bf16 parameters)
 MOE_ARCH = "moonshot-v1-16b-a3b"
-# The routing-aware gate (``moe_layer_checks``) runs each layer on the
+# The routing-aware gate (``bf16_layer_checks``) runs each layer on the
 # plain run's input with the kernels and with the plain versions; the two
 # differ only in the attention output, which B5 (B6) and its plain version
 # compute in f32 and round to bf16: one bf16 ulp apart at most, and an ulp
@@ -234,6 +253,44 @@ RESUME_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--device", "cuda",
                "--steps", "10", "--batch", "4", "--seq", "64",
                "--ckpt-every", "5", "--log-every", "100"]
 RESUME_FAIL_AT = 5
+
+# Encoder-decoder phase (seamless-m4t-medium at full width, f32)
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_FRAMES = 1024      # input_specs' even split of seq_len 2,048
+ENC_LEN = 4096            # the decode cache's encoder frames (ENC_LEN_DECODE)
+# The kernel run against the plain run, derived as gemma's: both f32, the
+# attention outputs ~1e-6 relative apart, carried through 24 residual
+# layers into O(1) logits at ~1e-4: prefill logits held to 1e-3. Decode
+# starts from init_cache (the reference's prefill leaves no cache) and
+# writes bf16 self-attention keys and values, a few in 10^4 of which round
+# to the other bf16 neighbour between the runs (the cross cache is zeros
+# in both). gemma's 2e-3 assumed a 1,056-deep cache, where one flipped
+# value weighs ~1/1,056; here step n reads n + 1 keys, so a flipped value
+# weighs ~1/(n + 1), on 12 layers. On an NVIDIA H100 (700 W) the sound
+# run reads 2.71e-3 at step 2, falling to ~1.6e-3 by step 31, and a B6
+# that drops one key (``encdec_decode_fault``, run every time) moves the
+# logits by 1.7 to 3.4 at every step from 1 on. Decode logits are held to
+# ENCDEC_DECODE_TOL, ~7x the sound reading and ~1/86 of the faulted one;
+# the phase fails if the sound run fails it or the faulted run passes it.
+ENCDEC_PREFILL_TOL = PREFILL_TOL
+ENCDEC_DECODE_TOL = 2e-2
+# qwen2.5-32b at full width (bf16 parameters, dense, G 5). Its layer gate
+# is the MoE phase's (``bf16_layer_checks``) with a dense layer's own
+# bound: the two runs' attention outputs are one bf16 ulp apart, and the
+# layer adds eight roundings of its own (the output projection's, the
+# residual add's, the norm's, the MLP's gate, up, product and down, and
+# the second residual add): within 9 ulps, DENSE_LAYER_TOL = 9 * 2**-7
+# of the output's largest entry (moonshot's dense first layer is held to
+# it too). A wrong B5 or B6 moves it by O(1). The tight check of B5 and
+# B6 at G 5 is their ``qwen`` rows, held to ATTN_BF16_TOL.
+DENSE_LAYER_TOL = 9 * 2.0 ** -7
+DENSE_BF16_ARCH = "qwen2.5-32b"
+LLAVA_ROW = (4, 1600, 56, 8)   # B5 at llava-next-34b's heads (G 7), bf16
+# The remaining dense and vlm configs reduced, card against CPU, and one
+# train step each of reduced seamless and minicpm (WSD)
+REDUCED_A21_ARCHS = ("minicpm-2b", "qwen2.5-32b", "llava-next-34b")
+REDUCED_TRAIN_ARCHS = ("seamless-m4t-medium", "minicpm-2b")
+REDUCED_TRAIN_TOL = 1e-4  # f32 through 4 layers, as the CUDA tests hold it
 
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
@@ -663,7 +720,7 @@ def _margin(lg):
 def _states(cache):
     """Copies of every SSM-state leaf (``h``) of a cache: none for
     attention models."""
-    return [c["h"].clone() for seg in cache["segments"] for c in seg
+    return [c["h"].clone() for seg in cache.get("segments", []) for c in seg
             if "h" in c]
 
 
@@ -681,26 +738,35 @@ def _check_states(name, got, want, tol):
 
 
 def prefill_decode(model, params, prompts, cache_len, expect, prefill_tol,
-                   decode_tol, state_tol=None):
+                   decode_tol, state_tol=None, frames=None):
     """The serving path: prefill + DECODE_STEPS greedy decode steps with the
     kernels (counts reset just before, read just after), then the same
     prefill and the same decode inputs with the plain versions. ``expect``
     maps each kernel to its launches (per prefill, per decode step); SSM
-    states, where the model has them, are held to ``state_tol``."""
+    states, where the model has them, are held to ``state_tol``. An
+    encoder-decoder takes ``frames`` beside the prompts; its prefill
+    returns no cache (as the reference's), so decode starts from
+    ``init_cache(batch, cache_len)``."""
     dev = prompts.device
     batch, prompt_len = prompts.shape
+    inputs = {"tokens": prompts}
+    if frames is not None:
+        inputs["frames"] = frames
+
+    def start(cache):
+        return model.init_cache(batch, cache_len) if cache is None else cache
     # warm-up at the timed shape: the first call of a shape pays one-time
     # costs (the B5 key-split plan, scratch first taken from the driver,
     # library heuristics) that the timed prefill should not
-    model.prefill(params, {"tokens": prompts}, max_len=cache_len)
+    model.prefill(params, inputs, max_len=cache_len)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    lg0, cache = model.prefill(params, {"tokens": prompts},
-                               max_len=cache_len)
+    lg0, cache = model.prefill(params, inputs, max_len=cache_len)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     after_prefill = _build.launch_counts()
+    cache = start(cache)
     states = {"prefill": _states(cache)}
     toks, lgs, step_ms = [lg0.argmax(-1)], [], []
     for _ in range(DECODE_STEPS):
@@ -715,16 +781,17 @@ def prefill_decode(model, params, prompts, cache_len, expect, prefill_tol,
     decode_launches = {k: launches[k] - after_prefill[k] for k in launches}
     profiles = {
         "prefill": _profile(lambda: model.prefill(
-            params, {"tokens": prompts}, max_len=cache_len)),
+            params, inputs, max_len=cache_len)),
         "decode_step": _profile(lambda: model.decode_step(
             params, cache, toks[-1])),
     }
 
     t0 = time.perf_counter()
-    plg0, pcache = model.prefill(params, {"tokens": prompts},
-                                 max_len=cache_len, impl="torch")
+    plg0, pcache = model.prefill(params, inputs, max_len=cache_len,
+                                 impl="torch")
     torch.cuda.synchronize()
     plain_prefill_ms = (time.perf_counter() - t0) * 1e3
+    pcache = start(pcache)
     p_err, p_checked = _check_logits("prefill", lg0, plg0, prefill_tol,
                                      _margin(lg0), toks[0])
     plain_states = {"prefill": _states(pcache)}
@@ -874,8 +941,8 @@ def engine_run(arch, tol, launched, not_launched):
 def reduced_serving(arch):
     """``arch``'s ``reduced()`` config (head dim 16) on the card against the
     same parameters on the CPU. Prefill of REDUCED_BATCH prompts of
-    REDUCED_PROMPT tokens (B5 on every attention layer, B7 on every mamba
-    layer) and REDUCED_STEPS greedy decode steps (B6 on the global
+    REDUCED_PROMPT tokens (a vlm's behind its stub patches; B5 on every
+    attention layer, B7 on every mamba layer) and REDUCED_STEPS greedy decode steps (B6 on the global
     attention layers) over an f32 cache, counts reset just before and read
     just after; then ``launch.serve --reduced`` on the card (B6 in the
     engine) against a CPU engine with the card run's plan, parameters and
@@ -886,12 +953,19 @@ def reduced_serving(arch):
     params = cpu.init(torch.Generator().manual_seed(0), torch.float32)
     card_params = cpu.init(torch.Generator().manual_seed(0),
                            torch.float32).to("cuda")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
         2, cfg.vocab, size=(REDUCED_BATCH, REDUCED_PROMPT)))
-    max_len = REDUCED_PROMPT + REDUCED_STEPS
+    inputs = {"tokens": toks}
+    if cfg.family == "vlm":          # stub patches ahead of the text
+        inputs["patches"] = torch.from_numpy(rng.standard_normal(
+            (REDUCED_BATCH, cfg.frontend_tokens, cfg.d_model)).astype(
+                np.float32))
+    max_len = cfg.frontend_tokens + REDUCED_PROMPT + REDUCED_STEPS
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    lg, c = card.prefill(card_params, {"tokens": toks.cuda()},
+    lg, c = card.prefill(card_params,
+                         {k: t.cuda() for k, t in inputs.items()},
                          max_len=max_len, cache_dtype=torch.float32)
     per_prefill = _build.launch_counts()
     lgs, nxt = [lg], [lg.argmax(-1)]
@@ -901,7 +975,7 @@ def reduced_serving(arch):
         nxt.append(lg.argmax(-1))
     torch.cuda.synchronize()
     launches = _build.launch_counts()
-    plg, pc = cpu.prefill(params, {"tokens": toks}, max_len=max_len,
+    plg, pc = cpu.prefill(params, inputs, max_len=max_len,
                           cache_dtype=torch.float32)
     err, _ = _check_logits("reduced prefill", lgs[0].cpu(), plg, PREFILL_TOL)
     for i in range(REDUCED_STEPS):
@@ -1472,7 +1546,7 @@ def _bwd_f64_errors(dev, g, D):
             "max_abs_dq_dk_dv": [float(b.abs().max()) for b in want]}
 
 
-# -- MoE serving ----------------------------------------------------------------
+# -- bf16 serving: the MoE and dense phases -------------------------------------
 
 class _Routes:
     """While installed, records every MoE layer's routing, in call order:
@@ -1527,7 +1601,7 @@ def _top_k_set(logits, k):
 
 
 def _gate_layer(i, rk, rp, out_k, out_p, cfg, worst):
-    """One layer of the routing-aware gate (``moe_layer_checks``): the
+    """One layer of the routing-aware gate (``bf16_layer_checks``): the
     recorded routes of the kernel run ``rk`` and the plain run ``rp`` of
     the same layer on the same input, and their outputs. Returns the
     tokens whose kept experts agree."""
@@ -1570,14 +1644,15 @@ def _gate_layer(i, rk, rp, out_k, out_p, cfg, worst):
         if n_flip > MOE_FLIP_SHARE * T:
             raise AssertionError(f"layer {i}: {n_flip} of {T} tokens "
                                  f"changed experts")
+    tol = MOE_LAYER_TOL if rk.calls else DENSE_LAYER_TOL
     d = (out_k.float() - out_p.float()).reshape(T, -1).abs()
     err = float((d * same[:, None]).max()) / float(out_p.float().abs().max())
     worst["layer_output_max_rel_err"] = max(
         worst["layer_output_max_rel_err"], err)
-    if err > MOE_LAYER_TOL:
+    if err > tol:
         raise AssertionError(
             f"layer {i}: outputs differ by {err} of their largest entry on "
-            f"tokens whose experts agree (tolerance {MOE_LAYER_TOL})")
+            f"tokens whose experts agree (tolerance {tol})")
     return same
 
 
@@ -1610,13 +1685,15 @@ def _gate_logits(cfg, params, hk, hp, agree, worst):
                                  f"the bound of their hidden states")
 
 
-def moe_layer_checks(model, params, prompts, cache):
-    """The routing-aware gate, layer by layer. Every layer of the prefill
+def bf16_layer_checks(model, params, prompts, cache):
+    """The layer-by-layer gate of a bf16 model, routing-aware where it has
+    MoE layers. Every layer of the prefill
     gets the plain run's input and runs with the kernels and with the
     plain versions (``lm._apply_layer``); every layer of one decode step
     (B6 over ``cache``, copied for each run) likewise (``lm.decode_layer``).
-    The two runs of a layer differ only in B5's (B6's) output, so for each
-    MoE layer:
+    The two runs of a layer differ only in B5's (B6's) output. A dense
+    layer's outputs must be within DENSE_LAYER_TOL of their largest
+    entry; for each MoE layer:
 
     * the router inputs (``norm2`` of the residual, bf16) must agree
       within MOE_INPUT_TOL of their largest entry;
@@ -1631,19 +1708,27 @@ def moe_layer_checks(model, params, prompts, cache):
       expert's capacity or back;
     * at most MOE_FLIP_SHARE of a layer's tokens may change experts;
     * the layer outputs of the tokens whose experts agree must be within
-      MOE_LAYER_TOL of the output's largest entry (the dense first layer
-      is held to this alone).
+      MOE_LAYER_TOL of the output's largest entry.
 
     After the last layer, the logits of the tokens whose experts agreed in
-    every layer are held to ``_gate_logits``' bound."""
+    every layer are held to ``_gate_logits``' bound. The routing fields
+    are reported only for a model with MoE layers."""
     cfg = model.cfg
     B, S = prompts.shape
-    worst = dict.fromkeys(("router_input_max_rel_err", "route_flips",
-                           "capacity_only_changes",
-                           "routed_tokens", "max_layer_flip_share",
-                           "max_layer_near_tie_share",
-                           "layer_output_max_rel_err", "logit_max_abs_err",
-                           "logit_max_bound_share"), 0)
+    n_moe = sum(1 for *_, layer in params.all_layers()
+                if layer.spec.ffn == "moe")
+    routing = ("router_input_max_rel_err", "route_flips",
+               "capacity_only_changes", "routed_tokens",
+               "max_layer_flip_share", "max_layer_near_tie_share")
+    worst = dict.fromkeys((routing if n_moe else ()) + (
+        "layer_output_max_rel_err", "logit_max_abs_err",
+        "logit_max_bound_share"), 0)
+
+    def finish(worst, tokens, agree):
+        r = dict(worst, tokens=tokens)
+        if n_moe:
+            r["tokens_agreeing_in_every_layer"] = int(agree.sum())
+        return r
     report = {}
     with torch.no_grad():
         x = lm.embed(params.embed, prompts)
@@ -1658,9 +1743,7 @@ def moe_layer_checks(model, params, prompts, cache):
             agree &= _gate_layer(i, rk, rp, out_k, out_p, cfg, worst)
             x = out_p
         _gate_logits(cfg, params, out_k, out_p, agree, worst)
-        report["prefill"] = dict(worst, tokens=B * S,
-                                 tokens_agreeing_in_every_layer=int(
-                                     agree.sum()))
+        report["prefill"] = finish(worst, B * S, agree)
         worst = dict.fromkeys(worst, 0)
         pos = int(cache["pos"])
         x = lm.embed(params.embed, torch.arange(B, device=x.device) + 7)
@@ -1678,30 +1761,32 @@ def moe_layer_checks(model, params, prompts, cache):
             agree &= _gate_layer(i, rk, rp, out_k, out_p, cfg, worst)
             x = out_p
         _gate_logits(cfg, params, out_k, out_p, agree, worst)
-        report["decode_step"] = dict(worst, tokens=B,
-                                     tokens_agreeing_in_every_layer=int(
-                                         agree.sum()))
-    flips = sum(r["route_flips"] for r in report.values())
-    routed = sum(r["routed_tokens"] for r in report.values())
-    report.update(route_flips=flips, routed_tokens=routed,
-                  flip_share=flips / routed,
-                  tolerances={"router_input": MOE_INPUT_TOL,
-                              "layer_output": MOE_LAYER_TOL,
-                              "flip_share_per_layer": MOE_FLIP_SHARE})
+        report["decode_step"] = finish(worst, B, agree)
+    tolerances = {"dense_layer_output": DENSE_LAYER_TOL}
+    if n_moe:
+        flips = sum(r["route_flips"] for r in report.values())
+        routed = sum(r["routed_tokens"] for r in report.values())
+        report.update(route_flips=flips, routed_tokens=routed,
+                      flip_share=flips / routed)
+        tolerances.update(router_input=MOE_INPUT_TOL,
+                          moe_layer_output=MOE_LAYER_TOL,
+                          flip_share_per_layer=MOE_FLIP_SHARE)
+    report["tolerances"] = tolerances
     return report
 
 
-def moe_prefill_decode(model, params, prompts, cache_len):
-    """moonshot's serving path: prefill + DECODE_STEPS greedy decode steps
+def bf16_prefill_decode(model, params, prompts, cache_len):
+    """A bf16 model's serving path (moonshot's, and qwen2.5-32b's, which
+    has no MoE layer to route): prefill + DECODE_STEPS greedy decode steps
     with the kernels (counts reset just before, read just after), then the
     same prefill and the same decode inputs with the plain versions, the
     routes of both recorded. Launch counts must be exact and every logit
-    finite. Through 48 bf16 layers each run's roundings compound, and once
-    a token changes experts the two runs compute on different activations:
-    the logits' difference on the sequences whose experts agreed so far,
-    the tokens that changed experts and the share of equal greedy tokens
-    are reported; the gate is ``moe_layer_checks``, which holds every
-    layer to the same input."""
+    finite. Through 48 or 64 bf16 layers each run's roundings compound,
+    and once a token changes experts the two runs compute on different
+    activations: the logits' difference (for a MoE model on the sequences
+    whose experts agreed so far, with the tokens that changed experts) and
+    the share of equal greedy tokens are reported; the gate is
+    ``bf16_layer_checks``, which holds every layer to the same input."""
     B, S = prompts.shape
     model.prefill(params, {"tokens": prompts}, max_len=cache_len)  # warm-up
     torch.cuda.synchronize()
@@ -1744,7 +1829,8 @@ def moe_prefill_decode(model, params, prompts, cache_len):
             plain_step_ms.append((time.perf_counter() - t0) * 1e3)
             plgs.append(plg)
     del pcache
-    n_moe = model.cfg.n_layers - model.cfg.first_dense
+    n_moe = sum(1 for *_, layer in params.all_layers()
+                if layer.spec.ffn == "moe")
     flips = _route_flips(rk, rp)        # n_moe prefill calls, then per step
     clean = torch.ones(B, dtype=torch.bool, device=prompts.device)
     err, checked, agree, flipped_prefill = 0.0, 0, 0, 0
@@ -1774,7 +1860,7 @@ def moe_prefill_decode(model, params, prompts, cache_len):
             raise AssertionError(f"{DECODE_STEPS} decode steps launched {k} "
                                  f"{decode_launches[k]} times, not "
                                  f"{per_step * DECODE_STEPS}")
-    return {
+    report = {
         "arch": model.cfg.name, "batch": B, "prompt_len": S,
         "cache_len": cache_len, "decode_steps": DECODE_STEPS,
         "prefill_ms": prefill_ms, "plain_prefill_ms": plain_prefill_ms,
@@ -1785,18 +1871,23 @@ def moe_prefill_decode(model, params, prompts, cache_len):
         "launches_per_prefill": {k: after_prefill[k] for k in expect},
         "launches_per_decode_step": {k: decode_launches[k] / DECODE_STEPS
                                      for k in expect},
-        "prefill_tokens_with_changed_experts": flipped_prefill,
-        "prefill_routed_tokens": n_moe * B * S,
-        "sequences_with_agreeing_experts_at_end": int(clean.sum()),
         "logits_checked_rows": checked,
-        "logit_max_abs_err_where_experts_agree": err,
         "greedy_tokens_equal_to_plain": agree,
         "greedy_tokens_total": B * (DECODE_STEPS + 1),
         "profiles": profiles,
-    }, cache
+    }
+    if n_moe:
+        report.update({
+            "prefill_tokens_with_changed_experts": flipped_prefill,
+            "prefill_routed_tokens": n_moe * B * S,
+            "sequences_with_agreeing_experts_at_end": int(clean.sum()),
+            "logit_max_abs_err_where_experts_agree": err})
+    else:
+        report["logit_max_abs_err"] = err
+    return report, cache
 
 
-def moe_engine_run(model, params):
+def bf16_engine_run(model, params):
     """The engine at ``launch.serve``'s reference defaults (16 requests x 16
     tokens, 8 slots, max_len 64) on the bf16 model: Algorithm 1 plans from
     the measured segment latencies as ``serve.run`` does, then the engine
@@ -1804,8 +1895,8 @@ def moe_engine_run(model, params):
     and with the plain versions on the same plan. The routes of both runs
     are recorded with the requests each pipeline step served. Both must
     serve the same schedule, every request to its 16 tokens; the tokens
-    equal up to each request's first difference, and the requests that
-    changed experts in some layer, are reported."""
+    equal up to each request's first difference, and for a MoE model the
+    requests that changed experts in some layer, are reported."""
     cfg = model.cfg
     lat = serve.measure_segment_latencies(model, params, 8, 64)
     plan = plan_serving(model, lat)
@@ -1841,7 +1932,8 @@ def moe_engine_run(model, params):
         raise AssertionError("the two engines served different schedules")
     if launches["decode_attention"] < 1 or launches["flash_attention"]:
         raise AssertionError(f"moe engine launches {launches}")
-    n_moe = cfg.n_layers - cfg.first_dense
+    n_moe = sum(1 for *_, layer in params.all_layers()
+                if layer.spec.ffn == "moe")
     flips = _route_flips(rk, rp)
     flipped = set()                     # requests that changed experts
     for s, slots in enumerate(steps):
@@ -1860,15 +1952,70 @@ def moe_engine_run(model, params):
                 break
             same += 1
     tokens = sum(len(r.out) for r in done)
-    return eng, {
+    report = {
         "pipelines": plan.num_pipelines, "R": plan.R,
         "latencies_s": plan.latencies, "requests": 16, "tokens": tokens,
         "seconds": sec, "tokens_per_s": tokens / sec,
         "plain_tokens_per_s": tokens / psec,
         "tokens_equal_to_plain": same,
-        "requests_with_changed_experts": len(flipped),
         "launches": launches,
     }
+    if n_moe:
+        report["requests_with_changed_experts"] = len(flipped)
+    return eng, report
+
+
+def _sdpa_kv(x, G):
+    """k or v (B, S, Hkv, D) as SDPA takes them next to (B, Hq, S, D)
+    queries: each KV head repeated for its G query heads, made once
+    outside the timed call."""
+    return x.repeat_interleave(G, dim=2).transpose(1, 2)
+
+
+def _flash_spec(label, q, k, v, causal, launches, dtype_note):
+    """A B5 variant spec over q, k, v (B, S, H, D) with SDPA beside it."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = q.transpose(1, 2), _sdpa_kv(k, Hq // Hkv), _sdpa_kv(
+        v, Hq // Hkv)
+    el = lambda t: t.numel() * t.element_size()
+    return dict(
+        name="flash_attention", label=label, launches=launches,
+        run=lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
+        plain=lambda: fa.flash_attention_torch(q, k, v, causal=causal),
+        lib=lambda: sdpa(qt, kt, vt, is_causal=causal),
+        shape=f"B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} (G {Hq // Hkv}) "
+              f"D={D} {dtype_note} {'causal' if causal else 'non-causal'}",
+        nbytes=el(q) * 2 + el(k) + el(v),
+        ops=fa.work(q.shape, k.shape, causal, None) * 4 * D,
+        peak=hw.peak_flops(q.dtype, k.dtype))
+
+
+def _decode_spec(label, q, ck, cv, n_valid, launches):
+    """A B6 variant spec: q (B, Hq, D) over the cache ck, cv (B, S, Hkv,
+    D) with ``n_valid`` rows on every row, SDPA beside it (the cache cast
+    to q's dtype and its heads repeated beforehand)."""
+    B, Hq, D = q.shape
+    S, Hkv = ck.shape[1], ck.shape[2]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kv_len = torch.full((B,), n_valid, dtype=torch.int32, device=q.device)
+    kt, vt = (_sdpa_kv(x.to(q.dtype), Hq // Hkv) for x in (ck, cv))
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    el = lambda t: t.numel() * t.element_size()
+    return dict(
+        name="decode_attention", label=label, launches=launches,
+        run=lambda: da.decode_attention_cuda(q, ck, cv, kv_len),
+        plain=lambda: da.decode_attention_torch(q, ck, cv, kv_len),
+        lib=lambda: sdpa(q[:, :, None], kt, vt, attn_mask=mask),
+        shape=f"B={B} S={S} kv_len={n_valid} Hq={Hq} Hkv={Hkv} (G "
+              f"{Hq // Hkv}) D={D} q {str(q.dtype).split('.')[-1]}, cache "
+              f"{str(ck.dtype).split('.')[-1]}",
+        nbytes=el(q) * 2 + el(kv_len) + B * min(n_valid, S) * Hkv * D * 2
+        * ck.element_size(),
+        ops=da.work(kv_len, S, Hq) * 4 * D,
+        peak=hw.peak_flops(q.dtype, ck.dtype))
 
 
 def moe_attention_rows(model, cache, engine, launches_pd, launches_engine):
@@ -1885,62 +2032,41 @@ def moe_attention_rows(model, cache, engine, launches_pd, launches_engine):
     B, S, H, D = SERVE_BATCH, PROMPT_LEN, cfg.n_heads, cfg.head_dim
     q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev)
                .to(torch.bfloat16) for _ in range(3))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    el = lambda t: t.numel() * t.element_size()
-    specs = [dict(
-        name="flash_attention", label="moonshot",
-        run=lambda: fa.flash_attention_cuda(q, k, v),
-        plain=lambda: fa.flash_attention_torch(q, k, v),
-        lib=lambda: sdpa(qt, kt, vt, is_causal=True),
-        shape=f"B={B} Sq=Sk={S} Hq=Hkv={H} D={D} bf16 causal (K, V widened "
-              f"to f32 by the wrapper)",
-        nbytes=el(q) * 2 + el(k) + el(v),
-        ops=fa.work(q.shape, k.shape, True, None) * 4 * D,
-        peak=hw.peak_flops(q.dtype, k.dtype))]
+    specs = [_flash_spec("moonshot", q, k, v, True,
+                         launches_pd["flash_attention"], "bf16")]
     eng_cache = max((p.cache for p in engine.pipelines),
                     key=lambda c: c["pos"])
-    for label, c, n_valid in (
-            ("moonshot", cache, PROMPT_LEN + DECODE_STEPS),
-            ("moonshot-engine", eng_cache, eng_cache["pos"])):
+    for label, c, n_valid, launches in (
+            ("moonshot", cache, PROMPT_LEN + DECODE_STEPS, launches_pd),
+            ("moonshot-engine", eng_cache, eng_cache["pos"],
+             launches_engine)):
         ck = c["segments"][0][0]["k"][0]
-        cv = c["segments"][0][0]["v"][0]
-        Bd, Sd = ck.shape[:2]
-        dq = torch.randn((Bd, H, D), generator=g, device=dev).to(
+        dq = torch.randn((ck.shape[0], H, D), generator=g, device=dev).to(
             torch.bfloat16)
-        kv_len = torch.full((Bd,), n_valid, dtype=torch.int32, device=dev)
-        ckf, cvf = (x.transpose(1, 2).to(torch.bfloat16) for x in (ck, cv))
-        dmask = (torch.arange(Sd, device=dev)[None, :]
-                 < kv_len[:, None])[:, None, None, :]
-        valid_rows = int(kv_len.clamp(0, Sd).sum())
-        specs.append(dict(
-            name="decode_attention", label=label,
-            run=lambda a=(dq, ck, cv, kv_len): da.decode_attention_cuda(*a),
-            plain=lambda a=(dq, ck, cv, kv_len): da.decode_attention_torch(
-                *a),
-            lib=lambda a=(dq[:, :, None], ckf, cvf), m=dmask: sdpa(
-                *a, attn_mask=m),
-            shape=f"B={Bd} S={Sd} kv_len={n_valid} Hq=Hkv={H} D={D} q bf16, "
-                  f"cache {str(ck.dtype).split('.')[-1]}",
-            nbytes=el(dq) * 2 + el(kv_len)
-            + valid_rows * H * D * 2 * ck.element_size(),
-            ops=da.work(kv_len, Sd, H) * 4 * D,
-            peak=hw.peak_flops(dq.dtype, ck.dtype)))
+        specs.append(_decode_spec(label, dq, ck, c["segments"][0][0]["v"][0],
+                                  n_valid, launches["decode_attention"]))
+    return _variant_rows(specs, flush)
+
+
+def _variant_rows(specs, flush):
+    """Each spec's kernel against its plain version on the same inputs
+    (f32 outputs at ATTN_TOL, bf16 at two bf16 ulps, ATTN_BF16_TOL; the
+    output keeps q's dtype), timed beside its bound and one SDPA call
+    (``lib``): (name, label, row) to attach as variants."""
     out = []
     for s in specs:
         got, want = s["run"](), s["plain"]()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        if got.dtype != torch.bfloat16 or not torch.allclose(
-                got.float(), want.float(), **ATTN_BF16_TOL):
+        tol = ATTN_BF16_TOL if want.dtype == torch.bfloat16 else ATTN_TOL
+        if got.dtype != want.dtype or not torch.allclose(
+                got.float(), want.float(), **tol):
             raise AssertionError(f"{s['name']} ({s['label']}): kernel "
                                  f"differs from its plain version by {err}")
         name = s["name"]
         bound_s, bound_by = hw.bound_seconds(s["nbytes"], s["ops"], s["peak"])
-        launches = (launches_engine if s["label"].endswith("engine")
-                    else launches_pd)[name]
         out.append((name, s["label"], {
-            "name": name, "variant": s["label"], "launches": launches,
+            "name": name, "variant": s["label"], "launches": s["launches"],
             "shape": s["shape"], "max_abs_err": err,
             "ms": _time_ms(s["run"], KERNEL_REPS, flush),
             "ms_l2_warm": _time_ms(s["run"], KERNEL_REPS, _NoFlush()),
@@ -1972,14 +2098,14 @@ def moe_phase():
     print(f"serving: {MOE_ARCH} at full width, {n_params} parameters (bf16, "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the card) "
           f"made in {time.perf_counter() - t0:.2f} s")
-    pd, cache = moe_prefill_decode(model, params, prompts, CACHE_LEN)
+    pd, cache = bf16_prefill_decode(model, params, prompts, CACHE_LEN)
     print_serving("moe ", pd)
     print(f"moe greedy tokens equal to the plain run: "
           f"{pd['greedy_tokens_equal_to_plain']}/{pd['greedy_tokens_total']};"
           f" prefill tokens that changed experts in some layer: "
           f"{pd['prefill_tokens_with_changed_experts']} of "
           f"{pd['prefill_routed_tokens']}")
-    gate = moe_layer_checks(model, params, prompts, cache)
+    gate = bf16_layer_checks(model, params, prompts, cache)
     pre = gate["prefill"]
     print(f"moe routing gate, layer by layer: {gate['route_flips']} of "
           f"{gate['routed_tokens']} routed tokens changed experts (share "
@@ -1990,7 +2116,7 @@ def moe_phase():
           f"{pre['layer_output_max_rel_err']:.4g} of their largest entry")
     print("moe routing gate " + json.dumps(gate))
     torch.cuda.empty_cache()
-    engine, eng = moe_engine_run(model, params)
+    engine, eng = bf16_engine_run(model, params)
     print(f"moe engine tokens/s: {eng['tokens_per_s']:.1f} ({eng['tokens']} "
           f"tokens, {eng['requests']} requests over {eng['pipelines']} "
           f"pipelines; plain versions {eng['plain_tokens_per_s']:.1f})")
@@ -1999,6 +2125,326 @@ def moe_phase():
     rows = moe_attention_rows(model, cache, engine, pd["launches"],
                               eng["launches"])
     del model, params, cache, engine, prompts
+    torch.cuda.empty_cache()
+    return rows, pd["launches"], eng["launches"]
+
+
+def encdec_attention_rows(model, cache, launches):
+    """B5 and B6 at seamless's shapes, as variant rows (random inputs from
+    a seeded generator): B5 ``seamless encoder`` over f32 q, k, v (4,
+    1,024, 16, 64) non-causal and ``seamless cross`` (decoder queries over
+    encoder keys, the prefill's 1,024 tokens over its 1,024 frames),
+    and B6 ``seamless cross``: an f32 query (4, 16, 64) over a bf16 cross
+    cache (4, 4,096, 16, 64), ``kv_len == S`` on every row (the path's
+    cross cache is zeros: random values here, for a check that sees the
+    weights), and ``seamless self``: an f32 query over layer 0's self
+    cache (4, 1,536, 16, 64) bf16 as the decode run left it, at its
+    kv_len (the decode steps so far)."""
+    cfg = model.cfg
+    dev = model.device
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    B, S, H, D = SERVE_BATCH, PROMPT_LEN, cfg.n_heads, cfg.head_dim
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    specs = [
+        _flash_spec("seamless encoder", rnd(B, ENCDEC_FRAMES, H, D),
+                    rnd(B, ENCDEC_FRAMES, H, D), rnd(B, ENCDEC_FRAMES, H, D),
+                    False, launches["flash_attention"], "f32"),
+        _flash_spec("seamless cross", rnd(B, S, H, D),
+                    rnd(B, ENCDEC_FRAMES, H, D), rnd(B, ENCDEC_FRAMES, H, D),
+                    False, launches["flash_attention"], "f32"),
+        _decode_spec("seamless cross", rnd(B, H, D),
+                     rnd(B, ENC_LEN, H, D).to(torch.bfloat16),
+                     rnd(B, ENC_LEN, H, D).to(torch.bfloat16), ENC_LEN,
+                     launches["decode_attention"]),
+        _decode_spec("seamless self", rnd(B, H, D), cache["self_k"][0],
+                     cache["self_v"][0], int(cache["pos"]),
+                     launches["decode_attention"]),
+    ]
+    return _variant_rows(specs, flush)
+
+
+def encdec_decode_fault(model, params, inputs):
+    """The seamless decode gate's reach: DECODE_STEPS greedy decode steps
+    from ``init_cache`` on the plain run's tokens with the plain versions,
+    with the kernels, and with the kernels while every B6 call drops its
+    newest key (``kv_len - 1``, at least 1: one key of the self cache; the
+    cross cache is zeros, where a dropped key changes nothing). Returns
+    each step's largest logit difference from the plain run, for the
+    sound and the faulted run, and the steps at which each fails the gate
+    (``_check_logits``' test at ENCDEC_DECODE_TOL); ``encdec_phase``
+    requires the sound run to pass every step and the faulted run to fail
+    some. Launches made here are not counted."""
+    B = inputs["tokens"].shape[0]
+    plg, _ = model.prefill(params, inputs, impl="torch")
+    toks = [plg.argmax(-1)]
+    decode = ops.decode_attention
+
+    def dropped(q, k, v, kv_len, **kw):
+        return decode(q, k, v, torch.clamp(kv_len - 1, min=1), **kw)
+    lgs = {}
+    for run, impl, b6 in (("plain", "torch", decode), ("sound", None, decode),
+                          ("faulted", None, dropped)):
+        cache = model.init_cache(B, CACHE_LEN)
+        ops.decode_attention = b6
+        try:
+            lgs[run] = []
+            for i in range(DECODE_STEPS):
+                lg, cache = model.decode_step(params, cache, toks[i],
+                                              impl=impl)
+                lgs[run].append(lg)
+                if run == "plain":
+                    toks.append(lg.argmax(-1))
+        finally:
+            ops.decode_attention = decode
+    tol = ENCDEC_DECODE_TOL
+    return {run: {
+        "max_abs_err_by_step": [float((a - b).abs().max())
+                                for a, b in zip(lgs[run], lgs["plain"])],
+        "steps_failing_gate": [i for i, (a, b) in enumerate(
+            zip(lgs[run], lgs["plain"]))
+            if not torch.allclose(a, b, atol=tol, rtol=tol)]}
+        for run in ("sound", "faulted")}
+
+
+def encdec_phase():
+    """seamless-m4t-medium at full width, f32 parameters from a generator
+    seeded 0 (~0.72 B, ~2.9 GB): the prefill of 4 x (1,024 stub frames +
+    1,024 tokens) (B5 on each encoder layer, bidirectional, and on each
+    decoder layer's causal self- and bidirectional cross-attention) and
+    32 greedy decode steps from ``init_cache(4, 1,536)`` (B6 on each
+    decoder layer's self cache and 4,096-frame cross cache), with the
+    kernels and with the plain versions; then the decode gate's reach
+    (``encdec_decode_fault``) and B5/B6 rows at its shapes."""
+    t0 = time.perf_counter()
+    model = build(get_arch(ENCDEC_ARCH), "cuda")
+    cfg = model.cfg
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, size=(SERVE_BATCH, PROMPT_LEN))).cuda()
+    frames = torch.randn((SERVE_BATCH, ENCDEC_FRAMES, cfg.d_model),
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serving: {ENCDEC_ARCH} at full width ({cfg.enc_layers} encoder "
+          f"+ {cfg.dec_layers} decoder layers), {n_params} parameters (f32) "
+          f"made on the card in {time.perf_counter() - t0:.2f} s")
+    pd, cache = prefill_decode(
+        model, params, prompts, CACHE_LEN,
+        {"flash_attention": (cfg.enc_layers + 2 * cfg.dec_layers, 0),
+         "decode_attention": (0, 2 * cfg.dec_layers), "ssd_scan": (0, 0)},
+        ENCDEC_PREFILL_TOL, ENCDEC_DECODE_TOL, frames=frames)
+    pd["frames"] = ENCDEC_FRAMES
+    print_serving("encdec ", pd)
+    fault = encdec_decode_fault(model, params,
+                                {"tokens": prompts, "frames": frames})
+    print(f"encdec decode gate ({ENCDEC_DECODE_TOL}) against the plain run "
+          f"on its tokens: sound kernels max abs err "
+          f"{max(fault['sound']['max_abs_err_by_step'])}, B6 dropping one "
+          f"key {max(fault['faulted']['max_abs_err_by_step'])} (fails the "
+          f"gate at {len(fault['faulted']['steps_failing_gate'])} of "
+          f"{DECODE_STEPS} steps)")
+    print("encdec decode gate " + json.dumps(fault))
+    if fault["sound"]["steps_failing_gate"]:
+        raise AssertionError("encdec decode: the kernels fail the gate on "
+                             "the plain run's tokens at steps "
+                             f"{fault['sound']['steps_failing_gate']}")
+    if not fault["faulted"]["steps_failing_gate"]:
+        raise AssertionError("encdec decode: the gate passes a B6 that "
+                             "drops a key")
+    rows = encdec_attention_rows(model, cache, pd["launches"])
+    del model, params, prompts, frames, cache
+    torch.cuda.empty_cache()
+    return rows, pd["launches"]
+
+
+def reduced_encdec(arch):
+    """``arch``'s ``reduced()`` encoder-decoder (2 + 2 layers, head dim 16)
+    on the card against the same parameters on the CPU: the prefill of
+    REDUCED_BATCH x (REDUCED_PROMPT frames + REDUCED_PROMPT tokens) and
+    REDUCED_STEPS greedy decode steps from ``init_cache`` (f32), logits
+    at PREFILL_TOL; exactly 3 B5 a decoder layer plus 1 an encoder layer
+    per prefill, 2 B6 a decoder layer per step."""
+    cfg = get_arch(arch).reduced().replace(remat=False)
+    card, cpu = build(cfg, "cuda"), build(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0), torch.float32)
+    card_params = cpu.init(torch.Generator().manual_seed(0),
+                           torch.float32).to("cuda")
+    rng = np.random.default_rng(0)
+    inputs = {"tokens": torch.from_numpy(rng.integers(
+                  2, cfg.vocab, size=(REDUCED_BATCH, REDUCED_PROMPT))),
+              "frames": torch.from_numpy(rng.standard_normal(
+                  (REDUCED_BATCH, REDUCED_PROMPT, cfg.d_model)).astype(
+                      np.float32))}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    lg, _ = card.prefill(card_params, {k: t.cuda() for k, t in
+                                       inputs.items()})
+    per_prefill = _build.launch_counts()
+    c = card.init_cache(REDUCED_BATCH, REDUCED_STEPS, torch.float32)
+    lgs, nxt = [lg], [lg.argmax(-1)]
+    for _ in range(REDUCED_STEPS):
+        lg, c = card.decode_step(card_params, c, nxt[-1])
+        lgs.append(lg)
+        nxt.append(lg.argmax(-1))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    plg, _ = cpu.prefill(params, inputs)
+    err, _ = _check_logits("reduced encdec prefill", lgs[0].cpu(), plg,
+                           PREFILL_TOL)
+    pc = cpu.init_cache(REDUCED_BATCH, REDUCED_STEPS, torch.float32)
+    for i in range(REDUCED_STEPS):
+        plg, pc = cpu.decode_step(params, pc, nxt[i].cpu())
+        e, _ = _check_logits(f"reduced encdec decode step {i}",
+                             lgs[i + 1].cpu(), plg, PREFILL_TOL)
+        err = max(err, e)
+    want = {"flash_attention": (cfg.enc_layers + 2 * cfg.dec_layers, 0),
+            "decode_attention": (0, REDUCED_STEPS * 2 * cfg.dec_layers)}
+    for k, (per, dec) in want.items():
+        got = (per_prefill[k], launches[k] - per_prefill[k])
+        if got != (per, dec):
+            raise AssertionError(f"reduced {arch}: {k} launched {got[0]} "
+                                 f"times in the prefill and {got[1]} in "
+                                 f"{REDUCED_STEPS} decode steps, not "
+                                 f"{per} and {dec}")
+    return {"arch": arch, "family": cfg.family, "d_head": cfg.head_dim,
+            "layers": [cfg.enc_layers, cfg.dec_layers],
+            "batch": REDUCED_BATCH, "frames": REDUCED_PROMPT,
+            "prompt_len": REDUCED_PROMPT, "decode_steps": REDUCED_STEPS,
+            "logit_max_abs_err_vs_cpu": err,
+            "launches_per_prefill": {k: per_prefill[k] for k in want},
+            "decode_attention_per_step": want["decode_attention"][1]
+            / REDUCED_STEPS}, launches
+
+
+def reduced_train_step(arch):
+    """One ``make_train_step`` step (batch 4 x 32, accumulation 2) of
+    ``arch``'s ``reduced()`` config on the card against the same
+    parameters and data on the CPU, at step 10 of 10 (minicpm's WSD
+    schedule is then in its decay): loss and grad norm within
+    REDUCED_TRAIN_TOL (f32 through 4 layers; for seamless the encoder's
+    and cross-attention's B5 forward and backward run with
+    ``causal=False``). Exactly one B5 forward and one backward a
+    microbatch per attention call."""
+    cfg = get_arch(arch).reduced().replace(remat=False, microbatch=2)
+    shape = ShapeConfig("t", 32, 4, "train")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(2, cfg.vocab,
+                                                     size=(4, 32)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (4, 24, cfg.d_model)).astype(np.float32))
+    runs = []
+    for dev in ("cpu", "cuda"):
+        model = build(cfg, dev)
+        params = build(cfg, "cpu").init(torch.Generator().manual_seed(0),
+                                        torch.float32).to(dev)
+        params.requires_grad_(True)
+        step_fn, opt_init = make_train_step(model, shape, base_lr=1e-2,
+                                            warmup=1, total_steps=10)
+        opt = opt_init(params)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        _, _, loss, gn = step_fn(params, opt,
+                                 {k: t.to(dev) for k, t in batch.items()},
+                                 10)
+        torch.cuda.synchronize()
+        runs.append((float(loss), float(gn), _build.launch_counts()))
+    (loss_cpu, gn_cpu, _), (loss, gn, launches) = runs
+    for what, a, b in (("loss", loss, loss_cpu), ("grad norm", gn, gn_cpu)):
+        if abs(a - b) > REDUCED_TRAIN_TOL * (1 + abs(b)):
+            raise AssertionError(f"reduced {arch} train step: {what} {a} on "
+                                 f"the card, {b} on the CPU")
+    calls = 2 * (cfg.enc_layers + 2 * cfg.dec_layers
+                 if cfg.family == "encdec" else cfg.n_layers)
+    for k in ("flash_attention", "flash_attention_bwd"):
+        if launches[k] != calls:
+            raise AssertionError(f"reduced {arch} train step launched {k} "
+                                 f"{launches[k]} times, not {calls}")
+    return {"arch": arch, "schedule": cfg.schedule, "loss": loss,
+            "loss_cpu": loss_cpu, "grad_norm": gn, "grad_norm_cpu": gn_cpu,
+            "launches": {k: launches[k] for k in ("flash_attention",
+                                                  "flash_attention_bwd")}}
+
+
+def dense_bf16_attention_rows(model, cache, launches_pd):
+    """B5 and B6 at qwen2.5-32b's shapes, and B5 at llava-next-34b's: B5
+    ``qwen`` over bf16 q (4, 1,024, 40, 128) and k, v (4, 1,024, 8, 128)
+    causal (G 5: 25 positions in 125 of a block's 128 rows), B5 ``llava``
+    over bf16 q (4, 1,600, 56, 128), k, v 8 heads (G 7: 18 positions in
+    126 rows; timed only: no path launches this shape, as llava runs
+    reduced, so its ``launches`` is null), and B6 ``qwen``: a bf16 query
+    (4, 40, 128) over layer 0's prefilled bf16 cache (4, 1,536, 8, 128)
+    at the path's kv_len."""
+    cfg = model.cfg
+    dev = model.device
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, S, Hq, Hkv, D = (SERVE_BATCH, PROMPT_LEN, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    Bl, Sl, Hl, Hkl = LLAVA_ROW
+    specs = [
+        _flash_spec("qwen", rnd(B, S, Hq, D), rnd(B, S, Hkv, D),
+                    rnd(B, S, Hkv, D), True, launches_pd["flash_attention"],
+                    "bf16"),
+        _flash_spec("llava", rnd(Bl, Sl, Hl, D), rnd(Bl, Sl, Hkl, D),
+                    rnd(Bl, Sl, Hkl, D), True, None, "bf16"),
+        _decode_spec("qwen", rnd(B, Hq, D),
+                     cache["segments"][0][0]["k"][0],
+                     cache["segments"][0][0]["v"][0],
+                     PROMPT_LEN + DECODE_STEPS,
+                     launches_pd["decode_attention"]),
+    ]
+    return _variant_rows(specs, flush)
+
+
+def dense_bf16_phase():
+    """qwen2.5-32b at full width, bf16 parameters made on the card from a
+    generator seeded 0 (~32.8 B, ~61 GiB: each tensor drawn and cast on
+    its own, the model never held in f32): the serving path (prefill 4 x
+    1,024 into a 1,536-deep bf16 cache, 32 decode steps) with the kernels
+    and plain (``bf16_prefill_decode``: full-run logits and greedy tokens
+    reported), the layer-by-layer gate (``bf16_layer_checks``: every layer
+    on the plain run's input, outputs within DENSE_LAYER_TOL), the engine as
+    ``launch.serve`` builds it (``bf16_engine_run``), and B5/B6 rows."""
+    t0 = time.perf_counter()
+    model = build(get_arch(DENSE_BF16_ARCH), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        2, model.cfg.vocab, size=(SERVE_BATCH, PROMPT_LEN))).cuda()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serving: {DENSE_BF16_ARCH} at full width, {n_params} parameters "
+          f"(bf16, {torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB on the "
+          f"card) made in {time.perf_counter() - t0:.2f} s")
+    pd, cache = bf16_prefill_decode(model, params, prompts, CACHE_LEN)
+    print_serving("qwen ", pd)
+    print(f"qwen full-run logits: max abs err "
+          f"{pd['logit_max_abs_err']} from the plain "
+          f"run; greedy tokens equal {pd['greedy_tokens_equal_to_plain']}/"
+          f"{pd['greedy_tokens_total']} (reported, not gated: bf16 "
+          f"roundings compound through 64 layers)")
+    gate = bf16_layer_checks(model, params, prompts, cache)
+    print(f"qwen layer gate: every layer on the plain run's input, outputs "
+          f"within {gate['prefill']['layer_output_max_rel_err']:.4g} "
+          f"(prefill) and {gate['decode_step']['layer_output_max_rel_err']:.4g}"
+          f" (decode step) of their largest entry (tolerance "
+          f"{DENSE_LAYER_TOL}); final logits within their hidden states' "
+          f"bound (share {gate['prefill']['logit_max_bound_share']:.4g})")
+    print("qwen layer gate " + json.dumps(gate))
+    torch.cuda.empty_cache()
+    _, eng = bf16_engine_run(model, params)
+    print(f"qwen engine tokens/s: {eng['tokens_per_s']:.1f} ({eng['tokens']}"
+          f" tokens, {eng['requests']} requests over {eng['pipelines']} "
+          f"pipelines; plain versions {eng['plain_tokens_per_s']:.1f})")
+    print("qwen engine " + json.dumps(eng))
+    rows = dense_bf16_attention_rows(model, cache, pd["launches"])
+    del model, params, cache, prompts
     torch.cuda.empty_cache()
     return rows, pd["launches"], eng["launches"]
 
@@ -2193,6 +2639,59 @@ def main() -> int:
                 paths = by_name[name]["launches_by_path"]
                 paths[f"reduced {arch}"] = red_pd[name]
                 paths[f"reduced {arch} engine"] = red_eng[name]
+
+    # the encoder-decoder family: seamless-m4t-medium at full width, f32
+    by_name = {row["name"]: row for row in kernels}
+    ed_rows, ed_launches = encdec_phase()
+    for name, label, row in ed_rows:
+        by_name[name].setdefault("variants", {})[label] = row
+    for name in ("flash_attention", "decode_attention"):
+        by_name[name]["launches_by_path"]["seamless"] = ed_launches[name]
+
+    # the remaining configs reduced, card against CPU; train steps
+    for arch in REDUCED_A21_ARCHS:
+        red, red_pd, red_eng = reduced_serving(arch)
+        print(f"reduced {arch} ({red['family']}, d_head {red['d_head']}) on "
+              f"the card: logits within {red['logit_max_abs_err_vs_cpu']} of "
+              f"the CPU run; launches per prefill "
+              f"{json.dumps(red['launches_per_prefill'])}; engine "
+              f"{red['engine']['tokens_equal_to_cpu']}/"
+              f"{red['engine']['tokens']} tokens equal to the CPU engine's")
+        print("reduced serving " + json.dumps(red))
+        for name in ("flash_attention", "decode_attention"):
+            paths = by_name[name]["launches_by_path"]
+            paths[f"reduced {arch}"] = red_pd[name]
+            paths[f"reduced {arch} engine"] = red_eng[name]
+    red, red_l = reduced_encdec(ENCDEC_ARCH)
+    print(f"reduced {ENCDEC_ARCH} (encdec, d_head {red['d_head']}) on the "
+          f"card: logits within {red['logit_max_abs_err_vs_cpu']} of the CPU "
+          f"run; launches per prefill "
+          f"{json.dumps(red['launches_per_prefill'])}, B6 per decode step "
+          f"{red['decode_attention_per_step']}")
+    print("reduced serving " + json.dumps(red))
+    for name in ("flash_attention", "decode_attention"):
+        by_name[name]["launches_by_path"][f"reduced {ENCDEC_ARCH}"] = (
+            red_l[name])
+    for arch in REDUCED_TRAIN_ARCHS:
+        rt = reduced_train_step(arch)
+        print(f"reduced {arch} train step on the card ({rt['schedule']}): "
+              f"loss {rt['loss']} (CPU {rt['loss_cpu']}), grad norm "
+              f"{rt['grad_norm']} (CPU {rt['grad_norm_cpu']}); launches "
+              f"{json.dumps(rt['launches'])}")
+        print("reduced train " + json.dumps(rt))
+        for name in ("flash_attention", "flash_attention_bwd"):
+            by_name[name]["launches_by_path"][f"reduced {arch} train"] = (
+                rt["launches"][name])
+
+    # qwen2.5-32b at full width, bf16 parameters (llava's B5 row beside it)
+    q_rows, q_pd, q_eng = dense_bf16_phase()
+    for name, label, row in q_rows:
+        by_name[name].setdefault("variants", {})[label] = row
+    for name in ("flash_attention", "decode_attention"):
+        by_name[name]["launches_by_path"]["qwen"] = q_pd[name]
+    by_name["decode_attention"]["launches_by_path"]["qwen_engine"] = (
+        q_eng["decode_attention"])
+
     for row in kernels:
         row["ptxas"] = _ptxas_of(ptxas, row["name"])
         _with_bound_share(row)

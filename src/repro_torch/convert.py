@@ -9,9 +9,10 @@ Everything crosses as numpy arrays: take ``np.asarray`` of the JAX
 package's arrays, hand them to the loaders here, and compare the port's
 outputs through ``batch_to_numpy`` / ``leaves_to_numpy``, which list leaves
 in the reference's order (fields in declaration order, ``meta`` keys sorted
-— ``jax.tree.leaves``'s order), or ``lm_cache_to_numpy``, which rebuilds
-the reference's cache tree. bfloat16 arrays cross as float32 (numpy has no
-bfloat16 of its own); the widening is exact.
+— ``jax.tree.leaves``'s order), or ``lm_cache_to_numpy`` and
+``encdec_cache_to_numpy``, which rebuild the reference's cache trees.
+bfloat16 arrays cross as float32 (numpy has no bfloat16 of its own); the
+widening is exact.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 from repro_torch.core.flowcache import FlowCache
 from repro_torch.core.graph import MeiliApp, PacketBatch, tree_leaves
 from repro_torch.hw import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.optim import AdamWState
 
@@ -162,13 +164,36 @@ def lm_params_from_jax(cfg, params: Mapping, device="cuda") -> lm_mod.LM:
                      _map_tree(params.get("final_norm", {}), to_t), head)
 
 
+def encdec_params_from_jax(cfg, params: Mapping, device="cuda"
+                           ) -> encdec_mod.EncDec:
+    """The port's EncDec holding the JAX package's encoder-decoder
+    parameters (the tree of ``repro.models.encdec.init_encdec``, numpy
+    leaves). The ``enc`` and ``dec`` stacks carry a leading layer axis;
+    they are unstacked into one layer module per layer, in order."""
+    dev = resolve_device(device)
+    to_t = lambda a: _lm_tensor(a, dev)
+
+    def unstack(stack, n):
+        return [_map_tree(stack, lambda a, i=i: to_t(np.asarray(a)[i]))
+                for i in range(n)]
+    return encdec_mod.EncDec(
+        cfg, _map_tree(params["embed"], to_t),
+        unstack(params["enc"], cfg.enc_layers),
+        unstack(params["dec"], cfg.dec_layers),
+        _map_tree(params.get("enc_norm", {}), to_t),
+        _map_tree(params.get("dec_norm", {}), to_t))
+
+
 def lm_named_from_jax(cfg, tree: Mapping, device="cuda"
                       ) -> Dict[str, torch.Tensor]:
-    """A tree shaped as the JAX package's LM parameters (the parameters, a
-    gradient, an AdamW moment; numpy leaves) as the port's flat mapping
-    from parameter name (``LM.named_parameters()``) to tensor."""
+    """A tree shaped as the JAX package's model parameters (the
+    parameters, a gradient, an AdamW moment; numpy leaves; an LM's or,
+    for the encdec family, an encoder-decoder's) as the port's flat
+    mapping from parameter name (``named_parameters()``) to tensor."""
+    load = (encdec_params_from_jax if cfg.family == "encdec"
+            else lm_params_from_jax)
     return {k: p.detach() for k, p in
-            lm_params_from_jax(cfg, tree, device).named_parameters()}
+            load(cfg, tree, device).named_parameters()}
 
 
 def adamw_state_from_jax(cfg, state: Any, device="cuda") -> AdamWState:
@@ -203,3 +228,26 @@ def lm_cache_to_numpy(cache: Mapping) -> Dict[str, Any]:
     return {"pos": np.int32(cache["pos"]),
             "segments": [[_map_tree(c, leaf) for c in seg]
                          for seg in cache["segments"]]}
+
+
+_ENCDEC_LEAVES = ("self_k", "self_v", "cross_k", "cross_v")
+
+
+def encdec_cache_from_jax(cache: Mapping, device="cuda") -> Dict[str, Any]:
+    """A port encoder-decoder cache from the JAX package's (numpy leaves),
+    each leaf's dtype kept."""
+    dev = resolve_device(device)
+    out = {"pos": int(np.asarray(cache["pos"]))}
+    out.update({k: _lm_tensor(cache[k], dev) for k in _ENCDEC_LEAVES})
+    return out
+
+
+def encdec_cache_to_numpy(cache: Mapping) -> Dict[str, Any]:
+    """The port's encoder-decoder cache as the reference's tree: ``pos``
+    an int32 scalar, each leaf (L, B, S, Hkv, dh) as numpy, bfloat16
+    widened to float32."""
+    out = {"pos": np.int32(cache["pos"])}
+    for k in _ENCDEC_LEAVES:
+        t = cache[k].detach().cpu()
+        out[k] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out

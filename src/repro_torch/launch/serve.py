@@ -13,6 +13,12 @@ Usage (on the card; ``--device cpu`` runs the plain versions on the CPU):
       --arch moonshot-v1-16b-a3b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-1.5-large-398b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llava-next-34b --reduced --device cpu
+
+qwen2.5-32b, minicpm-2b and llava-next-34b serve through the same path;
+seamless-m4t-medium (encdec) raises ``KeyError('segments')``, as the
+reference's ``launch.serve`` does.
 """
 from __future__ import annotations
 
@@ -58,8 +64,16 @@ def measure_segment_latencies(model, params, batch: int,
     when on the card. The pass carries activations in the parameters'
     dtype, as a decode step's embedding lookup gives them (the reference
     passes f32 zeros, which JAX promotes against bf16 weights; PyTorch
-    does not mix the two in a product)."""
+    does not mix the two in a product). An encoder-decoder has no layer
+    segments to plan over: it raises ``KeyError('segments')``, as the
+    reference's ``launch.serve`` does (it reads ``params["segments"]``);
+    the reference serves no encdec model, and neither does the port."""
     cfg = model.cfg
+    if cfg.family == "encdec":
+        raise KeyError("segments", f"{cfg.name}: launch.serve plans over "
+                       "a decoder LM's layer segments; an "
+                       "encoder-decoder has none (the reference's "
+                       "launch.serve raises the same KeyError)")
     dev = model.device
     dtype = params.embed["table"].dtype
     cache = model.init_cache(batch, max_len, torch.float32)

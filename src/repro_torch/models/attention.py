@@ -1,6 +1,7 @@
 """GQA attention layer: init, full-sequence apply (prefill, with cache
-emission) and single-token decode apply. The flash and decode kernels are
-reached through ``kernels/ops.py``.
+emission; self- or cross-attention) and single-token decode apply (over a
+cache it writes, or, for cross-attention, one it only reads). The flash
+and decode kernels are reached through ``kernels/ops.py``.
 
 Parameters keep the reference's layout: q/k/v projections stored as
 (D, H, dh) and the output projection as (H, dh, D), so heads stay a
@@ -42,11 +43,19 @@ def _proj(p: Mapping, x: torch.Tensor) -> torch.Tensor:
 
 def attn_apply(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                causal: bool = True, window: Optional[int] = None,
+               kv_x: Optional[torch.Tensor] = None,
                impl: Optional[str] = None, return_kv: bool = False):
-    """Full-sequence self-attention. x: (B, S, D); positions: (B, S)."""
-    q = apply_rope(_proj(p["q"], x), positions, cfg.rope_theta)
-    k = apply_rope(_proj(p["k"], x), positions, cfg.rope_theta)
-    v = _proj(p["v"], x)
+    """Full-sequence attention. x: (B, S, D); positions: (B, S). With
+    ``kv_x`` (B, Sk, D), the encoder output, it is cross-attention: k and v
+    are projected from ``kv_x`` and, as in the reference, neither side gets
+    RoPE."""
+    src = x if kv_x is None else kv_x
+    q = _proj(p["q"], x)
+    k = _proj(p["k"], src)
+    v = _proj(p["v"], src)
+    if kv_x is None:                       # self-attention: RoPE both sides
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal, window=window, impl=impl)
     y = torch.einsum("bshe,hed->bsd", out, p["o"]["w"])
     if return_kv:
@@ -56,28 +65,36 @@ def attn_apply(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor,
 
 def attn_decode(p: Mapping, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
                 cache_v: torch.Tensor, pos: int,
-                window: Optional[int] = None, impl: Optional[str] = None
-                ) -> torch.Tensor:
+                window: Optional[int] = None, cross: bool = False,
+                impl: Optional[str] = None) -> torch.Tensor:
     """One-token decode. x: (B, D); cache_k/v: (B, S, Hkv, dh), written in
     place at ``pos`` (the tokens so far). As ``dynamic_update_slice`` does
     in the reference, the write is clamped to S - 1 when ``pos >= S``,
-    while the valid length stays ``pos + 1``. Returns y (B, D)."""
+    while the valid length stays ``pos + 1``. With ``cross`` the cache
+    holds the encoder's keys and values: it is read, not written, every
+    row attends over all S of them, and the query gets no RoPE. Returns y
+    (B, D)."""
     B = x.shape[0]
     S = cache_k.shape[1]
     q = torch.einsum("bd,dhe->bhe", x, p["q"]["w"])
-    k_new = torch.einsum("bd,dhe->bhe", x, p["k"]["w"])
-    v_new = torch.einsum("bd,dhe->bhe", x, p["v"]["w"])
     if "b" in p["q"]:
         q = q + p["q"]["b"]
-        k_new = k_new + p["k"]["b"]
-        v_new = v_new + p["v"]["b"]
-    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q = apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
-    k_new = apply_rope(k_new[:, None], posv, cfg.rope_theta)[:, 0]
-    at = min(pos, S - 1)
-    cache_k[:, at] = k_new.to(cache_k.dtype)
-    cache_v[:, at] = v_new.to(cache_v.dtype)
-    kv_len = torch.full((B,), pos + 1, dtype=torch.int32, device=x.device)
+    if cross:
+        kv_len = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    else:
+        k_new = torch.einsum("bd,dhe->bhe", x, p["k"]["w"])
+        v_new = torch.einsum("bd,dhe->bhe", x, p["v"]["w"])
+        if "b" in p["k"]:
+            k_new = k_new + p["k"]["b"]
+            v_new = v_new + p["v"]["b"]
+        posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
+        k_new = apply_rope(k_new[:, None], posv, cfg.rope_theta)[:, 0]
+        at = min(pos, S - 1)
+        cache_k[:, at] = k_new.to(cache_k.dtype)
+        cache_v[:, at] = v_new.to(cache_v.dtype)
+        kv_len = torch.full((B,), pos + 1, dtype=torch.int32,
+                            device=x.device)
     if window is not None:
         lo = torch.clamp(kv_len - window, min=0)
         out = _window_decode(q, cache_k, cache_v, lo, kv_len)

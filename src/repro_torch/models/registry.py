@@ -2,10 +2,11 @@
 
 ``build(cfg)`` returns a Model exposing ``init`` (an ``lm.LM`` module on a
 device), ``loss`` (training), ``forward``, ``prefill``, ``decode_step`` and
-``init_cache`` over the dense, MoE, ssm and hybrid families, and
-``param_struct``, ``input_specs`` and ``param_counts``, which give shapes
-and dtypes on the meta device (no allocation; the port has no sharding
-axes). encdec raises here (ROADMAP A21).
+``init_cache`` over every family (dense, vlm, MoE, ssm, hybrid through
+``models/lm.py``; encdec through ``models/encdec.py``), and
+``param_struct``, ``input_specs``, ``cache_struct`` and ``param_counts``,
+which give shapes and dtypes on the meta device (no allocation; the port
+has no sharding axes).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.hw import resolve_device
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 
 META = torch.device("meta")
@@ -27,14 +29,23 @@ class Model:
     device: torch.device
 
     # -- params ---------------------------------------------------------------
+    @property
+    def encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
     def init(self, generator: Optional[torch.Generator] = None,
-             dtype=torch.bfloat16) -> lm_mod.LM:
+             dtype=torch.bfloat16):
+        """An ``lm.LM``, or an ``encdec.EncDec`` for the encdec family."""
+        if self.encdec:
+            return encdec_mod.init_encdec(self.cfg, generator, dtype,
+                                          self.device)
         return lm_mod.init_lm(self.cfg, generator, dtype, self.device)
 
-    def param_struct(self, dtype=torch.bfloat16) -> lm_mod.LM:
-        """The parameters' shapes and dtypes: the LM built on the meta
+    def param_struct(self, dtype=torch.bfloat16):
+        """The parameters' shapes and dtypes: the model built on the meta
         device."""
-        return lm_mod.init_lm(self.cfg, torch.Generator(), dtype, META)
+        init = encdec_mod.init_encdec if self.encdec else lm_mod.init_lm
+        return init(self.cfg, torch.Generator(), dtype, META)
 
     def param_counts(self) -> Tuple[int, int]:
         """(total, active) parameter counts. Active discounts the routed
@@ -52,28 +63,47 @@ class Model:
         return total, active
 
     # -- steps ------------------------------------------------------------------
-    def loss(self, params: lm_mod.LM, batch: Dict[str, torch.Tensor],
+    def loss(self, params, batch: Dict[str, torch.Tensor],
              impl: Optional[str] = None) -> torch.Tensor:
+        if self.encdec:
+            return encdec_mod.encdec_loss(self.cfg, params, batch["frames"],
+                                          batch["tokens"], impl=impl)
         return lm_mod.lm_loss(self.cfg, params, batch["tokens"],
                               batch.get("patches"), impl=impl)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
+        if self.encdec:
+            return encdec_mod.init_cache_encdec(self.cfg, batch, max_len,
+                                                dtype, self.device)
         return lm_mod.init_cache(self.cfg, batch, max_len, dtype, self.device)
 
-    def forward(self, params: lm_mod.LM, batch: Dict[str, torch.Tensor],
+    def forward(self, params, batch: Dict[str, torch.Tensor],
                 impl: Optional[str] = None) -> torch.Tensor:
+        if self.encdec:
+            enc = encdec_mod.encode(self.cfg, params, batch["frames"], impl)
+            return encdec_mod.decode_train(self.cfg, params, batch["tokens"],
+                                           enc, impl)
         return lm_mod.forward(self.cfg, params, batch.get("tokens"),
                               batch.get("patches"), impl)
 
-    def prefill(self, params: lm_mod.LM, batch: Dict[str, torch.Tensor],
+    def prefill(self, params, batch: Dict[str, torch.Tensor],
                 max_len: int = 0, impl: Optional[str] = None,
                 cache_dtype=torch.bfloat16):
+        """(last position's logits, cache). encdec returns no cache, as the
+        reference's prefill does (``max_len`` and ``cache_dtype`` unused
+        there)."""
+        if self.encdec:
+            return encdec_mod.prefill(self.cfg, params, batch["frames"],
+                                      batch["tokens"], impl=impl)
         return lm_mod.prefill(self.cfg, params, batch.get("tokens"),
                               batch.get("patches"), max_len=max_len,
                               impl=impl, cache_dtype=cache_dtype)
 
-    def decode_step(self, params: lm_mod.LM, cache, tokens: torch.Tensor,
+    def decode_step(self, params, cache, tokens: torch.Tensor,
                     impl: Optional[str] = None):
+        if self.encdec:
+            return encdec_mod.decode_step_encdec(self.cfg, params, cache,
+                                                 tokens, impl=impl)
         return lm_mod.decode_step(self.cfg, params, cache, tokens, impl=impl)
 
     # -- input specs ----------------------------------------------------------------
@@ -83,6 +113,12 @@ class Model:
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         if shape.kind in ("train", "prefill"):
+            if self.encdec:         # seq_len split evenly: frames, tokens
+                half = S // 2
+                return {"frames": torch.empty((B, half, cfg.d_model),
+                                              dtype=dtype, device=META),
+                        "tokens": torch.empty((B, half), dtype=torch.int32,
+                                              device=META)}
             if cfg.family == "vlm":
                 tv = cfg.frontend_tokens
                 return {"patches": torch.empty((B, tv, cfg.d_model),
@@ -94,11 +130,16 @@ class Model:
         # decode: one new token against a seq_len cache
         return {"tokens": torch.empty((B,), dtype=torch.int32, device=META)}
 
+    def cache_struct(self, shape: ShapeConfig, dtype=torch.bfloat16):
+        """The decode cache of ``shape`` (batch, seq_len deep) on the meta
+        device."""
+        B, S = shape.global_batch, shape.seq_len
+        if self.encdec:
+            return encdec_mod.init_cache_encdec(self.cfg, B, S, dtype, META)
+        return lm_mod.init_cache(self.cfg, B, S, dtype, META)
+
 
 def build(cfg: ArchConfig, device="cuda") -> Model:
     """The model of ``cfg`` on ``device`` (default the card; raises
     without one)."""
-    if cfg.family == "encdec":
-        raise NotImplementedError("encdec models are not ported yet: "
-                                  "ROADMAP A21")
     return Model(cfg, resolve_device(device))

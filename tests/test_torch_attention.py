@@ -16,6 +16,7 @@ card (``test_torch_cuda_kernels.py``). Tolerances, from the arithmetic:
 Inputs in bf16 are rounded from the same f32 numpy arrays on both sides
 (round to nearest even in both), so both packages see identical values.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -431,3 +432,132 @@ def test_plain_attention_pair_passes_gradcheck(causal, window, Hq, Hkv, Sk):
     assert fn(q, k, v).dtype == torch.float64
     assert torch.autograd.gradcheck(fn, (q, k, v), eps=1e-6, atol=1e-6,
                                     rtol=1e-5)
+
+
+# -- the modes the remaining architectures add ------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("Hq,Hkv,D,Sq,Sk", [
+    (4, 4, 64, 24, 40),        # seamless's cross-attention: Sq < Sk, MHA
+    (4, 2, 16, 40, 24),        # Sq > Sk: every row sees every key
+    (16, 16, 64, 48, 48),      # the encoder: Sq == Sk, bidirectional
+])
+def test_flash_plain_noncausal_equals_pallas(Hq, Hkv, D, Sq, Sk, dtype):
+    """B5's plain version with ``causal=False`` (the encoder and the
+    cross-attention) against ``flash_attention(interpret=True)`` and the
+    oracle, at Sq != Sk too."""
+    q_dt, kv_dt = DTYPES[dtype]
+    rng = np.random.default_rng(Hq + D + Sq * 3 + Sk)
+    q = rng.standard_normal((2, Sq, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((2, Sk, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((2, Sk, Hkv, D)).astype(np.float32)
+    jq, tq = _pair(q, q_dt)
+    jk, tk = _pair(k, kv_dt)
+    jv, tv = _pair(v, kv_dt)
+    got = ops.attention(tq, tk, tv, causal=False, block_k=16)
+    pallas = jops.attention(jq, jk, jv, causal=False, impl="interpret")
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(q_dt))
+    np.testing.assert_allclose(
+        _np(got), _np(jref.mha_ref(jq, jk, jv, causal=False)), **_tol(q_dt))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("Hq,Hkv", [(40, 8), (56, 8)])
+def test_flash_and_decode_plain_at_g5_and_g7(Hq, Hkv, dtype):
+    """qwen2.5-32b's 40 query heads over 8 KV heads (G 5) and
+    llava-next-34b's 56 over 8 (G 7), at head dim 128: B5's plain version
+    (causal) and B6's plain version and split-and-merge order against the
+    Pallas kernels in interpret mode."""
+    q_dt, kv_dt = DTYPES[dtype]
+    rng = np.random.default_rng(Hq)
+    D, S = 128, 40
+    q = rng.standard_normal((1, S, Hq, D)).astype(np.float32)
+    k = rng.standard_normal((1, S, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((1, S, Hkv, D)).astype(np.float32)
+    jq, tq = _pair(q, q_dt)
+    jk, tk = _pair(k, kv_dt)
+    jv, tv = _pair(v, kv_dt)
+    got = ops.attention(tq, tk, tv, causal=True, block_k=16)
+    pallas = jops.attention(jq, jk, jv, causal=True, impl="interpret")
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(q_dt))
+    kv_len = np.array([S, 17], np.int32)
+    dq = rng.standard_normal((2, Hq, D)).astype(np.float32)
+    dk = rng.standard_normal((2, S, Hkv, D)).astype(np.float32)
+    dv = rng.standard_normal((2, S, Hkv, D)).astype(np.float32)
+    jq, tq = _pair(dq, q_dt)
+    jk, tk = _pair(dk, kv_dt)
+    jv, tv = _pair(dv, kv_dt)
+    tl = torch.from_numpy(kv_len)
+    pallas = jops.decode_attention(jq, jk, jv, jnp.asarray(kv_len),
+                                   impl="interpret", block_k=S)
+    for got in (ops.decode_attention(tq, tk, tv, tl),
+                da.split_merge_torch(tq, tk, tv, tl)):
+        np.testing.assert_allclose(_np(got), _np(pallas), **_tol(q_dt))
+
+
+def _attn_params(cfg, seed):
+    """The reference's attention parameters (seeded non-zero biases where
+    the config has them) as numpy, and the same as torch tensors."""
+    from repro.models import attention as jattn
+    jp, _ = jattn.attn_init(jax.random.PRNGKey(seed), cfg, jnp.float32,
+                            cross=True)
+    rng = np.random.default_rng(seed)
+    jp = {n: {k: (rng.standard_normal(a.shape).astype(np.float32)
+                  if k == "b" else np.array(a)) for k, a in p.items()}
+          for n, p in jp.items()}
+    tp = {n: {k: torch.from_numpy(a) for k, a in p.items()}
+          for n, p in jp.items()}
+    return jax.tree.map(jnp.asarray, jp), tp
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("seamless-m4t-medium", {}),
+    ("qwen2.5-32b", {"n_heads": 10, "n_kv_heads": 2}),   # bias, G 5
+])
+def test_cross_attention_apply_and_decode_equal_reference(arch, kw):
+    """``attn_apply(kv_x=...)``: k and v projected from the encoder output
+    (Sk != Sq), no RoPE on either side, ``causal=False``; and
+    ``attn_decode(cross=True)``: the cache read, not written, kv_len its
+    whole depth on every row. q/k/v biases (qwen's config) added as the
+    reference adds them."""
+    from repro.configs import ARCHS
+    from repro.models import attention as jattn
+    from repro_torch.configs import get_arch
+    from repro_torch.models import attention as attn
+    jcfg = ARCHS[arch].reduced().replace(**kw)
+    tcfg = get_arch(arch).reduced().replace(**kw)
+    jp, tp = _attn_params(jcfg, 3)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 9, 64)).astype(np.float32)
+    enc = rng.standard_normal((2, 21, 64)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9))
+    want = jattn.attn_apply(jp, jnp.asarray(x), jcfg,
+                            positions=jnp.asarray(pos), causal=False,
+                            kv_x=jnp.asarray(enc), impl="blocked")
+    got = attn.attn_apply(tp, torch.from_numpy(x), tcfg,
+                          positions=torch.from_numpy(pos.copy()),
+                          causal=False, kv_x=torch.from_numpy(enc))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    # self-attention, for the bias path with RoPE
+    want = jattn.attn_apply(jp, jnp.asarray(x), jcfg,
+                            positions=jnp.asarray(pos), impl="blocked")
+    got = attn.attn_apply(tp, torch.from_numpy(x), tcfg,
+                          positions=torch.from_numpy(pos.copy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    Hkv, dh = tcfg.n_kv_heads, tcfg.head_dim
+    ck = rng.standard_normal((2, 21, Hkv, dh)).astype(np.float32)
+    cv = rng.standard_normal((2, 21, Hkv, dh)).astype(np.float32)
+    xd = rng.standard_normal((2, 64)).astype(np.float32)
+    for cross in (True, False):
+        want, wk, _ = jattn.attn_decode(jp, jnp.asarray(xd), jcfg,
+                                        cache_k=jnp.asarray(ck),
+                                        cache_v=jnp.asarray(cv),
+                                        pos=jnp.int32(5), cross=cross,
+                                        impl="blocked")
+        tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
+        got = attn.attn_decode(tp, torch.from_numpy(xd), tcfg, cache_k=tk,
+                               cache_v=tv, pos=5, cross=cross)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL,
+                                   err_msg=f"cross={cross}")
+        np.testing.assert_allclose(tk.numpy(), np.asarray(wk), **F32_TOL)
+        assert torch.equal(tk, torch.from_numpy(ck)) == cross

@@ -1080,3 +1080,233 @@ def test_moe_ffn_bf16_on_card_equals_cpu(cuda, E, k):
     torch.testing.assert_close(got.cpu().float().reshape(-1, 256)[same],
                                want.float().reshape(-1, 256)[same],
                                atol=2.0 ** -6, rtol=2.0 ** -6)
+
+
+# -- the remaining architectures: encoder-decoder, G 5 and G 7 ----------------------
+
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+@pytest.mark.parametrize("D,Hq,Hkv,Sq,Sk", [
+    (64, 16, 16, 1024, 1024),    # seamless's encoder (and cross at Sq == Sk)
+    (64, 16, 16, 200, 1024),     # cross-attention, Sq < Sk
+    (64, 4, 2, 300, 130),        # Sq > Sk: every row still sees every key
+    (128, 8, 2, 130, 257),       # D 128, GQA, ragged tiles
+    (128, 4, 4, 1024, 1024),
+])
+def test_flash_kernel_noncausal_equals_plain(cuda, D, Hq, Hkv, Sq, Sk,
+                                             pairing):
+    """B5 with ``causal=False``: the encoder's bidirectional attention and
+    the decoder's cross-attention, at Sq == Sk and Sq != Sk."""
+    q_dt, kv_dt = PAIRINGS[pairing]
+    g = torch.Generator(device=cuda).manual_seed(D + Hq + Sq + 3 * Sk)
+    q = torch.randn((2, Sq, Hq, D), generator=g, device=cuda).to(q_dt)
+    k = torch.randn((2, Sk, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    v = torch.randn((2, Sk, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    before = _build.launch_counts()["flash_attention"]
+    got = ops.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == before + 1
+    _close(got, fa.flash_attention_torch(q, k, v, causal=False), q_dt)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=False,
+                                       return_lse=True)
+    pout, plse = fa.flash_attention_torch(q, k, v, causal=False,
+                                          return_lse=True)
+    torch.testing.assert_close(lse, plse, **F32_TOL)
+
+
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+@pytest.mark.parametrize("Hq,Hkv,S,causal,window", [
+    (40, 8, 1024, True, None),   # qwen2.5-32b: G 5, 25 positions a block
+    (56, 8, 1600, True, None),   # llava-next-34b: G 7, 18 positions
+    (40, 8, 300, False, None),
+    (56, 8, 130, True, 40),
+    (10, 2, 257, True, None),    # the reduced qwen G 5 variant's heads
+])
+def test_flash_kernel_at_g5_and_g7_equals_plain(cuda, Hq, Hkv, S, causal,
+                                                window, pairing):
+    """G 5 and G 7 fold into 125 and 126 of a block's 128 rows (the
+    other rows idle), with the causal key split at full length."""
+    q_dt, kv_dt = PAIRINGS[pairing]
+    g = torch.Generator(device=cuda).manual_seed(Hq + S)
+    q = torch.randn((2, S, Hq, 128), generator=g, device=cuda).to(q_dt)
+    k = torch.randn((2, S, Hkv, 128), generator=g, device=cuda).to(kv_dt)
+    v = torch.randn((2, S, Hkv, 128), generator=g, device=cuda).to(kv_dt)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    _close(got, fa.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window), q_dt)
+
+
+@pytest.mark.parametrize("G", [1, 5, 7])
+@pytest.mark.parametrize("D,Sq,Sk", [(64, 1024, 1024), (64, 100, 300),
+                                     (128, 300, 100), (16, 40, 24)])
+def test_flash_bwd_kernel_noncausal_equals_plain(cuda, D, Sq, Sk, G):
+    """B5's backward with ``causal=False`` (training the encoder and the
+    cross-attention), at Sq == Sk and Sq != Sk, G 1, 5 and 7."""
+    Hkv = 2
+    g = torch.Generator(device=cuda).manual_seed(D + G + Sq + Sk)
+    q = torch.randn((2, Sq, Hkv * G, D), generator=g, device=cuda)
+    k, v = (torch.randn((2, Sk, Hkv, D), generator=g, device=cuda)
+            for _ in range(2))
+    do = torch.randn((2, Sq, Hkv * G, D), generator=g, device=cuda)
+    out, lse = fa.flash_attention_torch(q, k, v, causal=False,
+                                        return_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=False)
+    want = fa.flash_attention_bwd_torch(q, k, v, out, lse, do, causal=False)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a, b, **BWD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("pairing", list(PAIRINGS))
+@pytest.mark.parametrize("D,G,S,kv_len", [
+    (128, 5, 1536, [1056, 1, 1536, 700]),   # qwen2.5-32b over its cache
+    (128, 7, 1536, [1056, 0, 1536, 33]),    # llava-next-34b
+    (64, 5, 300, [300, 17]),
+    (16, 5, 64, [64, 3]),                   # the reduced qwen G 5 variant
+    (64, 1, 4096, [4096] * 4),              # seamless's cross cache
+    (64, 7, 4096, [4096, 4096]),
+])
+def test_decode_kernel_at_g5_g7_and_full_cross_cache(cuda, D, G, S, kv_len,
+                                                     pairing):
+    """B6 at G 5 and 7 (rounded up to the kernel's 8-head instance, the
+    extra heads idle) and over a whole 4,096-row cross cache at D 64
+    (``kv_len == S`` on every row), twice back to back (the arrival
+    counters set back to 0)."""
+    q_dt, kv_dt = PAIRINGS[pairing]
+    g = torch.Generator(device=cuda).manual_seed(D + G + S)
+    Hkv = 8 if D == 128 else 16 if S == 4096 and G == 1 else 2
+    B = len(kv_len)
+    q = torch.randn((B, G * Hkv, D), generator=g, device=cuda).to(q_dt)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda).to(kv_dt)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, k, v, lens)
+    _close(got, da.decode_attention_torch(q, k, v, lens), q_dt)
+    assert torch.equal(got, ops.decode_attention(q, k, v, lens))
+
+
+def _reduced_pair(cuda, name, **kw):
+    cfg = get_arch(name).reduced().replace(remat=False, **kw)
+    cpu_model, card_model = build(cfg, "cpu"), build(cfg, cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0), torch.float32)
+    card_params = cpu_model.init(torch.Generator().manual_seed(0),
+                                 torch.float32).to(cuda)
+    return cfg, cpu_model, card_model, params, card_params
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("minicpm-2b", {}),
+    ("qwen2.5-32b", {}),
+    ("qwen2.5-32b", {"n_heads": 10, "n_kv_heads": 2}),   # G 5
+    ("llava-next-34b", {}),
+])
+def test_reduced_dense_and_vlm_on_card_equal_cpu(cuda, name, kw):
+    """Reduced minicpm-2b, qwen2.5-32b (and its G 5 variant) and
+    llava-next-34b (8 stub patches prepended) on the card against the same
+    f32 parameters on the CPU: prefill and 8 decode steps, logits at atol
+    = rtol = 1e-4, exact launch counts."""
+    cfg, cpu_model, card_model, params, card_params = _reduced_pair(
+        cuda, name, **kw)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     size=(3, 32)))}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (3, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    _build.reset_launch_counts()
+    lg_card, c_card = card_model.prefill(
+        card_params, {k: t.to(cuda) for k, t in batch.items()}, max_len=64,
+        cache_dtype=torch.float32)
+    lg_cpu, c_cpu = cpu_model.prefill(params, batch, max_len=64,
+                                      cache_dtype=torch.float32)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    for t in range(8):
+        nxt = batch["tokens"][:, t]
+        lg_card, c_card = card_model.decode_step(card_params, c_card,
+                                                 nxt.to(cuda))
+        lg_cpu, c_cpu = cpu_model.decode_step(params, c_cpu, nxt)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4,
+                                   rtol=1e-4)
+    counts = _build.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["decode_attention"] == 8 * cfg.n_layers
+
+
+def test_reduced_encdec_on_card_equals_cpu(cuda):
+    """Reduced seamless-m4t-medium on the card against the CPU: the
+    prefill (per layer B5 non-causal in the encoder, causal and
+    non-causal in the decoder: 6 launches for 2 + 2 layers), logits at
+    atol = rtol = 1e-4, then 8 decode steps from ``init_cache`` (B6 on
+    each decoder layer's self and cross caches: 4 a step), f32 cache."""
+    cfg, cpu_model, card_model, params, card_params = _reduced_pair(
+        cuda, "seamless-m4t-medium")
+    rng = np.random.default_rng(3)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+                 (3, 40, cfg.d_model)).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     size=(3, 24)))}
+    _build.reset_launch_counts()
+    lg_card, none = card_model.prefill(
+        card_params, {k: t.to(cuda) for k, t in batch.items()})
+    assert none is None
+    assert _build.launch_counts()["flash_attention"] == 3 * cfg.dec_layers
+    lg_cpu, _ = cpu_model.prefill(params, batch)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    c_card = card_model.init_cache(3, 16, torch.float32)
+    c_cpu = cpu_model.init_cache(3, 16, torch.float32)
+    _build.reset_launch_counts()
+    for t in range(8):
+        nxt = batch["tokens"][:, t]
+        lg_card, c_card = card_model.decode_step(card_params, c_card,
+                                                 nxt.to(cuda))
+        lg_cpu, c_cpu = cpu_model.decode_step(params, c_cpu, nxt)
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, atol=1e-4,
+                                   rtol=1e-4)
+    assert _build.launch_counts()["decode_attention"] == 8 * 2 * \
+        cfg.dec_layers
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-medium", "minicpm-2b"])
+def test_reduced_train_step_encdec_and_wsd_on_card_equal_cpu(cuda, name):
+    """One ``make_train_step`` step (accumulation 2) of reduced seamless
+    (the encoder's B5 forward and backward with ``causal=False``) and
+    minicpm (WSD, in its decay at step 10 of 10) on the card against the
+    CPU: loss and grad norm at atol = rtol = 1e-4, parameters at the same
+    but for a share under 1e-3 (see ``test_reduced_train_step_on_card_
+    equals_cpu``), exactly one forward and one backward launch per
+    attention call of each microbatch."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_arch(name).reduced().replace(remat=False, microbatch=2)
+    shape = ShapeConfig("t", 32, 4, "train")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     size=(4, 32)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (4, 24, cfg.d_model)).astype(np.float32))
+    runs = []
+    for dev in ("cpu", cuda):
+        model = build(cfg, dev)
+        params = build(cfg, "cpu").init(torch.Generator().manual_seed(0),
+                                        torch.float32).to(dev)
+        params.requires_grad_(True)
+        step_fn, opt_init = make_train_step(model, shape, base_lr=1e-2,
+                                            warmup=1, total_steps=10)
+        opt = opt_init(params)
+        _build.reset_launch_counts()
+        params, opt, loss, gn = step_fn(
+            params, opt, {k: t.to(dev) for k, t in batch.items()}, 10)
+        runs.append((params, float(loss), float(gn),
+                     _build.launch_counts()))
+    (p_cpu, l_cpu, g_cpu, _), (p_card, l_card, g_card, counts) = runs
+    calls = 2 * (3 * cfg.dec_layers if cfg.family == "encdec"
+                 else cfg.n_layers)
+    assert counts["flash_attention"] == calls == counts["flash_attention_bwd"]
+    np.testing.assert_allclose([l_card, g_card], [l_cpu, g_cpu], atol=1e-4,
+                               rtol=1e-4)
+    loose = total = 0
+    for a, b in zip(p_card.parameters(), p_cpu.parameters()):
+        close = torch.isclose(a.detach().cpu(), b.detach(), atol=1e-4,
+                              rtol=1e-4)
+        loose += int((~close).sum())
+        total += close.numel()
+    assert loose < 1e-3 * total

@@ -49,6 +49,7 @@ from repro.configs import ARCHS
 from repro.models import build as jbuild
 from repro.models import lm as jlm
 from repro_torch import convert
+from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.configs import get_arch
 from repro_torch.models import build
 from repro_torch.models import lm
@@ -66,6 +67,10 @@ VARIANTS = {
     "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}),
     "phi3.5-moe-42b-a6.6b": ("phi3.5-moe-42b-a6.6b", {}),
     "jamba-1.5-large-398b": ("jamba-1.5-large-398b", {}),
+    "minicpm-2b": ("minicpm-2b", {}),
+    "qwen2.5-32b": ("qwen2.5-32b", {}),
+    "qwen2.5-32b-g5": ("qwen2.5-32b", {"n_heads": 10, "n_kv_heads": 2}),
+    "llava-next-34b": ("llava-next-34b", {}),
 }
 
 
@@ -84,10 +89,28 @@ def _cfgs(variant):
     return jcfg, tcfg
 
 
+def _with_random_biases(jparams, seed):
+    """The reference inits qwen's q/k/v biases at 0; give every bias leaf
+    seeded values so both packages' bias paths are compared."""
+    rng = np.random.default_rng(seed)
+
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: (jnp.asarray(rng.standard_normal(v.shape)
+                                    .astype(np.float32)) if k == "b"
+                        else fill(v)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(fill(v) for v in tree)
+        return tree
+    return fill(jparams)
+
+
 def _setup(variant, seed=0):
     jcfg, tcfg = _cfgs(variant)
     jmodel = jbuild(jcfg)
     jparams, _ = jmodel.init(jax.random.PRNGKey(seed), jnp.float32)
+    if jcfg.qkv_bias:
+        jparams = _with_random_biases(jparams, seed)
     params = convert.lm_params_from_jax(
         tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, tcfg, jmodel, jparams, build(tcfg, "cpu"), params
@@ -243,16 +266,21 @@ def test_init_draws_reference_distributions():
 
 
 def test_unported_families_raise():
-    for arch in ("minicpm-2b", "qwen2.5-32b", "llava-next-34b",
-                 "seamless-m4t-medium"):
-        with pytest.raises(KeyError, match="ROADMAP A21"):
-            get_arch(arch)
+    """Every architecture of the JAX package resolves and builds now: the
+    four that waited for a later slice (minicpm-2b, qwen2.5-32b,
+    llava-next-34b, seamless-m4t-medium) with the others; each reduced
+    config equals the reference's, builds on the CPU and inits. Only an
+    unknown name raises."""
+    assert sorted(ARCHS) == sorted(TARCHS) and len(ARCHS) == 10
+    for arch in ARCHS:
+        cfg = get_arch(arch)
+        assert cfg.__dict__ == ARCHS[arch].__dict__
+        model = build(cfg.reduced().replace(remat=False), "cpu")
+        params = model.init(torch.Generator().manual_seed(0), torch.float32)
+        assert sum(p.numel() for p in params.parameters()) == \
+            model.param_counts()[0]
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
-    cfg = ARCHS["seamless-m4t-medium"].reduced()
-    from repro_torch.configs.base import ArchConfig
-    with pytest.raises(NotImplementedError, match="ROADMAP A21"):
-        build(ArchConfig(**cfg.__dict__), "cpu")
 
 
 @pytest.mark.parametrize("variant", ["gemma3-1b", "olmo-1b-mha",
@@ -384,3 +412,82 @@ def test_softplus_agrees_with_reference():
     want = np.asarray(jax.nn.softplus(jnp.asarray(x)))
     np.testing.assert_allclose(got, want, atol=0, rtol=2.0 ** -22)
     np.testing.assert_array_equal(got[x > 20], want[x > 20])
+
+
+# -- the remaining dense and vlm configs (qwen, minicpm, llava) ----------------------
+
+def test_qkv_bias_is_added_in_both_paths():
+    """qwen's q/k/v biases (seeded, non-zero) enter prefill and decode as
+    in the reference: the logits move when they are zeroed, in both
+    packages alike (the VARIANTS tests hold the values)."""
+    jcfg, tcfg, jmodel, jparams, model, params = _setup("qwen2.5-32b",
+                                                        seed=13)
+    assert all("b" in layer.attn[n] for *_, layer in params.all_layers()
+               for n in ("q", "k", "v"))
+    assert "b" not in params.segments[0][0].attn["o"]
+    toks = _tokens(np.random.default_rng(13), tcfg, (2, 10))
+    lg, cache = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                              max_len=16, cache_dtype=torch.float32)
+    dec, _ = model.decode_step(params, cache, torch.tensor([3, 4]))
+    for *_, layer in params.all_layers():
+        for n in ("q", "k", "v"):
+            layer.attn[n]["b"].data.zero_()
+    lg0, cache0 = model.prefill(params, {"tokens": torch.from_numpy(toks)},
+                                max_len=16, cache_dtype=torch.float32)
+    dec0, _ = model.decode_step(params, cache0, torch.tensor([3, 4]))
+    assert float((lg - lg0).abs().max()) > 1e-2
+    assert float((dec - dec0).abs().max()) > 1e-2
+
+
+def test_llava_patches_forward_prefill_decode_and_loss_equal_reference():
+    """llava's stub vision frontend: ``frontend_tokens`` (8 reduced) patch
+    embeddings prepended to the text, as ``_embed_inputs`` does in both
+    packages. forward at every position, prefill logits and cache, 6
+    decode steps from that cache, and the loss (over the text only), with
+    the untied head carried across."""
+    jcfg, tcfg, jmodel, jparams, model, params = _setup("llava-next-34b",
+                                                        seed=14)
+    assert params.head is not None and not tcfg.tie_embeddings
+    rng = np.random.default_rng(14)
+    B, S = 2, 16
+    patches = rng.standard_normal((B, tcfg.frontend_tokens, tcfg.d_model)
+                                  ).astype(np.float32)
+    toks = _tokens(rng, tcfg, (B, S))
+    jb = {"patches": jnp.asarray(patches), "tokens": jnp.asarray(toks)}
+    tb = {"patches": torch.from_numpy(patches),
+          "tokens": torch.from_numpy(toks)}
+    jx = jmodel.forward(jparams, jb, impl="blocked")
+    x = model.forward(params, tb)
+    assert x.shape == (B, S + 8, 64)
+    np.testing.assert_allclose(lm.logits(tcfg, params, x).numpy(),
+                               np.asarray(jlm.logits(jcfg, jparams, jx)),
+                               **TOL)
+    jlg, jcache = jmodel.prefill(jparams, jb, max_len=32, impl="blocked",
+                                 cache_dtype=jnp.float32)
+    lg, cache = model.prefill(params, tb, max_len=32,
+                              cache_dtype=torch.float32)
+    assert cache["pos"] == S + 8
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL)
+    _assert_cache_equal(cache, jcache, TOL)
+    for i in range(6):
+        t = _tokens(rng, tcfg, (B,))
+        jlg, jcache = jmodel.decode_step(jparams, jcache, jnp.asarray(t),
+                                         impl="blocked")
+        lg, cache = model.decode_step(params, cache, torch.from_numpy(t))
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **TOL,
+                                   err_msg=f"decode step {i}")
+    np.testing.assert_allclose(float(model.loss(params, tb)),
+                               float(jmodel.loss(jparams, jb,
+                                                 impl="blocked")), **TOL)
+
+
+def test_full_config_param_counts_equal_reference():
+    """The four configs of this family group at full width: total and
+    active counts equal the reference's (meta device, no allocation);
+    qwen2.5-32b's total lies in [31e9, 36e9]."""
+    counts = {}
+    for arch in ("minicpm-2b", "qwen2.5-32b", "llava-next-34b",
+                 "seamless-m4t-medium"):
+        counts[arch] = build(get_arch(arch), "cpu").param_counts()
+        assert counts[arch] == jbuild(ARCHS[arch]).param_counts(), arch
+    assert 31e9 <= counts["qwen2.5-32b"][0] <= 36e9

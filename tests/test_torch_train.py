@@ -195,8 +195,10 @@ def test_model_loss_is_lm_loss_and_specs():
         {k: (v.shape, str(v.dtype)) for k, v in jspecs.items()}
     assert model.input_specs(ShapeConfig("d", 64, 8, "decode"))[
         "tokens"].shape == (8,)
-    with pytest.raises(NotImplementedError, match="A21"):
-        build(tcfg.replace(family="encdec"), "cpu")
+    seamless = get_arch("seamless-m4t-medium").reduced()
+    enc_model = build(seamless, "cpu")
+    assert enc_model.encdec and enc_model.init(
+        torch.Generator().manual_seed(0), torch.float32).dec[0]["cross"]
 
 
 # -- train steps --------------------------------------------------------------------
@@ -256,6 +258,60 @@ def test_train_steps_match_reference(steps):
         loose += int((~np.isclose(g, w, **STEP_TOL)).sum())
         total += g.size
     assert loose < 1e-3 * total
+
+
+def test_minicpm_wsd_train_step_matches_reference():
+    """One ``make_train_step`` step of reduced minicpm-2b, whose config
+    names ``schedule="wsd"``: at step 10 of 10 the WSD schedule is in its
+    decay (lr 0.1 · base, where cosine gives 0), so the parameters move
+    by what ``optim/schedules.wsd_schedule`` gives: at most lr (1 + 0.1
+    |p|) with AdamW's first update (at most 1 an element) and weight decay
+    0.1. Loss, grad norm
+    and parameters against the reference's step."""
+    jcfg = ARCHS["minicpm-2b"].reduced().replace(remat=False, microbatch=2)
+    tcfg = get_arch("minicpm-2b").reduced().replace(remat=False,
+                                                    microbatch=2)
+    assert tcfg.schedule == jcfg.schedule == "wsd"
+    B, S = 4, 24
+    jmodel = jbuild(jcfg)
+    jparams, _ = jmodel.init(jax.random.PRNGKey(3), jnp.float32)
+    jstep, jopt_init = jmake_train_step(jmodel, JShapeConfig("t", S, B,
+                                                             "train"),
+                                        make_host_mesh(), base_lr=1e-2,
+                                        warmup=1, total_steps=10)
+    step_fn, _ = make_train_step(build(tcfg, "cpu"),
+                                 ShapeConfig("t", S, B, "train"),
+                                 base_lr=1e-2, warmup=1, total_steps=10)
+    jopt = jopt_init(jparams)
+    start = convert.lm_params_from_jax(tcfg, jax.tree.map(np.asarray,
+                                                          jparams), "cpu")
+    params = convert.lm_params_from_jax(tcfg, jax.tree.map(np.asarray,
+                                                           jparams),
+                                        "cpu").requires_grad_(True)
+    opt = convert.adamw_state_from_jax(tcfg, jax.tree.map(np.asarray, jopt),
+                                       "cpu")
+    tokens = _tokens(np.random.default_rng(3), B, S, jcfg.vocab)
+    jparams, jopt, jloss, jgn = jstep(jparams, jopt,
+                                      {"tokens": jnp.asarray(tokens)},
+                                      jnp.int32(10))
+    params, opt, loss, gn = step_fn(params, opt,
+                                    {"tokens": torch.from_numpy(tokens)}, 10)
+    np.testing.assert_allclose(float(loss), float(jloss), **LOSS_TOL)
+    np.testing.assert_allclose(float(gn), float(jgn), **LOSS_TOL)
+    lr = float(wsd_schedule(1e-2, 1, 10)(10))
+    np.testing.assert_allclose(lr, 1e-3, rtol=1e-6)
+    want = convert.lm_named_from_jax(tcfg, jax.tree.map(np.asarray, jparams),
+                                     "cpu")
+    moved = big = loose = total = 0
+    for (k, p), p0 in zip(params.named_parameters(), start.parameters()):
+        g, w = _np(p), _np(want[k])
+        assert np.abs(g - w).max() <= 2 * lr * 1.001, k
+        loose += int((~np.isclose(g, w, **STEP_TOL)).sum())
+        total += g.size
+        moved = max(moved, float(np.abs(g - _np(p0)).max()))
+        big = max(big, float(np.abs(_np(p0)).max()))
+    assert loose < 1e-3 * total
+    assert lr * 0.5 < moved <= lr * (1 + 0.1 * big) * 1.001
 
 
 # -- data -----------------------------------------------------------------------------
