@@ -42,7 +42,11 @@ and read just after:
    microbatch) and once with the plain versions, from the same parameters
    and data; then ``launch.train.main`` on the reduced config on the card,
    crashed at step 5 (``--fail-at``) and resumed (``--resume``), against an
-   uninterrupted run: the final parameters equal bit for bit.
+   uninterrupted run: the final parameters equal bit for bit. Then
+   mamba2-370m at full width (f32, AdamW f32) the same way: 4 steps at
+   batch 8 x 1,024 in 2 microbatches, ssd_scan and its backward
+   (ssd_scan_bwd) on every layer of every microbatch, against the plain
+   versions.
 
 6. MoE serving on moonshot-v1-16b-a3b at full width (48 layers, the first
    dense, d_model 2,048, 16 heads of 128, 64 experts of d_ff 1,408 top-6,
@@ -82,7 +86,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the kernels from ``src/repro_torch/kernels/csrc`` with nvcc
 (into ``build/kernels/``), needs one CUDA device, and exits non-zero on any
 failure. The last line of its output is ``{"ok": true, "device": {...}}``;
-the line before it lists every kernel (B5's backward too) with its
+the line before it lists every kernel (B5's and B7's backwards too) with its
 launches on its path, its error against the plain version, and its times
 beside its bound (B3 and B4 also beside ``input_read_floor``, a plain
 coalesced read of their input timed the same way), and
@@ -184,6 +188,12 @@ MAMBA_PROMPT_LEN = 1024   # 8 chunks of 128 per layer
 # to MAMBA_STATE_TOL of its largest entry, about 15x. Decode and the
 # engine run no kernel; they differ only through the prefilled state.
 SSD_TOL = dict(atol=1e-4, rtol=1e-4)
+# B7's backward against its plain version (f32): each gradient sums up to
+# a chunk's 128 terms weighted by exp of differences of f32 cumulative sums
+# (~110 at Mamba-2's decays, ulp 7.6e-6), in another order, and da's terms
+# cancel (row sums minus column sums, then a reverse cumulative sum): each
+# gradient is held to SSD_BWD_TOL of its largest entry (rtol the same).
+SSD_BWD_TOL = 1e-4
 MAMBA_LOGIT_TOL = 2e-3
 MAMBA_STATE_TOL = 1e-3
 
@@ -207,6 +217,25 @@ TRAIN_WARMUP = 20
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GNORM_TOL = 1e-3
 TRAIN_PARAM_SHARE = 1e-3
+# mamba2-370m's kernel and plain runs part faster than olmo's: B7 and its
+# backward agree with their plain versions to ~1e-5 of scale (decays as
+# exp of differences of f32 cumulative sums), which 48 layers carry into
+# the first layers' gradients, so AdamW's first updates of near-zero
+# gradients differ, and the two free runs part further each step. Gated from one state, every step holds olmo's gates
+# (the kernel run's step from the state after its own previous step, the
+# plain run's step from that same state); the free plain run is reported.
+TRAIN_RESYNC = True
+# For the same reason more of mamba's parameters part after step 1 than
+# olmo's TRAIN_PARAM_SHARE allows: AdamW's first update is ±lr wherever
+# |g| >> eps, so an entry parts by 2 lr(1) where its gradient's sign
+# differs, and the 48 layers leave many entries' gradients smaller than
+# the two runs' difference. How many is a property of the f32 function,
+# not of the kernels: the plain version parts from itself as much when
+# only the order of its sums changes (its chunk at TRAIN_CALIBRATE_CHUNK
+# instead of 128). The kernel run may part from the plain run in at most
+# TRAIN_NOISE_FACTOR times that share.
+TRAIN_CALIBRATE_CHUNK = 64
+TRAIN_NOISE_FACTOR = 2.0
 # B5's backward against its plain version (f32): each 3xTF32 product keeps
 # ~2**-22 of its operands' precision, each row tile's sum is added to the
 # total with an f32 add, and dK and dV sum 1,024 products an entry (dQ
@@ -301,6 +330,7 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/kernels/ops.py:125",
     "decode_attention": "src/repro/kernels/decode_attention.py:29",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:27",
+    "ssd_scan_bwd": "src/repro/kernels/ops.py:244",
 }
 SOURCES = {
     "flow_lookup": "src/repro_torch/kernels/csrc/flow_lookup.cu",
@@ -312,6 +342,7 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
 }
 
 # Kernel -> the __global__ functions it launches (as ptxas names them).
@@ -320,12 +351,15 @@ FUNCTIONS = {
     "dfa_regex": ("dfa_regex_kernel",),
     "arx_cipher": ("arx_cipher_kernel",),
     "keyed_hash": ("keyed_hash_kernel",),
-    "flash_attention": ("flash_fwd_kernel", "flash_combine_kernel"),
+    "flash_attention": ("flash_fwd_kernel", "flash_fwd_bf16_kernel",
+                        "flash_combine_kernel"),
     "flash_attention_bwd": ("flash_bwd_delta_kernel", "flash_bwd_dkdv_tc",
                             "flash_bwd_dq_tc", "flash_bwd_dkdv_kernel",
                             "flash_bwd_dq_kernel"),
     "decode_attention": ("decode_attention_kernel",),
     "ssd_scan": ("ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan"),
+    "ssd_scan_bwd": ("ssd_bwd_dstate", "ssd_bwd_reverse", "ssd_bwd_cols",
+                     "ssd_bwd_rows", "ssd_bwd_dcl"),
 }
 
 
@@ -1283,12 +1317,35 @@ def ssd_checks(model, params, prompts, launches_pd, launches_engine):
 
 # -- training -------------------------------------------------------------------
 
-def _train_run(model, batches, impl, profile_last=False):
+def _snapshot(params, opt):
+    """Host copies of the parameters and the AdamW state."""
+    host = lambda t: t.detach().to("cpu", copy=True)
+    return ({k: host(p) for k, p in params.named_parameters()},
+            {k: host(v) for k, v in opt.mu.items()},
+            {k: host(v) for k, v in opt.nu.items()}, host(opt.count))
+
+
+def _restore(params, opt, snap):
+    pm, mu, nu, count = snap
+    with torch.no_grad():
+        for k, p in params.named_parameters():
+            p.copy_(pm[k])
+        for k in mu:
+            opt.mu[k].copy_(mu[k])
+            opt.nu[k].copy_(nu[k])
+        opt.count.copy_(count)
+
+
+def _train_run(model, batches, impl, profile_last=False, keep=False,
+               start=None):
     """``make_train_step`` over ``batches`` (steps numbered 1, 2, ...) from
     the seeded parameters: per-step loss, grad norm, ms and launches, and a
     copy of the parameters after step 1. With ``profile_last`` the last
     batch is one more step under ``torch.profiler`` (not timed, not
-    compared), for the device's busy share."""
+    compared), for the device's busy share. With ``keep`` the state each
+    step from the second on starts from is kept on the host
+    (``out["starts"]``); ``start`` (such a dict) makes each of those steps
+    start from the given state instead, loaded before its timing."""
     cfg = model.cfg
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         torch.float32).requires_grad_(True)
@@ -1302,7 +1359,12 @@ def _train_run(model, batches, impl, profile_last=False):
     opt = opt_init(params)
     out = {"loss": [], "grad_norm": [], "ms": [], "launches": []}
     timed = batches[:-1] if profile_last else batches
+    starts = {}
     for s, toks in enumerate(timed, 1):
+        if keep and s > 1:
+            starts[s] = _snapshot(params, opt)
+        if start and s in start:
+            _restore(params, opt, start[s])
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1320,15 +1382,44 @@ def _train_run(model, batches, impl, profile_last=False):
         out["profile"] = _profile(lambda: step_fn(
             params, opt, {"tokens": batches[-1]}, n))
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    if keep:
+        out["starts"] = starts
     del params, opt
     return out
 
 
-def training_phase():
-    """olmo-1b at full width: ``TRAIN_STEPS`` steps with the kernels (the
+def _param_diff(a, b, lr1):
+    """Largest |a - b| over two parameter dicts, and the share of entries
+    apart by more than 1e-3 lr1."""
+    worst, off, total = 0.0, 0, 0
+    for name, x in a.items():
+        d = (x - b[name]).abs()
+        worst = max(worst, float(d.max()))
+        off += int((d > 1e-3 * lr1).sum())
+        total += d.numel()
+    return worst, off / total
+
+
+def training_phase(arch, kernels, resync=False, calibrate_chunk=None):
+    """``arch`` at full width: ``TRAIN_STEPS`` steps with the kernels (the
     main path: counts reset before each step, read after), then the same
-    steps with the plain versions from the same parameters and data."""
-    cfg = get_arch(TRAIN_ARCH)
+    steps with the plain versions from the same parameters and data. The
+    config's ``microbatch`` (the accumulation count) is capped at 2: 2
+    microbatches of 4. Each of ``kernels`` must launch once per layer of
+    each microbatch, and nothing else may launch.
+
+    With ``resync`` each plain step starts from the state the kernel step
+    of the same number started from, so every step's loss and grad norm
+    are gated from one state; a third run, the plain versions left to run
+    free, is reported beside them, not gated (mamba2-370m: the two free
+    runs part as AdamW parts them, see TRAIN_RESYNC).
+
+    With ``calibrate_chunk`` one more plain step 1 runs with ``ops.ssd``'s
+    chunk set to it (the same function, its f32 sums in another order),
+    and the kernel run's parameters after step 1 may part from the plain
+    run's in at most TRAIN_NOISE_FACTOR times the share that plain run
+    parts from it (TRAIN_PARAM_SHARE at least)."""
+    cfg = get_arch(arch)
     cfg = cfg.replace(microbatch=min(cfg.microbatch, 2))
     model = build(cfg, "cuda")
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1)
@@ -1337,11 +1428,30 @@ def training_phase():
                for i in range(1, TRAIN_STEPS + 2)]
     n_params = model.param_counts()[0]
     torch.cuda.reset_peak_memory_stats()
-    k = _train_run(model, batches, None, profile_last=True)
+    k = _train_run(model, batches, None, profile_last=True, keep=resync)
     torch.cuda.empty_cache()
-    p = _train_run(model, batches[:TRAIN_STEPS], "torch")
-    per_step = {"flash_attention": 2 * cfg.n_layers,
-                "flash_attention_bwd": 2 * cfg.n_layers}
+    p = _train_run(model, batches[:TRAIN_STEPS], "torch",
+                   start=k.pop("starts", None))
+    free = None
+    if resync:
+        torch.cuda.empty_cache()
+        free = _train_run(model, batches[:TRAIN_STEPS], "torch")
+    lr1 = float(make_schedule(cfg.schedule, TRAIN_LR, TRAIN_WARMUP,
+                              TRAIN_STEPS)(1))
+    share_cap, floor = TRAIN_PARAM_SHARE, None
+    if calibrate_chunk:
+        real_ssd = ops.ssd
+        ops.ssd = lambda *a, **kw: real_ssd(*a, **{**kw,
+                                                  "chunk": calibrate_chunk})
+        try:
+            torch.cuda.empty_cache()
+            cal = _train_run(model, batches[:1], "torch")
+        finally:
+            ops.ssd = real_ssd
+        _, floor = _param_diff(cal["params_step1"], p["params_step1"], lr1)
+        share_cap = max(TRAIN_PARAM_SHARE, TRAIN_NOISE_FACTOR * floor)
+        del cal
+    per_step = {name: 2 * cfg.n_layers for name in kernels}
     for s, counts in enumerate(k["launches"], 1):
         for name, n in counts.items():
             if n != per_step.get(name, 0):
@@ -1355,22 +1465,16 @@ def training_phase():
             if not (np.isfinite(a) and abs(a - b) <= tol * abs(b)):
                 raise AssertionError(f"train step {s}: {key} {a} with the "
                                      f"kernels, {b} plain (rtol {tol})")
-    lr1 = float(make_schedule(cfg.schedule, TRAIN_LR, TRAIN_WARMUP,
-                                    TRAIN_STEPS)(1))
-    worst, off, total = 0.0, 0, 0
-    for name, a in k["params_step1"].items():
-        d = (a - p["params_step1"][name]).abs()
-        worst = max(worst, float(d.max()))
-        off += int((d > 1e-3 * lr1).sum())
-        total += d.numel()
-    if not (worst <= 2 * lr1 * 1.001 and off <= TRAIN_PARAM_SHARE * total):
+    worst, share = _param_diff(k["params_step1"], p["params_step1"], lr1)
+    if not (worst <= 2 * lr1 * 1.001 and share <= share_cap):
         raise AssertionError(f"train step 1: parameters differ by up to "
-                             f"{worst} (bound {2 * lr1}), {off} of {total} "
-                             f"by more than {1e-3 * lr1}")
+                             f"{worst} (bound {2 * lr1}), a share {share} "
+                             f"by more than {1e-3 * lr1} (at most "
+                             f"{share_cap})")
     step_ms = statistics.median(k["ms"][1:])
     prof = k["profile"]
     report = {
-        "arch": TRAIN_ARCH, "params": n_params,
+        "arch": arch, "params": n_params,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": 2,
         "steps": TRAIN_STEPS, "lr_step1": lr1,
         "loss": k["loss"], "plain_loss": p["loss"],
@@ -1382,14 +1486,132 @@ def training_phase():
         / (statistics.median(p["ms"][1:]) / 1e3),
         "launches_per_step": k["launches"][0],
         "params_step1_max_abs_diff": worst,
-        "params_step1_share_off": off / total,
+        "params_step1_share_off": share,
+        "params_step1_share_cap": share_cap,
+        "plain_other_chunk_share_off": floor,
         "profiled_step": prof,
         "device_busy_share": prof["device_ms"] / prof["wall_ms_profiled"],
         "peak_mem_bytes": k["peak_mem_bytes"],
+        "plain_steps_from_kernel_state": resync,
     }
+    if free is not None:
+        report["free_plain_loss"] = free["loss"]
+        report["free_plain_grad_norm"] = free["grad_norm"]
+        report["free_grad_norm_rel_diff"] = [
+            abs(a - b) / abs(b) for a, b in zip(k["grad_norm"],
+                                                free["grad_norm"])]
     launches = {name: sum(c[name] for c in k["launches"])
                 for name in k["launches"][0]}
     return report, launches
+
+
+def train_ssd_rows(model, tokens, launches_train):
+    """B7's backward at the training path's shape, on the real inputs of the
+    first and the last layer (the seeded parameters' forward over the
+    first microbatch: x (4, 1,024, 32, 64), N 128, chunk 128, f32, c
+    broadcast over H), dy drawn from a seeded generator and dh_final None
+    (the mixer drops h_final in training), from the kernel forward's
+    scratch; a third variant takes layer 0's decays to the power 1/100,
+    where the state carried between chunks counts. Each against its plain
+    version on the same scratch (SSD_BWD_TOL), called twice (bit for bit
+    the same), timed beside its bound."""
+    cfg = model.cfg
+    dev = model.device
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.float32)
+    _, norm_apply = lm.make_norm(cfg)
+    layers = [layer for *_, layer in params.all_layers()]
+    inputs = {}
+    with torch.no_grad():
+        x = lm.embed(params.embed, tokens)
+        for i, layer in enumerate(layers):
+            if i in (0, len(layers) - 1):
+                h = norm_apply(layer.norm1, x)
+                inputs[f"layer{i}"] = ssm.ssd_inputs(layer.mamba, h, cfg)[3:]
+            x, _ = lm._apply_layer(cfg, layer, x, None, None)
+    del params
+    xh, a, b, c = inputs["layer0"]
+    inputs["layer0-slow-decay"] = (xh, a ** 0.01, b, c)
+    g = torch.Generator(device=dev).manual_seed(5)
+    chunk = 128
+    row = None
+    for label, (xh, a, b, c) in inputs.items():
+        _, _, st, cl = ss.ssd_scan_cuda(xh, a, b, c, chunk,
+                                        return_scratch=True)
+        dy = torch.randn(xh.shape, generator=g, device=dev)
+        args = (xh, a, b, c, dy, None, st, cl, chunk)
+        run = lambda a_=args: ss.ssd_scan_bwd_cuda(*a_)
+        plain = lambda a_=args: ss.ssd_scan_bwd_torch(*a_)
+        got, want, again = run(), plain(), run()
+        torch.cuda.synchronize()
+        err = {}
+        for name, u, w in zip(("dx", "da", "db", "dc"), got, want):
+            scale = float(w.abs().max())
+            err[name] = float((u - w).abs().max())
+            if not (bool(torch.isfinite(u).all()) and torch.allclose(
+                    u, w, atol=SSD_BWD_TOL * scale, rtol=SSD_BWD_TOL)):
+                raise AssertionError(f"ssd_scan_bwd ({label}): {name} "
+                                     f"differs from its plain version by "
+                                     f"{err[name]} (scale {scale})")
+        if not all(torch.equal(u, w) for u, w in zip(got, again)):
+            raise AssertionError(f"ssd_scan_bwd ({label}): two calls differ")
+        B, S, H, P = xh.shape
+        N = b.shape[-1]
+        flops, nbytes = ss.work_bwd(xh, b, c, False)
+        peak = hw.peak_flops(xh.dtype, b.dtype, c.dtype)
+        bound_s, bound_by = hw.bound_seconds(nbytes, flops, peak)
+        r = {
+            "name": "ssd_scan_bwd", "route": "cuda",
+            "source": SOURCES["ssd_scan_bwd"],
+            "replaces": REPLACES["ssd_scan_bwd"],
+            "launches": launches_train["ssd_scan_bwd"],
+            "launches_by_path": {"train": launches_train["ssd_scan_bwd"]},
+            "variant": label,
+            "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk} f32, "
+                     f"c broadcast over H (stride {c.stride(2)}), "
+                     f"dh_final None",
+            "max_abs_err": max(err.values()), "max_abs_err_by_grad": err,
+            "bit_reproducible": True,
+            "ms": _time_ms(run, KERNEL_REPS, flush),
+            "ms_l2_warm": _time_ms(run, KERNEL_REPS, _NoFlush()),
+            "plain_ms": _time_ms(plain, PLAIN_REPS, flush),
+            "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "bytes": int(nbytes), "ops": int(flops), "peak_flops": peak,
+            "library_ms": None,
+        }
+        if row is None:
+            row = r
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            row.setdefault("variants", {})[label] = r
+    return row
+
+
+def print_training(tag, tr, seconds):
+    """A training phase's lines, each prefixed ``tag``."""
+    print(f"{tag}train: {tr['arch']} at full width, {tr['params']} "
+          f"parameters (f32, AdamW f32), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"2 microbatches, {TRAIN_STEPS} steps in {seconds:.2f} s (with the "
+          f"plain run)")
+    print(f"{tag}train step ms: {tr['step_ms_median_2_4']:.3f} (median of "
+          f"steps 2-{TRAIN_STEPS}; plain versions "
+          f"{statistics.median(tr['plain_step_ms'][1:]):.3f})")
+    print(f"{tag}train tokens/s: {tr['tokens_per_s']:.1f} (plain versions "
+          f"{tr['plain_tokens_per_s']:.1f})")
+    print(f"{tag}train device busy share: {tr['device_busy_share']:.4f} "
+          f"(torch.profiler, one step)")
+    print(f"{tag}train peak memory: {tr['peak_mem_bytes']} B")
+    print(f"{tag}train step 1: parameters apart by up to "
+          f"{tr['params_step1_max_abs_diff']} (bound 2 lr(1) = "
+          f"{2 * tr['lr_step1']}), a share {tr['params_step1_share_off']} "
+          f"by more than 1e-3 lr(1) (at most {tr['params_step1_share_cap']}"
+          f"; the plain version at another chunk: "
+          f"{tr['plain_other_chunk_share_off']})")
+    print(f"{tag}train launches per step: "
+          f"{json.dumps(tr['launches_per_step'])}")
+    print(f"{tag}train loss {tr['loss']} (plain {tr['plain_loss']}), grad "
+          f"norm {tr['grad_norm']} (plain {tr['plain_grad_norm']})")
 
 
 def crash_resume():
@@ -1980,6 +2202,8 @@ def _flash_spec(label, q, k, v, causal, launches, dtype_note):
     qt, kt, vt = q.transpose(1, 2), _sdpa_kv(k, Hq // Hkv), _sdpa_kv(
         v, Hq // Hkv)
     el = lambda t: t.numel() * t.element_size()
+    inst = fa.instance(q, k, v)
+    _, parts = fa.split_plan(q, k, v, causal, None)
     return dict(
         name="flash_attention", label=label, launches=launches,
         run=lambda: fa.flash_attention_cuda(q, k, v, causal=causal),
@@ -1989,7 +2213,9 @@ def _flash_spec(label, q, k, v, causal, launches, dtype_note):
               f"D={D} {dtype_note} {'causal' if causal else 'non-causal'}",
         nbytes=el(q) * 2 + el(k) + el(v),
         ops=fa.work(q.shape, k.shape, causal, None) * 4 * D,
-        peak=hw.peak_flops(q.dtype, k.dtype))
+        peak=hw.peak_flops(q.dtype, k.dtype),
+        instance=inst, own_bytes=el(q) + (parts * B * Sq * Hq * (D + 2) * 4
+                                          if parts > 1 else 0))
 
 
 def _decode_spec(label, q, ck, cv, n_valid, launches):
@@ -2020,8 +2246,8 @@ def _decode_spec(label, q, ck, cv, n_valid, launches):
 
 def moe_attention_rows(model, cache, engine, launches_pd, launches_engine):
     """B5 and B6 at moonshot's shapes, as ``moonshot`` variant rows: B5 over
-    bf16 q, k, v (4, 1,024, 16, 128) causal (the wrapper widens K and V to
-    f32, as on the path), B6 over the prefilled bf16 cache (4, 1,536, 16,
+    bf16 q, k, v (4, 1,024, 16, 128) causal (its bf16 instance, as on the
+    path), B6 over the prefilled bf16 cache (4, 1,536, 16,
     128) with a bf16 query (G 1), and over the engine's f32 cache; each
     against its plain version at two bf16 ulps (ATTN_BF16_TOL), timed
     beside its bound and SDPA."""
@@ -2064,8 +2290,26 @@ def _variant_rows(specs, flush):
             raise AssertionError(f"{s['name']} ({s['label']}): kernel "
                                  f"differs from its plain version by {err}")
         name = s["name"]
+        extra = {}
+        if "instance" in s:
+            # what one call requests from the allocator: the bf16 instance
+            # reads K and V as they are, so no more than its output and
+            # the key split's scratch (f32 copies of K and V would add
+            # 8 bytes a K/V entry)
+            torch.cuda.synchronize()
+            stat = "requested_bytes.all.{}"
+            base = torch.cuda.memory_stats()[stat.format("current")]
+            torch.cuda.reset_peak_memory_stats()
+            s["run"]()
+            torch.cuda.synchronize()
+            grown = torch.cuda.memory_stats()[stat.format("peak")] - base
+            if s["instance"] == "bf16" and grown > s["own_bytes"]:
+                raise AssertionError(f"{name} ({s['label']}): a call "
+                                     f"requests {grown} B, more than its "
+                                     f"output and scratch, {s['own_bytes']}")
+            extra = {"instance": s["instance"], "alloc_bytes": grown}
         bound_s, bound_by = hw.bound_seconds(s["nbytes"], s["ops"], s["peak"])
-        out.append((name, s["label"], {
+        out.append((name, s["label"], {**extra,
             "name": name, "variant": s["label"], "launches": s["launches"],
             "shape": s["shape"], "max_abs_err": err,
             "ms": _time_ms(s["run"], KERNEL_REPS, flush),
@@ -2583,22 +2827,10 @@ def main() -> int:
 
     # training: olmo-1b at full width, kernels against plain
     t0 = time.perf_counter()
-    tr, launches_train = training_phase()
+    tr, launches_train = training_phase(
+        TRAIN_ARCH, ("flash_attention", "flash_attention_bwd"))
     torch.cuda.empty_cache()
-    print(f"train: {TRAIN_ARCH} at full width, {tr['params']} parameters "
-          f"(f32, AdamW f32), batch {TRAIN_BATCH} x {TRAIN_SEQ}, 2 "
-          f"microbatches, {TRAIN_STEPS} steps in "
-          f"{time.perf_counter() - t0:.2f} s (with the plain run)")
-    print(f"train step ms: {tr['step_ms_median_2_4']:.3f} (median of steps "
-          f"2-{TRAIN_STEPS}; plain versions "
-          f"{statistics.median(tr['plain_step_ms'][1:]):.3f})")
-    print(f"train tokens/s: {tr['tokens_per_s']:.1f} (plain versions "
-          f"{tr['plain_tokens_per_s']:.1f})")
-    print(f"train device busy share: {tr['device_busy_share']:.4f} "
-          f"(torch.profiler, one step)")
-    print(f"train launches per step: {json.dumps(tr['launches_per_step'])}")
-    print(f"train loss {tr['loss']} (plain {tr['plain_loss']}), grad norm "
-          f"{tr['grad_norm']} (plain {tr['plain_grad_norm']})")
+    print_training("", tr, time.perf_counter() - t0)
     res = crash_resume()
     tr["crash_resume_reduced"] = res
     print(f"train crash/resume (reduced, on the card): crashed at step "
@@ -2611,6 +2843,29 @@ def main() -> int:
     by_name["flash_attention"]["launches_by_path"]["train"] = (
         launches_train["flash_attention"])
     kernels.append(bwd_row)
+    torch.cuda.empty_cache()
+
+    # training: mamba2-370m at full width, B7 and its backward
+    t0 = time.perf_counter()
+    mtr, launches_mtrain = training_phase(
+        MAMBA_ARCH, ("ssd_scan", "ssd_scan_bwd"), resync=TRAIN_RESYNC,
+        calibrate_chunk=TRAIN_CALIBRATE_CHUNK)
+    torch.cuda.empty_cache()
+    print_training("mamba ", mtr, time.perf_counter() - t0)
+    if "free_plain_loss" in mtr:
+        print(f"mamba train plain run left to run free (not gated): loss "
+              f"{mtr['free_plain_loss']}, grad norm "
+              f"{mtr['free_plain_grad_norm']}, grad norm off the kernel "
+              f"run's by {mtr['free_grad_norm_rel_diff']} (relative)")
+    print("mamba train " + json.dumps(mtr))
+    model = build(get_arch(MAMBA_ARCH), "cuda")
+    toks = torch.from_numpy(SyntheticLMDataset(
+        vocab=model.cfg.vocab, seq_len=TRAIN_SEQ + 1).batch(
+            1, TRAIN_BATCH)["tokens"][:TRAIN_BATCH // 2, :TRAIN_SEQ]).long()
+    kernels.append(train_ssd_rows(model, toks.cuda(), launches_mtrain))
+    by_name["ssd_scan"]["launches_by_path"]["train"] = (
+        launches_mtrain["ssd_scan"])
+    del model, toks
     torch.cuda.empty_cache()
 
     # MoE serving: moonshot-v1-16b-a3b at full width, bf16 parameters
@@ -2701,8 +2956,8 @@ def main() -> int:
                                      f"{r['ms']} ms is under its bound "
                                      f"{r['bound_ms']} ms")
     for name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
-                 "dfa_regex", "decode_attention", "arx_cipher",
-                 "keyed_hash", "flow_lookup"):
+                 "ssd_scan_bwd", "dfa_regex", "decode_attention",
+                 "arx_cipher", "keyed_hash", "flow_lookup"):
         spills = {fn: v for fn, v in _ptxas_of(ptxas, name).items()
                   if v.get("spill_stores") or v.get("spill_loads")}
         if spills:

@@ -44,11 +44,13 @@ SIGNATURES = {
     "meili_arx_cipher": [_P, _I64, _I64, _P, _P, _P],
     "meili_keyed_hash": [_P, _I64, _I64, _P, _P, _P],
     "meili_flash_attention": [_P, _P, _P, _P] + [_I32] * 8 + [_F32]
-                             + [_I32] * 3 + [_P] * 4,
+                             + [_I32] * 4 + [_P] * 4,
     "meili_flash_attention_bwd": [_P] * 10 + [_I32] * 8 + [_F32, _P],
     "meili_decode_attention": [_P] * 8 + [_I32] * 9 + [_F32] + [_I32] * 2
                               + [_P],
     "meili_ssd_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [_P],
+    "meili_ssd_scan_bwd": [_P] * 14 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3
+                          + [_P],
 }
 # Kernel name (as counted and reported) -> C launcher.
 KERNELS = {
@@ -60,6 +62,7 @@ KERNELS = {
     "flash_attention_bwd": "meili_flash_attention_bwd",
     "decode_attention": "meili_decode_attention",
     "ssd_scan": "meili_ssd_scan",
+    "ssd_scan_bwd": "meili_ssd_scan_bwd",
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -55,9 +55,15 @@
 // logits, lse (B, Hq, Sq) f32, 1e30 for a row with no valid key as in the
 // reference's `_attention_blocked_fwd`; the backward (flash_attention_bwd.cu)
 // recomputes the probabilities from it. Ragged
-// Sq and Sk tails are masked (keys past Sk are zero-filled). K and V are
-// f32 here (the wrapper widens bf16 ones, exactly); Q may be f32 or bf16.
-#include "tf32x3.cuh"
+// Sq and Sk tails are masked (keys past Sk are zero-filled).
+//
+// Two instances. The bf16 one (`flash_fwd_bf16_kernel`, below) serves q, k
+// and v all bf16 at D 128, every bf16 config's pairing: its products are
+// exact bf16 wgmma, its tiles 64 keys. The f32 one (`flash_fwd_kernel`)
+// serves every other pairing, f32 at any head dim, f32 q over bf16 k/v and
+// bf16 at D 16, 64 and 256: there K and V are f32 (the wrapper widens bf16
+// ones, exactly) and Q f32 or bf16.
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -71,7 +77,10 @@ using meili::mma_tf32;
 using meili::pin;
 using meili::pin_a;
 using meili::split;
+using meili::split_bf16;
 using meili::wgmma;
+using meili::wgmma_bf16_n128_mn;
+using meili::wgmma_bf16_n32_ss;
 using meili::wgmma_commit;
 using meili::wgmma_fence;
 using meili::wgmma_wait;
@@ -104,7 +113,9 @@ __device__ __forceinline__ int qk_at(int r, int q) {
   else return r * D + ((q ^ ((r & 1) << 2)) << 2);
 }
 
-// Key tiles [t_lo, t_hi) that query positions [p0, p0 + PB) may see.
+// Key tiles [t_lo, t_hi) of BK keys that query positions [p0, p0 + PB)
+// may see.
+template <int BK = kBK>
 __device__ inline void key_tiles(int p0, int PB, int Sq, int Sk,
                                  int causal, int window, int& t_lo,
                                  int& t_hi) {
@@ -113,8 +124,8 @@ __device__ inline void key_tiles(int p0, int PB, int Sq, int Sk,
   int k_lo = 0, k_hi = Sk;
   if (causal) k_hi = min(Sk, p_last + off + 1);
   if (window > 0) k_lo = max(0, p0 + off - window + 1);
-  t_lo = k_lo / kBK;
-  t_hi = k_hi > k_lo ? (k_hi + kBK - 1) / kBK : t_lo;
+  t_lo = k_lo / BK;
+  t_hi = k_hi > k_lo ? (k_hi + BK - 1) / BK : t_lo;
 }
 
 // A query tile whose key tiles exceed kmax is split over
@@ -501,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Rows of split query tiles: out = sum_p w_p O_p / sum_p w_p l_p with
 // w_p = exp(m_p - max m). A row no part saw a key of gives 0. One thread
 // per 4 output columns.
-template <int D>
+template <int D, int BK = kBK>
 __global__ void __launch_bounds__(256)
     flash_combine_kernel(const float* __restrict__ o_part,
                          const float* __restrict__ ml_part,
@@ -517,7 +528,7 @@ __global__ void __launch_bounds__(256)
   const int pos = static_cast<int>((row / Hq) % Sq);
   const int PB = kRows / Gb;
   int t_lo, t_hi;
-  key_tiles(pos / PB * PB, PB, Sq, Sk, causal, window, t_lo, t_hi);
+  key_tiles<BK>(pos / PB * PB, PB, Sq, Sk, causal, window, t_lo, t_hi);
   const int parts = key_parts(t_hi - t_lo, kmax);
   if (parts == 1) return;
   float m = kNegInf;
@@ -538,6 +549,351 @@ __global__ void __launch_bounds__(256)
   const int64_t at = row * D + col;
   meili::store2(out, q_bf16, at, acc.x / safe, acc.y / safe);
   meili::store2(out, q_bf16, at + 2, acc.z / safe, acc.w / safe);
+}
+
+// ---- The bf16 instance (K1): q, k and v all bf16, D 128 ----------------
+//
+// A product of two bf16 values is exact in f32, so the f32 math of the
+// reference needs no 3xTF32 here:
+// - S = Q Kᵀ is one bf16 wgmma (m64n32k16, f32 accumulator) per 16 columns
+//   of d and 32 keys: Q and K from shared memory in the K-major
+//   core-matrix layout (Q landed once, as it is). The scale is applied to
+//   the f32 logits. A tile's 64 keys go through QKᵀ, the softmax and P·V
+//   in two halves, so the logits of 32 keys are live at a time.
+// - O += P V takes P as p_hi = bf16(p) and p_lo = bf16(p - p_hi), two bf16
+//   wgmma (m64n128k16) from registers against V: P keeps 16 bits (relative
+//   error <= 2^-17, far under the bf16 output's 2^-9). The accumulator of
+//   S is the A fragment of P as it is (16-bit A layout), and V is read
+//   MN-major through wgmma's transpose bit, so neither is moved or split.
+// - K and V land by cp.async straight in the core-matrix layout: the tile's
+//   64 keys x 128 d as 16-byte rows of 8 d, core matrix (key block kb, d
+//   block db) at byte 128 (8 db + kb). That is K-major for K (QKᵀ's B:
+//   N = keys) and MN-major for V (PV's B: N = d). Two stages of a K and a
+//   V tile of 64 keys, and Q's 128 rows the same way (core matrix (row
+//   block rb, d block db) at byte 128 (16 db + rb)): 96 KB a block, and at
+//   most 128 registers a thread, so two blocks share an SM and one's
+//   softmax overlaps the other's products.
+// - A block's 128 rows and the key-range split are as in the f32 instance;
+//   a warpgroup whose 64 rows see none of a tile's keys skips it.
+constexpr int kBKb = 64;                    // keys per tile
+constexpr int kBH = 32;                     // keys per softmax step
+constexpr int kDb = 128;                    // head dim
+constexpr int kTileBytes = kBKb * kDb * 2;  // a K or a V tile
+constexpr int kQBytes = kRows * kDb * 2;    // the block's Q rows
+constexpr size_t kSmemBf16 = kQBytes + 2 * 2 * kTileBytes;
+
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          void* __restrict__ out, int Sq, int Sk, int Hq,
+                          int Hkv, int G, int Gb, int causal, int window,
+                          float scale, int kmax, int max_parts,
+                          float* __restrict__ o_part,
+                          float* __restrict__ ml_part,
+                          float* __restrict__ lse) {
+  constexpr int D = kDb;
+  constexpr int NT = D / 8;       // output n-tiles of a warp
+  constexpr int ST = kBH / 8;     // logit n-tiles of a warp
+  extern __shared__ __align__(128) unsigned char smem_b[];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int PB = kRows / Gb;
+  const int nq = gridDim.z / max_parts;
+  const int p0 = (nq - 1 - static_cast<int>(blockIdx.z) / max_parts) * PB;
+  const int part = blockIdx.z % max_parts;
+  const int groups = (G + Gb - 1) / Gb;
+  const int hk = blockIdx.y / groups;
+  const int hg0 = (blockIdx.y % groups) * Gb;
+  const int b = blockIdx.x;
+  const int off = Sk - Sq;
+  const int64_t q_row = static_cast<int64_t>(Hq) * D;
+  const int64_t kv_row = static_cast<int64_t>(Hkv) * D;
+  const int64_t q_base = static_cast<int64_t>(b) * Sq * q_row;
+  const int64_t kv_base = static_cast<int64_t>(b) * Sk * kv_row +
+                          static_cast<int64_t>(hk) * D;
+
+  auto row_ok = [&](int r) {
+    return r < PB * Gb && hg0 + r % Gb < G && p0 + r / Gb < Sq;
+  };
+  auto row_offset = [&](int r) {
+    return q_base + static_cast<int64_t>(p0 + r / Gb) * q_row +
+           static_cast<int64_t>(hk * G + hg0 + r % Gb) * D;
+  };
+
+  int t_lo, t_hi;
+  key_tiles<kBKb>(p0, PB, Sq, Sk, causal, window, t_lo, t_hi);
+  const int parts = key_parts(t_hi - t_lo, kmax);
+  if (part >= parts) return;
+  if (parts > 1) {
+    const int len = (t_hi - t_lo + parts - 1) / parts;
+    t_lo += part * len;
+    t_hi = min(t_hi, t_lo + len);
+  }
+
+  // 16-byte copy i of a stage: K (i < 1,024), then V. Lanes take 8 keys of
+  // one 8-d column block, so a warp writes 4 whole core matrices.
+  auto fetch = [&](int t, int stage) {
+    unsigned char* ks = smem_b + kQBytes + stage * 2 * kTileBytes;
+    const int k0 = t * kBKb;
+#pragma unroll
+    for (int it = 0; it < 2 * kBKb * D / 8 / kThreads; ++it) {
+      const int i = tid + it * kThreads;
+      const int is_v = i >> 10;
+      const int kr = i & 7;
+      const int db = (i >> 3) & 15;
+      const int kb = (i >> 7) & 7;
+      const int key = kb * 8 + kr;
+      const bool in = k0 + key < Sk;
+      const int64_t idx =
+          kv_base + static_cast<int64_t>(in ? k0 + key : 0) * kv_row + db * 8;
+      cp_async16(ks + is_v * kTileBytes + (db * 8 + kb) * 128 + kr * 16,
+                 (is_v ? v : k) + idx, in);
+    }
+  };
+
+  if (t_lo < t_hi) fetch(t_lo, 0);
+  // Q's rows with the first tile (zero for a row out of range): 16-byte
+  // copy i takes row 8·((i >> 7) & 15) + (i & 7), d block (i >> 3) & 15.
+#pragma unroll
+  for (int it = 0; it < kRows * D / 8 / kThreads; ++it) {
+    const int i = tid + it * kThreads;
+    const int rb = (i >> 7) & 15;
+    const int db = (i >> 3) & 15;
+    const int r = rb * 8 + (i & 7);
+    const bool in = row_ok(r);
+    cp_async16(smem_b + (db * 16 + rb) * 128 + (i & 7) * 16,
+               q + (in ? row_offset(r) + db * 8 : 0), in);
+  }
+  cp_async_commit();
+
+  // This thread's rows r0 = 16·warp + g and r1 = r0 + 8.
+  const int r0 = warp * 16 + g;
+  const int r1 = r0 + 8;
+  const bool ok0 = row_ok(r0);
+  const bool ok1 = row_ok(r1);
+  const int qp0 = p0 + r0 / Gb + off;
+  const int qp1 = p0 + r1 / Gb + off;
+  const bool warp_full = __all_sync(0xffffffffu, ok0 && ok1);
+  const int wq_lo = p0 + (warp * 16) / Gb + off;
+  const int wq_hi = min(p0 + (warp * 16 + 15) / Gb, Sq - 1) + off;
+  // the warpgroup's 64 rows: whether any is in range, and their positions
+  const int wg_r = (warp >> 2) * 64;
+  const bool wg_live = wg_r < PB * Gb && p0 + wg_r / Gb < Sq;
+  const int gq_lo = p0 + wg_r / Gb + off;
+  const int gq_hi = min(p0 + (wg_r + 63) / Gb, Sq - 1) + off;
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int stage = (t - t_lo) & 1;
+    cp_async_wait<0>();   // tile t has landed (this thread's copies)
+    fence_to_async();     // ... visible to wgmma
+    __syncthreads();      // ... everyone's, and tile t - 1 is done with
+    if (t + 1 < t_hi) fetch(t + 1, stage ^ 1);
+    cp_async_commit();
+
+    const unsigned char* ks = smem_b + kQBytes + stage * 2 * kTileBytes;
+    const unsigned char* vs = ks + kTileBytes;
+    // The tile in halves of kBH keys, each QKᵀ, softmax and P·V in turn
+    // (the logits of half a tile keep the registers under 128).
+#pragma unroll 1
+    for (int h = 0; h < kBKb / kBH; ++h) {
+      const int k0 = t * kBKb + h * kBH;
+      if (!wg_live || (causal && k0 > gq_hi) ||
+          (window > 0 && k0 + kBH - 1 <= gq_lo - window))
+        continue;         // warpgroup-uniform: no row sees these keys
+
+      // S = Q Kᵀ: k-step kk reads d blocks 2kk, 2kk + 1 of the
+      // warpgroup's Q rows (2,048 B apart, row blocks 128 B) and of the
+      // half's K rows (1,024 B apart, key blocks 128 B).
+      float s[ST][4] = {};
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_bf16_n32_ss(
+            s,
+            core_desc(reinterpret_cast<const float*>(
+                          smem_b + (32 * kk + (warp >> 2) * 8) * 128),
+                      2048, 128),
+            core_desc(reinterpret_cast<const float*>(
+                          ks + kk * 2048 + h * (kBH / 8) * 128),
+                      1024, 128));
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<kBH>(s);
+
+      // Scale and mask, then the online softmax. s[n][e]: row e < 2 ? r0
+      // : r1, key k0 + 8n + 2c + (e & 1).
+      const bool all_in = warp_full && k0 + kBH <= Sk &&
+                          (!causal || k0 + kBH - 1 <= wq_lo) &&
+                          (window <= 0 || k0 > wq_hi - window);
+      uint32_t val = 0;
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int n = 0; n < ST; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + n * 8 + 2 * c + (e & 1);
+          const int qpos = e < 2 ? qp0 : qp1;
+          const bool ok = all_in || ((e < 2 ? ok0 : ok1) && kpos < Sk &&
+                                     (!causal || kpos <= qpos) &&
+                                     (window <= 0 || kpos > qpos - window));
+          val |= static_cast<uint32_t>(ok) << (4 * n + e);
+          s[n][e] = ok ? s[n][e] * scale : kNegInf;
+          if (e < 2) mx0 = fmaxf(mx0, s[n][e]);
+          else mx1 = fmaxf(mx1, s[n][e]);
+        }
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float alpha0 = __expf(m0 - mn0);
+      const float alpha1 = __expf(m1 - mn1);
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < ST; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = (val >> (4 * n + e)) & 1u
+                              ? __expf(s[n][e] - (e < 2 ? mn0 : mn1))
+                              : 0.f;
+          s[n][e] = p;
+          if (e < 2) rs0 += p;
+          else rs1 += p;
+        }
+      l0 = alpha0 * l0 + rs0;
+      l1 = alpha1 * l1 + rs1;
+      m0 = mn0;
+      m1 = mn1;
+      if (__any_sync(0xffffffffu, alpha0 != 1.f || alpha1 != 1.f)) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          o[n][0] *= alpha0; o[n][1] *= alpha0;
+          o[n][2] *= alpha1; o[n][3] *= alpha1;
+        }
+      }
+
+      // O += P V: k-step kk takes keys 16kk .. 16kk + 15 of the half,
+      // n-tiles 2kk and 2kk + 1 of S, as A (16-bit layout); V's key blocks
+      // are 128 B apart, its d blocks 1,024 B.
+      uint32_t ph[kBH / 16][4], pl[kBH / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBH / 16; ++kk) {
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[kk][0], pl[kk][0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[kk][1], pl[kk][1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[kk][2],
+                   pl[kk][2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[kk][3],
+                   pl[kk][3]);
+      }
+      pin<D>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBH / 16; ++kk) {
+        const uint64_t dv = core_desc(
+            reinterpret_cast<const float*>(vs + (h * kBH / 16 + kk) * 256),
+            128, 1024);
+        wgmma_bf16_n128_mn(o, pl[kk], dv);
+        wgmma_bf16_n128_mn(o, ph[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin<D>(o);
+#pragma unroll
+      for (int kk = 0; kk < kBH / 16; ++kk) {
+        pin_a(ph[kk]);
+        pin_a(pl[kk]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int x = 1; x < 4; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  if (parts > 1) {
+    const int64_t rows = static_cast<int64_t>(gridDim.x) * Sq * Hq;
+    float* op = o_part + part * rows * D;
+    float* mp = ml_part + part * rows * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!(half ? ok1 : ok0)) continue;
+      const int64_t at = row_offset(half ? r1 : r0);
+      if (c == 0) {
+        mp[at / D * 2] = half ? m1 : m0;
+        mp[at / D * 2 + 1] = half ? l1 : l0;
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        *reinterpret_cast<float2*>(op + at + 8 * n + 2 * c) =
+            make_float2(o[n][2 * half], o[n][2 * half + 1]);
+    }
+    return;
+  }
+  const float safe0 = l0 == 0.f ? 1.f : l0;
+  const float safe1 = l1 == 0.f ? 1.f : l1;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!(half ? ok1 : ok0)) continue;
+    const float den = half ? safe1 : safe0;
+    if (lse != nullptr && c == 0) {
+      const int r = half ? r1 : r0;
+      const float l = half ? l1 : l0;
+      lse[(static_cast<int64_t>(b) * Hq + hk * G + hg0 + r % Gb) * Sq + p0 +
+          r / Gb] = l > 0.f ? (half ? m1 : m0) + logf(l) : 1e30f;
+    }
+    const int64_t base = row_offset(half ? r1 : r0) + 2 * c;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      meili::store2(out, 1, base + 8 * n, o[n][2 * half] / den,
+                    o[n][2 * half + 1] / den);
+  }
+}
+
+int launch_flash_bf16(const void* q, const void* k, const void* v, void* out,
+                      int B, int Sq, int Sk, int Hq, int Hkv, int causal,
+                      int window, float scale, int kmax, int max_parts,
+                      float* o_part, float* ml_part, float* lse,
+                      cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBf16));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = Hq / Hkv;
+  const int Gb = G < kRows ? G : kRows;
+  const int PB = kRows / Gb;
+  const int groups = (G + Gb - 1) / Gb;
+  const int64_t nz = static_cast<int64_t>((Sq + PB - 1) / PB) * max_parts;
+  if (static_cast<int64_t>(Hkv) * groups > 65535 || nz > 65535 ||
+      kmax < 1 || max_parts < 1 || (max_parts > 1 && !(o_part && ml_part)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(B, Hkv * groups, static_cast<unsigned>(nz));
+  flash_fwd_bf16_kernel<<<grid, kThreads, kSmemBf16, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, Sq, Sk, Hq, Hkv, G, Gb,
+      causal, window, scale, kmax, max_parts, o_part, ml_part, lse);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || max_parts == 1) return static_cast<int>(err);
+  const int64_t n = static_cast<int64_t>(B) * Sq * Hq * (kDb / 4);
+  flash_combine_kernel<kDb, kBKb>
+      <<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+          o_part, ml_part, out, B, Sq, Sk, Hq, Gb, causal, window, kmax, 1,
+          lse);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -578,22 +934,32 @@ int launch_flash(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// `kmax` key tiles at most per block: a query tile with more is split over
-// blocks and combined, with f32 scratch o_part (max_parts, B, Sq, Hq, D)
-// and ml_part (max_parts, B, Sq, Hq, 2) from the caller (unused, may be
-// null, when max_parts is 1). `lse` (B, Hq, Sq) f32 is written when not
-// null.
+// `kmax` key tiles at most per block (16 keys a tile in the f32 instance,
+// 64 in the bf16 one): a query tile with more is split over blocks and
+// combined, with f32 scratch o_part (max_parts, B, Sq, Hq, D) and ml_part
+// (max_parts, B, Sq, Hq, 2) from the caller (unused, may be null, when
+// max_parts is 1). `lse` (B, Hq, Sq) f32 is written when not null.
+// `kv_bf16` selects the bf16 instance (q, k and v bf16, D 128); otherwise
+// k and v are f32 and q f32 or bf16 (`q_bf16`).
 extern "C" int meili_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Sk, int Hq, int Hkv, int D,
                                      int causal, int window, float scale,
-                                     int q_bf16, int kmax, int max_parts,
-                                     void* o_part, void* ml_part, void* lse,
-                                     void* stream) {
+                                     int q_bf16, int kv_bf16, int kmax,
+                                     int max_parts, void* o_part,
+                                     void* ml_part, void* lse, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_bf16) {        // the bf16 instance: q, k and v bf16 at D 128
+    if (!q_bf16 || D != kDb) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_flash_bf16(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                             window, scale, kmax, max_parts,
+                             static_cast<float*>(o_part),
+                             static_cast<float*>(ml_part),
+                             static_cast<float*>(lse), s);
+  }
   switch (D) {
     case 16:
       return launch_flash<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,

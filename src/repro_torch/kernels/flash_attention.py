@@ -10,6 +10,13 @@ outputs 0. ``flash_attention_cuda`` launches the hand-written kernel
 PyTorch version of the same online-softmax recurrence, the CPU path and
 the kernel's oracle on the card. ``ops.attention`` picks between them.
 
+The kernel has two instances (``instance``). q, k and v all bf16 at head
+dim 128, every bf16 config's pairing, go to the bf16 one: exact bf16
+products on the tensor cores, 64-key tiles, K and V read as they are. Every
+other pairing (f32 at any head dim, f32 q over bf16 k/v, bf16 at head dims
+16, 64 and 256) goes to the f32 one: 3xTF32 products, 16-key tiles, bf16
+K and V widened to f32 by the wrapper (exactly).
+
 For training, both forwards can also return each row's log-sum-exp of its
 scaled logits, ``lse`` (B, Hq, Sq) f32 (1e30 for a row with no valid key),
 and the gradient is ``flash_attention_bwd_cuda`` (the hand-written kernels
@@ -30,9 +37,19 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 LSE_EMPTY = 1e30      # lse of a row with no valid key: exp(s - lse) == 0
 BLOCK_ROWS = 128      # (query position, query head) rows per CUDA block
-BLOCK_K = 16          # keys per CUDA tile, double-buffered
+BLOCK_K = 16          # keys per CUDA tile of the f32 instance, double-buffered
+BLOCK_K_BF16 = 64     # ... of the bf16 instance
+BF16_HEAD_DIM = 128   # the bf16 instance's head dim
+BF16_BLOCKS_PER_SM = 2   # its blocks an SM holds (128 registers, 96 KB)
 HEAD_DIMS = (16, 64, 128, 256)   # every config's, and d_head 16 of reduced()
 DTYPES = (torch.float32, torch.bfloat16)
+
+
+def instance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel instance that serves these inputs: "bf16" for q, k and v
+    all bf16 at head dim 128, else "f32"."""
+    bf16 = q.dtype == k.dtype == v.dtype == torch.bfloat16
+    return "bf16" if bf16 and q.shape[-1] == BF16_HEAD_DIM else "f32"
 
 
 def key_range(q0: int, q1: int, Sq: int, Sk: int, causal: bool,
@@ -191,10 +208,12 @@ def _makespan(sizes, sms: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def key_split(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, causal: bool,
-              window: Optional[int], sms: int) -> Tuple[int, int]:
-    """(kmax, max_parts): the most key tiles one block walks, and the most
-    blocks a query tile's key range is split over (then combined). The
-    causal grid's query tiles see from 1 to Sk / BLOCK_K key tiles, and
+              window: Optional[int], sms: int,
+              block_k: int = BLOCK_K) -> Tuple[int, int]:
+    """(kmax, max_parts): the most key tiles (of ``block_k`` keys) one
+    block walks, and the most blocks a query tile's key range is split
+    over (then combined), with ``sms`` blocks running at once. The
+    causal grid's query tiles see from 1 to Sk / block_k key tiles, and
     with as many blocks as SMs the longest sets the time. A query tile of
     more than kmax tiles is cut into ceil(tiles / kmax) near-equal ranges;
     kmax is the longest range, or a half, third or quarter of it, whichever
@@ -204,7 +223,7 @@ def key_split(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, causal: bool,
     tiles = []
     for p0 in range(0, Sq, PB):
         lo, hi = key_range(p0, min(p0 + PB, Sq), Sq, Sk, causal, window)
-        tiles.append(-(-hi // BLOCK_K) - lo // BLOCK_K if hi > lo else 0)
+        tiles.append(-(-hi // block_k) - lo // block_k if hi > lo else 0)
     longest = max(tiles)
     copies = B * Hkv * groups
     best = (_makespan(tiles * copies, sms), max(longest, 1), 1)
@@ -221,6 +240,19 @@ def key_split(B: int, Sq: int, Sk: int, Hq: int, Hkv: int, causal: bool,
         if span < best[0]:
             best = (span, kmax, -(-longest // kmax))
     return best[1], best[2]
+
+
+def split_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: Optional[int]) -> Tuple[int, int]:
+    """``key_split`` as the wrapper takes it for these inputs: the tiles of
+    their instance, and the blocks their card runs at once."""
+    B, Sq, Hq, _ = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    bf16 = instance(q, k, v) == "bf16"
+    sms = hw.device_spec(q.device.index or 0).sms
+    return key_split(B, Sq, Sk, Hq, Hkv, causal, window,
+                     sms * BF16_BLOCKS_PER_SM if bf16 else sms,
+                     BLOCK_K_BF16 if bf16 else BLOCK_K)
 
 
 def check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -243,11 +275,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None,
                          scale: Optional[float] = None,
                          return_lse: bool = False):
-    """Launch the CUDA kernel; every tensor contiguous on one CUDA device.
-    Long causal key ranges are split over blocks (``key_split``) and a
-    second kernel combines them, on scratch allocated here; the call counts
-    as one launch of ``flash_attention``. With ``return_lse`` the kernel
-    also writes lse and the call returns (out, lse (B, Hq, Sq) f32)."""
+    """Launch the CUDA kernel's instance for these inputs (``instance``);
+    every tensor contiguous on one CUDA device. Long causal key ranges are
+    split over blocks (``key_split``) and a second kernel combines them,
+    on scratch allocated here; the call counts as one launch of
+    ``flash_attention``. With ``return_lse`` the kernel also writes lse and
+    the call returns (out, lse (B, Hq, Sq) f32)."""
     name = "flash_attention"
     dev = _build.require_cuda(name, q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -262,7 +295,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_shapes(name, q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"{name}: window must be >= 1, got {window}")
-    if smem_bytes(D) > hw.SMEM_PER_BLOCK_MAX:
+    bf16 = instance(q, k, v) == "bf16"
+    if not bf16 and smem_bytes(D) > hw.SMEM_PER_BLOCK_MAX:
         raise ValueError(f"{name}: head dim {D} needs {smem_bytes(D)} B of "
                          f"shared memory, more than a block can have")
     if max(B, Hkv) > 65535:
@@ -273,21 +307,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if return_lse else None)
     if B * Sq == 0:
         return (out, lse) if return_lse else out
-    kmax, parts = key_split(B, Sq, Sk, Hq, Hkv, causal, window,
-                            hw.device_spec(dev.index or 0).sms)
+    kmax, parts = split_plan(q, k, v, causal, window)
     o_part = ml_part = None
     if parts > 1:     # scratch of the split query tiles, combined in-kernel
         o_part = torch.empty((parts, B, Sq, Hq, D), dtype=torch.float32,
                              device=dev)
         ml_part = torch.empty((parts, B, Sq, Hq, 2), dtype=torch.float32,
                               device=dev)
-    # the kernel's row copies move bytes as they are: bf16 K/V are widened
-    # here (exactly) and read as f32
-    k32, v32 = k.float(), v.float()
-    _build.launch(name, dev, q.data_ptr(), k32.data_ptr(), v32.data_ptr(),
+    # the f32 instance's row copies move bytes as they are: bf16 K/V are
+    # widened here (exactly) and read as f32; the bf16 instance reads them
+    # as they are
+    kk, vv = (k, v) if bf16 else (k.float(), v.float())
+    _build.launch(name, dev, q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
                   out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal),
                   0 if window is None else int(window), scale,
-                  int(q.dtype == torch.bfloat16), kmax, parts,
+                  int(q.dtype == torch.bfloat16), int(bf16), kmax, parts,
                   o_part.data_ptr() if parts > 1 else None,
                   ml_part.data_ptr() if parts > 1 else None,
                   lse.data_ptr() if return_lse else None)

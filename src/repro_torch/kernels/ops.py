@@ -143,17 +143,58 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Mamba-2 SSD.
 # ---------------------------------------------------------------------------
 
+class _SSD(torch.autograd.Function):
+    """The SSD scan with its chunked gradient: the forward keeps (x, a, b,
+    c) and the scan's scratch (each chunk's incoming state and cl), the
+    backward runs the forward's steps in reverse from them. ``plain``
+    picks the plain forward and backward, else B7 and its backward
+    kernel. A gradient of y or h_final that autograd does not need arrives
+    as None (h_final's, when the caller drops it, is taken as zero)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c, chunk, plain):
+        ctx.set_materialize_grads(False)
+        if plain:
+            y, h, states, cl = _ssd.ssd_scan_torch(x, a, b, c, chunk,
+                                                   return_scratch=True)
+        else:
+            y, h, states, cl = _ssd.ssd_scan_cuda(
+                x.contiguous(), a.contiguous(), b.contiguous(), c, chunk,
+                return_scratch=True)
+        ctx.save_for_backward(x, a, b, c, states, cl)
+        ctx.args = (chunk, plain)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, a, b, c, states, cl = ctx.saved_tensors
+        chunk, plain = ctx.args
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if plain:
+            grads = _ssd.ssd_scan_bwd_torch(x, a, b, c, dy, dh, states, cl,
+                                            chunk)
+        else:
+            grads = _ssd.ssd_scan_bwd_cuda(
+                x.contiguous(), a.contiguous(), b.contiguous(), c,
+                dy.contiguous(), None if dh is None else dh.contiguous(),
+                states, cl, chunk)
+        return grads + (None, None)
+
+
 def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         *, chunk: int = 128, impl: Optional[str] = None):
     """Mamba-2 SSD from a zero state. x: (B, S, H, P), a: (B, S, H) in
     (0, 1], b/c: (B, S, H, N) (c may be a view broadcast over H). Returns
-    (y (B, S, H, P), h_final (B, H, N, P) f32)."""
+    (y (B, S, H, P), h_final (B, H, N, P) f32). Where autograd needs a
+    gradient of x, a, b or c, the call goes through ``_SSD``: B7 and its
+    backward kernel on the card, the plain pair on the CPU or with
+    ``impl="torch"``."""
     _check_impl(impl)
-    if impl == "torch" or not x.is_cuda:
-        return _ssd.ssd_scan_torch(x, a, b, c, chunk)
+    plain = impl == "torch" or not x.is_cuda
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
-        raise NotImplementedError("B7 has no backward kernel yet (ROADMAP "
-                                  "A23): train the ssm family on the CPU "
-                                  "or with impl='torch'")
+        return _SSD.apply(x, a, b, c, chunk, plain)
+    if plain:
+        return _ssd.ssd_scan_torch(x, a, b, c, chunk)
     return _ssd.ssd_scan_cuda(x.contiguous(), a.contiguous(), b.contiguous(),
                               c, chunk)

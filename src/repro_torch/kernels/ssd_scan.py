@@ -25,7 +25,7 @@ algorithm, the CPU path and the kernel's oracle on the card.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,26 +45,39 @@ def _chunk(S: int, chunk: int) -> int:
     return chunk
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 math for f32 and bf16 inputs; f64 inputs (finite-difference
+    checks of the plain pair) stay f64."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def ssd_scan_torch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                   c: torch.Tensor, chunk: int = 128
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   c: torch.Tensor, chunk: int = 128,
+                   return_scratch: bool = False):
     """Plain version: the chunked algorithm of the reference's blocked path
-    (``ops._ssd_blocked``) with the decay masked before the exponent."""
+    (``ops._ssd_blocked``) with the decay masked before the exponent.
+    Returns (y, h_final); with ``return_scratch`` also what the backward
+    reads, as the kernel leaves it: each chunk's incoming state ``states``
+    (B, H, S / T, N, P) and ``cl`` (B, H, S), cumsum(log a) within each
+    chunk."""
     B, S, H, P = x.shape
     N = b.shape[-1]
     T = _chunk(S, chunk)
     if not bool((a > 0).all()):
         raise ValueError("ssd_scan: the decays a must be > 0 (log a is taken)")
-    la = torch.log(a.float())
+    f = _acc_dtype(x)
+    la = torch.log(a.to(f))
     idx = torch.arange(T, device=x.device)
     above = (idx[None, :] > idx[:, None])[None, :, :, None]   # (1, t, s, 1)
-    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
-    ys = []
+    h = torch.zeros((B, H, N, P), dtype=f, device=x.device)
+    ys, states, cls = [], [], []
     for s0 in range(0, S, T):
-        xc = x[:, s0:s0 + T].float()                     # (B, T, H, P)
-        bc = b[:, s0:s0 + T].float()                     # (B, T, H, N)
-        cc = c[:, s0:s0 + T].float()
+        xc = x[:, s0:s0 + T].to(f)                       # (B, T, H, P)
+        bc = b[:, s0:s0 + T].to(f)                       # (B, T, H, N)
+        cc = c[:, s0:s0 + T].to(f)
         cl = torch.cumsum(la[:, s0:s0 + T], dim=1)       # (B, T, H)
+        states.append(h)
+        cls.append(cl)
         diff = cl[:, :, None, :] - cl[:, None, :, :]     # (B, t, s, H)
         decay = torch.exp(diff.masked_fill(above, float("-inf")))
         cb = torch.einsum("bthn,bshn->btsh", cc, bc)
@@ -75,21 +88,90 @@ def ssd_scan_torch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         h = torch.exp(cl[:, -1])[..., None, None] * h + torch.einsum(
             "bthn,bthp->bhnp", bc * w[..., None], xc)
         ys.append(y)
-    return torch.cat(ys, dim=1).to(x.dtype), h
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    if not return_scratch:
+        return y, h
+    return (y, h, torch.stack(states, dim=2),
+            torch.cat(cls, dim=1).permute(0, 2, 1).contiguous())
 
 
-def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-                  c: torch.Tensor, chunk: int = 128
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel. x, a and b contiguous on one CUDA device; c
-    may be any strided view whose last dimension is contiguous (the mixer
-    passes one (B, S, N) tensor broadcast over H, stride 0, not a copy).
-    The C launcher runs the chunked form's three steps (chunk states, state
-    passing, chunk scan) on scratch allocated here; it counts as one
-    launch of ``ssd_scan``.
-    The decays are not checked for a > 0 here: that would synchronize the
-    host on every layer."""
-    name = "ssd_scan"
+def ssd_scan_bwd_torch(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, dy: torch.Tensor,
+                       dh_final: Optional[torch.Tensor],
+                       states: torch.Tensor, cl: torch.Tensor,
+                       chunk: int = 128):
+    """Plain version of the gradient: the chunked forward's three steps in
+    reverse, from the forward's scratch (``states``, each chunk's incoming
+    state h_c, and ``cl``; see ``ssd_scan_torch``). dy is y's gradient,
+    ``dh_final`` h_final's (None: zero). With g_c the gradient of the state
+    a chunk leaves (g of the last chunk is dh_final):
+
+    (b') g_{c-1} = exp(cl_{T-1}) g_c + sum_t exp(cl_t) c_t ⊗ dy_t, in
+         reverse chunk order;
+    (a'/c') per chunk, with M1 = L ⊙ C Bᵀ, M2 = L ⊙ dY Xᵀ and
+         w = exp(cl_{T-1} - cl):
+           dX = M1ᵀ dY + diag(w) B g_c
+           dB = M2ᵀ C + diag(w) X g_cᵀ
+           dC = M2 B + diag(exp(cl)) dY h_cᵀ
+         and dcl from Q = M1 ⊙ dY Xᵀ (row sums minus column sums), the
+         state term exp(cl_t) c_t·h_c dy_t, the weights w and the decay
+         exp(cl_{T-1}) of h_c;
+    then d log a is the reverse cumulative sum of dcl within each chunk and
+    da = d log a / a. L's exponent is taken only on and below the diagonal,
+    as in the forward. Returns (dx, da, db, dc) in the dtypes of x, a, b
+    and c; dc is (B, S, H, N) whatever c's strides (a c broadcast over H
+    gets its gradient summed by autograd)."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    T = _chunk(S, chunk)
+    nc = S // T
+    f = _acc_dtype(x)
+    r = lambda t: t.to(f).reshape(B, nc, T, H, -1)
+    xr, br, cr, dyr = r(x), r(b), r(c), r(dy)
+    clr = cl.to(f).reshape(B, H, nc, T).permute(0, 2, 3, 1)    # (B, nc, T, H)
+    h_in = states.to(f).permute(0, 2, 1, 3, 4)            # (B, nc, H, N, P)
+    ecl = torch.exp(clr)
+    last = clr[:, :, -1]                                        # (B, nc, H)
+    w = torch.exp(last[:, :, None] - clr)                       # (B, nc, T, H)
+    # (b') reverse state passing
+    cdy = torch.einsum("bcth,bcthn,bcthp->bchnp", ecl, cr, dyr)
+    g = (torch.zeros((B, H, N, P), dtype=f, device=x.device)
+         if dh_final is None else dh_final.to(f))
+    gs = []
+    for ic in reversed(range(nc)):
+        gs.append(g)
+        g = torch.exp(last[:, ic])[..., None, None] * g + cdy[:, ic]
+    G = torch.stack(gs[::-1], dim=1)                      # (B, nc, H, N, P)
+    # (a'/c') per chunk
+    idx = torch.arange(T, device=x.device)
+    above = (idx[None, :] > idx[:, None])[None, None, :, :, None]
+    diff = clr[:, :, :, None, :] - clr[:, :, None, :, :]  # (B, nc, t, s, H)
+    L = torch.exp(diff.masked_fill(above, float("-inf")))
+    dM = torch.einsum("bcthp,bcshp->bctsh", dyr, xr)
+    M1 = L * torch.einsum("bcthn,bcshn->bctsh", cr, br)
+    M2 = L * dM
+    Gx = torch.einsum("bchnp,bcshp->bcshn", G, xr)              # g_c x_s
+    hdy = torch.einsum("bchnp,bcthp->bcthn", h_in, dyr)         # h_c dy_t
+    dx = (torch.einsum("bctsh,bcthp->bcshp", M1, dyr)
+          + w[..., None] * torch.einsum("bchnp,bcshn->bcshp", G, br))
+    db = torch.einsum("bctsh,bcthn->bcshn", M2, cr) + w[..., None] * Gx
+    dc = torch.einsum("bctsh,bcshn->bcthn", M2, br) + ecl[..., None] * hdy
+    Q = M1 * dM
+    rs = w * (br * Gx).sum(-1)                                  # (B, nc, T, H)
+    dcl = Q.sum(3) - Q.sum(2) + ecl * (cr * hdy).sum(-1) - rs
+    tail = rs.sum(2) + torch.exp(last) * (G * h_in).sum((-2, -1))
+    dcl = torch.cat([dcl[:, :, :-1], dcl[:, :, -1:] + tail[:, :, None]],
+                    dim=2)
+    dla = dcl.flip(2).cumsum(2).flip(2).reshape(B, S, H)
+    da = dla / a.to(f)
+    return (dx.reshape(B, S, H, P).to(x.dtype), da.to(a.dtype),
+            db.reshape(B, S, H, N).to(b.dtype),
+            dc.reshape(B, S, H, N).to(c.dtype))
+
+
+def _check(name: str, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+           c: torch.Tensor, chunk: int) -> Tuple[torch.device, int]:
+    """Raise on any input the kernels do not take; (device, chunk)."""
     dev = _build.require_cuda(name, x, a, b)
     if c.device != dev or c.stride(-1) != 1:
         raise ValueError(f"{name}: c must be on {dev} with a contiguous "
@@ -114,23 +196,93 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: chunk {T}, state {N}, head dim {P}; the "
                          f"kernel takes at most {MAX_CHUNK}, {MAX_STATE}, "
                          f"{MAX_HEAD_DIM}")
+    return dev, T
+
+
+def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  c: torch.Tensor, chunk: int = 128,
+                  return_scratch: bool = False):
+    """Launch the CUDA kernel. x, a and b contiguous on one CUDA device; c
+    may be any strided view whose last dimension is contiguous (the mixer
+    passes one (B, S, N) tensor broadcast over H, stride 0, not a copy).
+    The C launcher runs the chunked form's three steps (chunk states, state
+    passing, chunk scan) on scratch allocated here; it counts as one
+    launch of ``ssd_scan``. Returns (y, h_final), and with
+    ``return_scratch`` the scratch the backward reads (as
+    ``ssd_scan_torch``'s: ``states``, ``cl``).
+    The decays are not checked for a > 0 here: that would synchronize the
+    host on every layer."""
+    name = "ssd_scan"
+    dev, T = _check(name, x, a, b, c, chunk)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
     y = torch.empty_like(x)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=dev)
-    if B * H == 0:
-        return y, h
     # scratch of the chunked form: each chunk's state, then (in place) the
     # state entering it; and cl = cumsum(log a) within each chunk
     states = torch.empty((B, H, S // T, N, P), dtype=torch.float32,
                          device=dev)
     cl = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    if B * H:
+        _build.launch(name, dev, x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                      c.data_ptr(), y.data_ptr(), h.data_ptr(),
+                      states.data_ptr(), cl.data_ptr(), B, S, H, P, N, T,
+                      c.stride(0), c.stride(1), c.stride(2),
+                      int(x.dtype == torch.bfloat16),
+                      int(b.dtype == torch.bfloat16),
+                      int(c.dtype == torch.bfloat16))
+    return (y, h, states, cl) if return_scratch else (y, h)
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, dy: torch.Tensor,
+                      dh_final: Optional[torch.Tensor],
+                      states: torch.Tensor, cl: torch.Tensor,
+                      chunk: int = 128):
+    """Launch the backward kernels (``csrc/ssd_scan_bwd.cu``: the chunk
+    states of dy, the reverse state passing, dx and db by step s, dc by
+    step t, then da), on the forward's scratch (``states``, ``cl`` from
+    ``ssd_scan_cuda(..., return_scratch=True)``) and scratch allocated
+    here; counts as one launch of ``ssd_scan_bwd``. Inputs as
+    ``ssd_scan_cuda``'s, dy (y's gradient) in x's dtype, ``dh_final``
+    (B, H, N, P) f32 or None. Returns (dx, da, db, dc) as
+    ``ssd_scan_bwd_torch`` does: dc is (B, S, H, N) in c's dtype for every
+    head, whatever c's strides."""
+    name = "ssd_scan_bwd"
+    dev, T = _check(name, x, a, b, c, chunk)
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    _build.require_cuda(name, x, dy, states, cl)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"{name}: dy must be shaped and typed as x")
+    nc = S // T
+    if (states.shape != (B, H, nc, N, P) or cl.shape != (B, H, S)
+            or states.dtype != torch.float32 or cl.dtype != torch.float32):
+        raise ValueError(f"{name}: states (B, H, S / T, N, P) and cl "
+                         f"(B, H, S) f32, the forward's scratch")
+    if dh_final is not None:
+        _build.require_cuda(name, x, dh_final)
+        if (dh_final.shape != (B, H, N, P)
+                or dh_final.dtype != torch.float32):
+            raise ValueError(f"{name}: dh_final must be (B, H, N, P) f32")
+    dx = torch.empty_like(x)
+    da = torch.empty_like(a)
+    db = torch.empty_like(b)
+    dc = torch.empty((B, S, H, N), dtype=c.dtype, device=dev)
+    if B * H == 0:
+        return dx, da, db, dc
+    g = torch.empty_like(states)
+    vec = torch.empty((3, B, H, S), dtype=torch.float32, device=dev)
     _build.launch(name, dev, x.data_ptr(), a.data_ptr(), b.data_ptr(),
-                  c.data_ptr(), y.data_ptr(), h.data_ptr(), states.data_ptr(),
-                  cl.data_ptr(), B, S, H, P, N, T, c.stride(0), c.stride(1),
-                  c.stride(2),
-                  int(x.dtype == torch.bfloat16),
+                  c.data_ptr(), dy.data_ptr(),
+                  None if dh_final is None else dh_final.data_ptr(),
+                  states.data_ptr(), cl.data_ptr(), dx.data_ptr(),
+                  da.data_ptr(), db.data_ptr(), dc.data_ptr(), g.data_ptr(),
+                  vec.data_ptr(), B, S, H, P, N, T, c.stride(0), c.stride(1),
+                  c.stride(2), int(x.dtype == torch.bfloat16),
                   int(b.dtype == torch.bfloat16),
                   int(c.dtype == torch.bfloat16))
-    return y, h
+    return dx, da, db, dc
 
 
 def work(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -150,4 +302,29 @@ def work(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     nbytes = (B * S * H * P * 2 * x.element_size() + B * S * H * 4
               + B * S * H * N * b.element_size()
               + B * S * c_heads * N * c.element_size() + B * H * N * P * 4)
+    return flops, nbytes
+
+
+def work_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             with_dh: bool) -> Tuple[int, int]:
+    """(flops, bytes) that the gradient needs, for the bound. Flops: the
+    recurrence's backward from each chunk's saved incoming state, 14·N·P
+    per step and head: 3 to carry dh_t = a_{t+1} dh_{t+1} + c_t ⊗ dy_t, 2
+    each for dx_t = dh_tᵀ b_t, db_t = dh_t x_t, dc_t = h_t dy_t and da_t =
+    <dh_t, h_{t-1}>, and 3 to recompute h_t. The chunked form's triangle
+    products are the algorithm's cost, not the function's. Bytes: x, dy,
+    b, dx and db once at their item sizes; c once per distinct head (as
+    ``work``); dc for every head at c's item size; a and da in f32; the
+    forward's scratch read once (states (B, H, S / T, N, P) and cl, f32,
+    at chunk 128); dh_final in f32 when given."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    flops = 14 * B * S * H * N * P
+    c_heads = 1 if c.stride(2) == 0 else H
+    nc = -(-S // MAX_CHUNK)
+    nbytes = (B * S * H * P * 3 * x.element_size()
+              + B * S * H * N * 2 * b.element_size()
+              + B * S * (c_heads + H) * N * c.element_size()
+              + B * S * H * 4 * 3 + B * H * nc * N * P * 4
+              + (B * H * N * P * 4 if with_dh else 0))
     return flops, nbytes

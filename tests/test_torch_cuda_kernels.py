@@ -914,16 +914,116 @@ def test_attention_autograd_launches_both_kernels(cuda):
         torch.testing.assert_close(a, t.grad, **BWD_TOL)
 
 
-def test_ssd_under_autograd_on_card_raises(cuda):
-    """B7 has no backward kernel yet: a CUDA call that needs a gradient
-    raises rather than returning an output autograd cannot see through."""
-    x = torch.randn((1, 128, 2, 8), device=cuda, requires_grad=True)
-    a = torch.rand((1, 128, 2), device=cuda) * 0.5 + 0.5
-    b = torch.randn((1, 128, 2, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="A23"):
-        ops.ssd(x, a, b, b)
-    with torch.no_grad():
-        ops.ssd(x, a, b, b)
+# B7's backward against its plain version, both from the kernel forward's
+# scratch. Each gradient is a sum of up to a chunk's 128 terms weighted by
+# exp of differences of f32 cumulative sums, in another order than the
+# plain version's einsums, and da's terms cancel (row sums minus column
+# sums, then a reverse cumulative sum): f32 gradients are held to 1e-4 of
+# each tensor's largest entry (rtol 1e-4), as ``test_torch_ssd.py`` holds
+# the plain version to the reference; bf16 dx, db, dc to two bf16 ulps of
+# it (atol 2**-8 of the largest entry, rtol 2**-6), da (f32) at 1e-4.
+def _close_grads(got, want, dtype, what=""):
+    for name, g, w in zip(("dx", "da", "db", "dc"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        if dtype == torch.float32 or name == "da":
+            tol = dict(atol=1e-4 * scale, rtol=1e-4)
+        else:
+            tol = dict(atol=2.0 ** -8 * scale, rtol=2.0 ** -6)
+        torch.testing.assert_close(g.float(), w.float(), **tol,
+                                   msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("with_dh", [True, False])
+@pytest.mark.parametrize("decay", ["init", "slow"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,c_broadcast", [
+    (4, 1024, 32, 64, 128, 128, True),    # mamba2-370m's training shape
+    (1, 1024, 256, 64, 128, 128, True),   # jamba's mixer: 256 heads
+    (2, 256, 3, 8, 16, 64, False),        # the JAX test's shapes
+    (1, 96, 2, 16, 32, 32, True),
+    (2, 12, 16, 8, 16, 128, True),        # reduced mamba: one short chunk
+])
+def test_ssd_bwd_kernel_equals_plain(cuda, B, S, H, P, N, chunk,
+                                     c_broadcast, dtype, decay, with_dh):
+    dt = getattr(torch, dtype)
+    x, a, b, c = _ssd_inputs(cuda, B, S, H, P, N, dt, c_broadcast, S + H,
+                             slow=decay == "slow")
+    g = torch.Generator(device=cuda).manual_seed(S + N)
+    dy = torch.randn(x.shape, generator=g, device=cuda).to(dt)
+    dh = (torch.randn((B, H, N, P), generator=g, device=cuda)
+          if with_dh else None)
+    _, _, states, cl = ss.ssd_scan_cuda(x, a, b, c, chunk,
+                                        return_scratch=True)
+    before = _build.launch_counts()["ssd_scan_bwd"]
+    got = ss.ssd_scan_bwd_cuda(x, a, b, c, dy, dh, states, cl, chunk)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["ssd_scan_bwd"] == before + 1
+    want = ss.ssd_scan_bwd_torch(x, a, b, c, dy, dh, states, cl, chunk)
+    for t in got:
+        assert bool(torch.isfinite(t.float()).all())
+    _close_grads(got, want, dt)
+    again = ss.ssd_scan_bwd_cuda(x, a, b, c, dy, dh, states, cl, chunk)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_ssd_kernel_scratch_equals_plain(cuda):
+    """The forward's scratch the backward reads, from the kernel and from
+    the plain version: each chunk's incoming state and cl, at SSD_TOL."""
+    x, a, b, c = _ssd_inputs(cuda, 2, 512, 4, 64, 128, torch.float32, True,
+                             3, slow=True)
+    got = ss.ssd_scan_cuda(x, a, b, c, 128, return_scratch=True)
+    want = ss.ssd_scan_torch(x, a, b, c, 128, return_scratch=True)
+    for u, v in zip(got, want):
+        torch.testing.assert_close(u, v, **SSD_TOL)
+
+
+@pytest.mark.parametrize("c_broadcast", [True, False])
+def test_ssd_autograd_launches_both_kernels(cuda, c_broadcast):
+    """``ops.ssd`` under autograd on the card: one ``ssd_scan`` and one
+    ``ssd_scan_bwd`` launch, nothing of the plain versions, and gradients
+    (c broadcast over H summed by autograd) equal to the plain pair's."""
+    x, a, b, c = _ssd_inputs(cuda, 2, 256, 4, 16, 32, torch.float32,
+                             c_broadcast, 11, slow=True)
+    c_leaf = c[:, :, :1].contiguous() if c_broadcast else c
+    ts = [t.detach().clone().requires_grad_() for t in (x, a, b, c_leaf)]
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(x.shape, generator=g, device=cuda)
+
+    def grads(impl):
+        for t in ts:
+            t.grad = None
+        cc = ts[3].expand(c.shape) if c_broadcast else ts[3]
+        y, h = ops.ssd(ts[0], ts[1], ts[2], cc, chunk=64, impl=impl)
+        ((y * dy).sum() + h.square().sum()).backward()
+        return [t.grad.clone() for t in ts]
+
+    _build.reset_launch_counts()
+    got = grads(None)
+    counts = _build.launch_counts()
+    assert counts["ssd_scan"] == 1 == counts["ssd_scan_bwd"]
+    assert sum(counts.values()) == 2
+    want = grads("torch")
+    assert _build.launch_counts() == counts
+    for u, v in zip(got, want):
+        scale = float(v.abs().max())
+        torch.testing.assert_close(u, v, atol=1e-4 * scale, rtol=1e-4)
+
+
+def test_ssd_bwd_wrapper_rejects_bad_input(cuda):
+    x, a, b, c = _ssd_inputs(cuda, 1, 64, 2, 8, 16, torch.float32, True, 0)
+    _, _, states, cl = ss.ssd_scan_cuda(x, a, b, c, 32, return_scratch=True)
+    dy = torch.zeros_like(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        ss.ssd_scan_bwd_cuda(x.cpu(), a, b, c, dy, None, states, cl, 32)
+    with pytest.raises(ValueError, match="dy must be"):
+        ss.ssd_scan_bwd_cuda(x, a, b, c, dy.bfloat16(), None, states, cl,
+                             32)
+    with pytest.raises(ValueError, match="scratch"):
+        ss.ssd_scan_bwd_cuda(x, a, b, c, dy, None, states, cl, 64)
+    with pytest.raises(ValueError, match="dh_final"):
+        ss.ssd_scan_bwd_cuda(x, a, b, c, dy, states[:, :, 0].double(),
+                             states, cl, 32)
 
 
 def test_plain_attention_pair_gradcheck_on_card(cuda):
@@ -1133,6 +1233,97 @@ def test_flash_kernel_at_g5_and_g7_equals_plain(cuda, Hq, Hkv, S, causal,
     got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
     _close(got, fa.flash_attention_torch(q, k, v, causal=causal,
                                          window=window), q_dt)
+
+
+# -- B5's bf16 instance (q, k and v bf16 at head dim 128) ---------------------
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("G", [1, 5, 7, 8])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 100)])
+@pytest.mark.parametrize("Sq,Sk", [(1024, 1024), (300, 300), (200, 330),
+                                   (64, 32)])
+def test_flash_kernel_bf16_instance_equals_plain(cuda, Sq, Sk, causal,
+                                                 window, G, split):
+    """The bf16 instance against the plain version at two bf16 ulps
+    (BF16_TOL), out and lse: causal, non-causal and windowed; G 1, 5, 7
+    and 8 folded into a block's 128 rows; ragged query and key tails
+    against its 64-key tiles, Sq < Sk and Sq > Sk; the key split on (the
+    wrapper's plan on the card's SMs, or forced over 2 parts where the
+    plan splits nothing) and off (one part). K and V are read as they
+    are: the launch allocates nothing, and the wrapper requests out, lse
+    and the split's scratch and nothing else (a widened f32 copy of K and
+    V would add 8·B·Sk·Hkv·D bytes)."""
+    Hkv = 2
+    B, D = 2, 128
+    g = torch.Generator(device=cuda).manual_seed(Sq * 3 + Sk + G)
+    q, k, v = (torch.randn((B, s, h, D), generator=g, device=cuda)
+               .to(torch.bfloat16)
+               for s, h in ((Sq, G * Hkv), (Sk, Hkv), (Sk, Hkv)))
+    assert fa.instance(q, k, v) == "bf16"
+    kmax, parts = fa.split_plan(q, k, v, causal, window)
+    if split and parts == 1:
+        tiles = -(-Sk // fa.BLOCK_K_BF16)
+        kmax, parts = -(-tiles // 2), 2
+    elif not split:
+        kmax, parts = 1 << 20, 1
+    torch.cuda.synchronize()
+    out = torch.empty_like(q)
+    lse = torch.empty((B, G * Hkv, Sq), device=cuda)
+    scratch = ([torch.empty((parts, B, Sq, G * Hkv, D), device=cuda),
+                torch.empty((parts, B, Sq, G * Hkv, 2), device=cuda)]
+               if parts > 1 else [None, None])
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    _build.launch("flash_attention", cuda, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), B, Sq, Sk, G * Hkv, Hkv, D,
+                  int(causal), window or 0, D ** -0.5, 1, 1, kmax, parts,
+                  *(t.data_ptr() if t is not None else None
+                    for t in scratch), lse.data_ptr())
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(cuda) == base
+    want, wlse = fa.flash_attention_torch(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+    _close(out, want, torch.bfloat16)
+    torch.testing.assert_close(lse, wlse, **F32_TOL)
+    # the wrapper: same instance, one launch, and it requests from the
+    # allocator out, lse and the split's scratch, nothing more
+    del scratch
+    torch.cuda.synchronize()
+    stat = "requested_bytes.all.{}"
+    base = torch.cuda.memory_stats(cuda)[stat.format("current")]
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = _build.launch_counts()["flash_attention"]
+    got, glse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["flash_attention"] == before + 1
+    kmax, parts = fa.split_plan(q, k, v, causal, window)
+    rows = B * Sq * G * Hkv
+    allowed = rows * D * 2 + rows * 4 + (
+        parts * rows * (D + 2) * 4 if parts > 1 else 0)
+    grown = torch.cuda.memory_stats(cuda)[stat.format("peak")] - base
+    assert grown == allowed
+    _close(got, want, torch.bfloat16)
+    torch.testing.assert_close(glse, wlse, **F32_TOL)
+    if Sq > Sk and causal:
+        assert not bool(got[:, :Sq - Sk].any())
+
+
+def test_flash_kernel_instances_by_pairing(cuda):
+    """Which instance serves which pairing: bf16 q, k and v at head dim 128
+    the bf16 one; f32 at any head dim, f32 q over bf16 k/v and bf16 at
+    16, 64 and 256 the f32 one (bf16 K/V widened), as before."""
+    for D in fa.HEAD_DIMS:
+        for q_dt, kv_dt in PAIRINGS.values():
+            q = torch.zeros((1, 4, 2, D), device=cuda, dtype=q_dt)
+            kv = torch.zeros((1, 4, 2, D), device=cuda, dtype=kv_dt)
+            want = ("bf16" if D == 128 and q_dt == kv_dt == torch.bfloat16
+                    else "f32")
+            assert fa.instance(q, kv, kv) == want
+    q = torch.zeros((1, 4, 2, 128), device=cuda, dtype=torch.bfloat16)
+    kv = torch.zeros((1, 4, 2, 128), device=cuda)
+    assert fa.instance(q, kv, kv) == "f32"        # bf16 q over f32 k/v
 
 
 @pytest.mark.parametrize("G", [1, 5, 7])

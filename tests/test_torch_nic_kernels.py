@@ -412,7 +412,7 @@ def test_build_is_keyed_by_sources_and_flags():
     assert {p.name for p in _build.sources()} == {
         "crypto.cu", "dfa_regex.cu", "flow_lookup.cu", "flash_attention.cu",
         "flash_attention_bwd.cu", "decode_attention.cu", "ssd_scan.cu",
-        "launch_floor.cu"}
+        "ssd_scan_bwd.cu", "launch_floor.cu"}
     assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)
     path = _build.library_path()
     assert path.name == _build.LIB_NAME and path.parent.name == _build._digest()

@@ -285,3 +285,161 @@ def test_work_counts_the_triangle_and_the_state_products():
     assert nbytes_full - nbytes == B * S * (H - 1) * N * 4
     _, nbytes_bf16 = ss.work(x.bfloat16(), b, c)
     assert nbytes - nbytes_bf16 == B * S * H * P * 4
+
+
+# -- B7's backward ------------------------------------------------------------
+
+def _jax_vjp(x, a, b, c, dy, dh):
+    """jax.vjp of the reference's step-by-step ``ref.ssd_ref`` (its own
+    autodiff: the JAX package has no SSD gradient of its own, and its
+    blocked path is NaN at Mamba-2's decays)."""
+    import jax
+    args = [jnp.asarray(np.ascontiguousarray(v)) for v in (x, a, b, c)]
+    (y, h), vjp = jax.vjp(jref.ssd_ref, *args)
+    return [np.asarray(g, np.float32)
+            for g in vjp((jnp.asarray(dy, y.dtype), jnp.asarray(dh)))]
+
+
+def _port_bwd(x, a, b, c, dy, dh, chunk):
+    """``ssd_scan_bwd_torch`` from ``ssd_scan_torch``'s scratch; c a view
+    broadcast over H when it is one in numpy."""
+    t = lambda v: torch.from_numpy(np.array(v, np.float32))
+    xt, at, bt = t(x), t(a), t(b)
+    ct = (t(c[:, :, :1]).expand(c.shape) if c.strides[2] == 0 else t(c))
+    if x.dtype != np.float32:            # bf16 values carried as f32
+        xt, bt, ct = (v.to(torch.bfloat16) for v in (xt, bt, ct))
+    _, _, states, cl = ss.ssd_scan_torch(xt, at, bt, ct, chunk,
+                                         return_scratch=True)
+    dyt = t(dy).to(xt.dtype)
+    got = ss.ssd_scan_bwd_torch(xt, at, bt, ct, dyt, t(dh), states, cl,
+                                chunk)
+    assert [g.dtype for g in got] == [xt.dtype, at.dtype, bt.dtype, ct.dtype]
+    assert got[3].shape == c.shape
+    return [g.float().numpy() for g in got]
+
+
+def _assert_grads(got, want, f32, what):
+    """Each gradient within TOL_BWD (f32) or BF16_BWD of its largest entry
+    (see ``test_ssd_backward_equals_reference_vjp``)."""
+    for name, g, w in zip(("dx", "da", "db", "dc"), got, want):
+        scale = float(np.abs(w).max())
+        if f32 or name == "da":
+            np.testing.assert_allclose(g, w, atol=1e-4 * scale, rtol=1e-4,
+                                       err_msg=f"{what} {name}")
+        else:
+            np.testing.assert_allclose(g, w, atol=2.0 ** -8 * scale,
+                                       rtol=2.0 ** -6,
+                                       err_msg=f"{what} {name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay", ["init", "mild"])
+@pytest.mark.parametrize("nc", [1, 2, 4])
+def test_ssd_backward_equals_reference_vjp(nc, decay, dtype):
+    """B7's plain backward (``ssd_scan_bwd_torch``, the order the CUDA
+    kernel computes) against ``jax.vjp`` of the reference's ``ssd_ref``,
+    over 1, 2 and 4 chunks of 32, at Mamba-2's init decays (a chunk sums
+    -log a to ~25; the state carried in is mostly forgotten) and at mild
+    ones (a in [0.5, 0.999], where it is not), with c broadcast over H and
+    per head, with dh_final and without (zero).
+
+    Tolerance, from the arithmetic. The chunked backward weighs each term
+    by exp of a difference of two f32 cumulative sums of log a, the
+    reference by products of the a's one by one: ~1e-6 relative at these
+    sums (ulp 1.9e-6 at 25), ~1e-5 at a 128-step chunk's ~110. Every
+    gradient is a sum of such terms, and da's terms cancel (row sums minus
+    column sums of the chunk's triangle, then a reverse cumulative sum),
+    so an entry's error is bounded by the array's scale, not its own
+    size: each gradient is held to 1e-4 of its largest entry (rtol 1e-4)
+    (measured: within 7e-6 of an f64 reference at these shapes, the
+    reference's within 2e-6). With bf16 x, b and c (and dy, y's dtype),
+    both compute in f32 from the same bf16 values and round dx, db, dc to
+    bf16 once each: two bf16 ulps apart at most (atol 2**-8 of the
+    largest entry, rtol 2**-6); da stays f32 and keeps 1e-4."""
+    T = 32
+    B, S, H, P, N = 2, nc * T, 3, 8, 16
+    f32 = dtype == "float32"
+    rng = np.random.default_rng(nc * 7 + len(decay) + len(dtype))
+    for c_broadcast in (True, False):
+        x, a, b, c = _inputs(nc * 3 + c_broadcast, B, S, H, P, N,
+                             decay == "init", c_broadcast)
+        dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+        if not f32:
+            to_bf16 = lambda v: np.asarray(jnp.asarray(v, jnp.bfloat16))
+            x, b, c, dy = (to_bf16(v) for v in (x, b, c, dy))
+            if c_broadcast:
+                c = np.broadcast_to(c[:, :, :1], (B, S, H, N))
+        for dh in (rng.standard_normal((B, H, N, P)).astype(np.float32),
+                   np.zeros((B, H, N, P), np.float32)):
+            want = _jax_vjp(x, a, b, c, dy, dh)
+            got = _port_bwd(x, a, b, c, dy, dh, T)
+            if c_broadcast:          # autograd of the broadcast sums over H
+                got[3] = np.broadcast_to(got[3].sum(2, keepdims=True),
+                                         got[3].shape)
+                want[3] = np.broadcast_to(want[3].sum(2, keepdims=True),
+                                          want[3].shape)
+            _assert_grads(got, want, f32,
+                          f"c_broadcast={c_broadcast} dh={bool(dh.any())}")
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssd_backward_equals_autograd_of_plain_forward(chunk):
+    """``ops.ssd`` under autograd (``_SSD`` with the plain backward) against
+    ``torch.autograd`` through ``ssd_scan_torch``, c broadcast over H
+    (its gradient summed by the expand's backward), y and h_final both
+    used: the same f32 arithmetic up to order, held to atol = rtol = 1e-5
+    of each gradient's largest entry."""
+    x, a, b, c = _inputs(chunk, 2, 128, 3, 8, 16, True, c_broadcast=True)
+    dy = np.random.default_rng(chunk).standard_normal(x.shape).astype(
+        np.float32)
+
+    def grads(fn):
+        ts = [torch.from_numpy(np.array(v)).requires_grad_()
+              for v in (x, a, b, c[:, :, :1])]
+        y, h = fn(ts[0], ts[1], ts[2], ts[3].expand(c.shape))
+        ((y * torch.from_numpy(dy)).sum() + h.square().sum()).backward()
+        return [t.grad.numpy() for t in ts]
+
+    got = grads(lambda *t: ops.ssd(*t, chunk=chunk))
+    want = grads(lambda *t: ss.ssd_scan_torch(*t, chunk))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-5 * np.abs(w).max(),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("use_h", [True, False])
+def test_ssd_backward_gradcheck_f64(use_h):
+    """In f64, ``_SSD`` with the plain pair (``ops.ssd(impl="torch")``)
+    equals central finite differences of its forward
+    (``torch.autograd.gradcheck``), over 2 chunks, c broadcast over H; with
+    h_final dropped its gradient arrives as None."""
+    rng = np.random.default_rng(5)
+    B, S, H, P, N = 1, 16, 2, 3, 4
+    x = torch.from_numpy(rng.standard_normal((B, S, H, P)))
+    a = torch.from_numpy(rng.uniform(0.3, 0.95, (B, S, H)))
+    b = torch.from_numpy(rng.standard_normal((B, S, H, N)))
+    c = torch.from_numpy(rng.standard_normal((B, S, 1, N)))
+    ts = [t.requires_grad_() for t in (x, a, b, c)]
+
+    def fn(x, a, b, c):
+        y, h = ops.ssd(x, a, b, c.expand(B, S, H, N), chunk=8, impl="torch")
+        return (y, h) if use_h else y
+
+    assert torch.autograd.gradcheck(fn, ts, eps=1e-6, atol=1e-7, rtol=1e-6)
+
+
+def test_work_bwd_counts_the_recurrence_backward():
+    """The backward's bound: 14·N·P flops per step and head, and the bytes
+    of its inputs, outputs and the forward's scratch once each; dc is
+    written for every head even when c is broadcast over H."""
+    B, S, H, P, N = 4, 1024, 32, 64, 128
+    x = torch.empty(B, S, H, P, device="meta")
+    b = torch.empty(B, S, H, N, device="meta")
+    c = torch.empty(B, S, 1, N, device="meta").expand(B, S, H, N)
+    flops, nbytes = ss.work_bwd(x, b, c, with_dh=False)
+    assert flops == 14 * B * S * H * N * P
+    want = (3 * B * S * H * P * 4 + 2 * B * S * H * N * 4
+            + B * S * (1 + H) * N * 4 + 3 * B * S * H * 4
+            + B * H * (S // 128) * N * P * 4)
+    assert nbytes == want
+    assert ss.work_bwd(x, b, c, with_dh=True)[1] - want == B * H * N * P * 4

@@ -6,9 +6,12 @@ plain versions; JAX's ``impl="blocked"`` attention with its custom VJP):
 * B5's plain backward (``ops.attention`` under autograd) against
   ``jax.vjp`` of the reference's blocked attention;
 * reduced olmo-1b ``Model.loss`` and its gradients against
-  ``jax.value_and_grad`` of the reference ``model.loss``;
+  ``jax.value_and_grad`` of the reference ``model.loss``, and reduced
+  mamba2-370m's (B7's plain backward on the path) against the reference's
+  with its step-by-step SSD (``impl="ref"``);
 * one and three ``make_train_step`` steps with accumulation 2 (loss, grad
-  norm, parameters, AdamW state) against the reference's step, both
+  norm, parameters, AdamW state) of olmo and of mamba against the
+  reference's step, both
   started from the reference's parameters and AdamW state;
 * the data stream bit for bit, AdamW, clipping, the bf16-state option and
   the schedules against the reference's values;
@@ -206,9 +209,19 @@ def test_model_loss_is_lm_loss_and_specs():
 @pytest.mark.parametrize("steps", [1, 3])
 def test_train_steps_match_reference(steps):
     jcfg, tcfg = _olmo(microbatch=2)
+    _train_steps_vs_reference(jcfg, tcfg, steps, key=2)
+
+
+def _train_steps_vs_reference(jcfg, tcfg, steps, key, resync=False):
+    """``steps`` steps of the port's ``make_train_step`` (batch 4 x 32,
+    accumulation 2) against the reference's, from the reference's
+    parameters and AdamW state: loss and grad norm each step, moments and
+    parameters after the last (tolerances in the module docstring). With
+    ``resync`` every step starts from the reference's parameters and
+    AdamW state after the step before."""
     B, S = 4, 32
     jmodel = jbuild(jcfg)
-    jparams, _ = jmodel.init(jax.random.PRNGKey(2), jnp.float32)
+    jparams, _ = jmodel.init(jax.random.PRNGKey(key), jnp.float32)
     jshape = JShapeConfig("t", S, B, "train")
     jstep, jopt_init = jmake_train_step(jmodel, jshape, make_host_mesh(),
                                         base_lr=1e-2, warmup=1,
@@ -226,6 +239,12 @@ def test_train_steps_match_reference(steps):
                                        "cpu")
     rng = np.random.default_rng(steps)
     for s in range(steps):
+        if resync and s:
+            params = convert.lm_params_from_jax(
+                tcfg, jax.tree.map(np.asarray, jparams),
+                "cpu").requires_grad_(True)
+            opt = convert.adamw_state_from_jax(
+                tcfg, jax.tree.map(np.asarray, jopt), "cpu")
         tokens = _tokens(rng, B, S, jcfg.vocab)
         jparams, jopt, jloss, jgn = jstep(jparams, jopt,
                                           {"tokens": jnp.asarray(tokens)},
@@ -258,6 +277,71 @@ def test_train_steps_match_reference(steps):
         loose += int((~np.isclose(g, w, **STEP_TOL)).sum())
         total += g.size
     assert loose < 1e-3 * total
+
+
+# -- mamba2-370m (ssm family): B7's backward on the training path -------------
+
+def _mamba(**kw):
+    jcfg = ARCHS["mamba2-370m"].reduced().replace(remat=False, **kw)
+    tcfg = get_arch("mamba2-370m").reduced().replace(remat=False, **kw)
+    assert jcfg.__dict__ == tcfg.__dict__
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("seq", [32, 256])
+def test_mamba_loss_and_grads_match_reference(seq):
+    """Reduced mamba2-370m's loss and gradients (every parameter: through
+    ``ops.ssd``'s chunked backward to x, b = Bm·dt, c (broadcast over H)
+    and a, so to the projections, the convs, A_log, dt_bias and D_skip)
+    against ``jax.value_and_grad`` of the reference's ``lm_loss(...,
+    impl="ref")``, whose SSD is the step-by-step recurrence. seq 32 gives
+    one 32-step chunk, 256 two chunks of 128 at the init decays (a chunk
+    sums -log a to ~90, past exp's f32 overflow). The port's SSD gradient
+    differs from the recurrence's by exp of differences of f32 cumulative
+    sums, ~1e-5 relative at those sums (``test_torch_ssd.py``); A_log and
+    dt_bias sum it over every position, so their gradients are held to
+    1e-4 of each tensor's largest entry, the rest as olmo's (LOSS_TOL)."""
+    jcfg, tcfg = _mamba()
+    jparams, _ = jbuild(jcfg).init(jax.random.PRNGKey(4), jnp.float32)
+    tokens = _tokens(np.random.default_rng(seq), 2, seq, jcfg.vocab)
+    jloss, jgrads = jax.value_and_grad(
+        lambda p: jlm.lm_loss(jcfg, p, jnp.asarray(tokens), impl="ref"))(
+            jparams)
+    params = convert.lm_params_from_jax(tcfg, jax.tree.map(np.asarray,
+                                                           jparams),
+                                        "cpu").requires_grad_(True)
+    loss = lm.lm_loss(tcfg, params, torch.from_numpy(tokens))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               **LOSS_TOL)
+    want = convert.lm_named_from_jax(tcfg, jax.tree.map(np.asarray, jgrads),
+                                     "cpu")
+    named = dict(params.named_parameters())
+    assert set(named) == set(want)
+    for k, p in named.items():
+        w = _np(want[k])
+        if k.endswith(("A_log", "dt_bias")):
+            tol = dict(atol=1e-4 * np.abs(w).max(), rtol=1e-4)
+        else:
+            tol = LOSS_TOL
+        np.testing.assert_allclose(_np(p.grad), w, **tol, err_msg=k)
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_mamba_train_steps_match_reference(steps):
+    """One and three ``make_train_step`` steps of reduced mamba2-370m
+    against the reference's (its SSD ``impl="blocked"`` there, finite at
+    S 32), at olmo's tolerances, each step from the reference's state
+    after the step before. Left to run free, the two part as AdamW parts
+    them (module docstring): a parameter whose gradient is near eps moves
+    by a function of its low bits, and the reduced mamba's parameters
+    carry those differences into the next steps' gradients faster than
+    olmo's, past the share and the grad-norm tolerance olmo's test holds
+    by the third step. Each step from the same state holds the step
+    itself (its gradients through B7's plain backward, the moments' and
+    the schedule's progress) at the one-step tolerances."""
+    jcfg, tcfg = _mamba(microbatch=2)
+    _train_steps_vs_reference(jcfg, tcfg, steps, key=5, resync=True)
 
 
 def test_minicpm_wsd_train_step_matches_reference():
