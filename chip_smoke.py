@@ -359,7 +359,7 @@ FUNCTIONS = {
     "decode_attention": ("decode_attention_kernel",),
     "ssd_scan": ("ssd_chunk_state", "ssd_state_passing", "ssd_chunk_scan"),
     "ssd_scan_bwd": ("ssd_bwd_dstate", "ssd_bwd_reverse", "ssd_bwd_cols",
-                     "ssd_bwd_rows", "ssd_bwd_dcl"),
+                     "ssd_bwd_rows"),
 }
 
 

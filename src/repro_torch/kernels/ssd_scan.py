@@ -240,10 +240,12 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                       states: torch.Tensor, cl: torch.Tensor,
                       chunk: int = 128):
     """Launch the backward kernels (``csrc/ssd_scan_bwd.cu``: the chunk
-    states of dy, the reverse state passing, dx and db by step s, dc by
-    step t, then da), on the forward's scratch (``states``, ``cl`` from
+    states of dy, the reverse state passing, dx and db by step s, then dc
+    and da by step t), on the forward's scratch (``states``, ``cl`` from
     ``ssd_scan_cuda(..., return_scratch=True)``) and scratch allocated
-    here; counts as one launch of ``ssd_scan_bwd``. Inputs as
+    here (g, each chunk's outgoing state gradient, and four (B, H, S)
+    planes: the row sums of M1 ⊙ dY Xᵀ from each 64-step block s, its
+    column sums, and r); counts as one launch of ``ssd_scan_bwd``. Inputs as
     ``ssd_scan_cuda``'s, dy (y's gradient) in x's dtype, ``dh_final``
     (B, H, N, P) f32 or None. Returns (dx, da, db, dc) as
     ``ssd_scan_bwd_torch`` does: dc is (B, S, H, N) in c's dtype for every
@@ -272,7 +274,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if B * H == 0:
         return dx, da, db, dc
     g = torch.empty_like(states)
-    vec = torch.empty((3, B, H, S), dtype=torch.float32, device=dev)
+    vec = torch.empty((4, B, H, S), dtype=torch.float32, device=dev)
     _build.launch(name, dev, x.data_ptr(), a.data_ptr(), b.data_ptr(),
                   c.data_ptr(), dy.data_ptr(),
                   None if dh_final is None else dh_final.data_ptr(),

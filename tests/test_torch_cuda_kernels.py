@@ -943,6 +943,8 @@ def _close_grads(got, want, dtype, what=""):
     (2, 256, 3, 8, 16, 64, False),        # the JAX test's shapes
     (1, 96, 2, 16, 32, 32, True),
     (2, 12, 16, 8, 16, 128, True),        # reduced mamba: one short chunk
+    (1, 384, 5, 40, 72, 96, False),       # T, N, P off the 64-wide tiles
+    (2, 512, 4, 64, 128, 64, True),       # mamba training's chunk-64 run
 ])
 def test_ssd_bwd_kernel_equals_plain(cuda, B, S, H, P, N, chunk,
                                      c_broadcast, dtype, decay, with_dh):
