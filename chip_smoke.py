@@ -11,7 +11,11 @@ and read just after:
    1,500-byte packets over 10,000 flows, 4,096-slot rings per pipeline, the
    2^17-slot flow cache. Every batch's output is held bit for bit against
    the port's ``run_pipeline`` with the plain PyTorch versions
-   (``impl="torch"``) on the same card.
+   (``impl="torch"``) on the same card. The plane writes its counters,
+   dispatch times and trace events into the port's ``obs.Obs``: the
+   flow-cache counters must equal the flow cache's own stats, no compile
+   cache may miss after the warm-up, and the dumped artifacts must load
+   back into a trace that answers as the live one.
 2. LM serving on gemma3-1b at full width (26 layers, d_model 1152, 4 query
    heads over 1 KV head of 256, vocab 262,144; f32 parameters from a seeded
    generator): ``Model.prefill`` of 4 prompts of 1,024 tokens into a
@@ -46,7 +50,14 @@ and read just after:
    mamba2-370m at full width (f32, AdamW f32) the same way: 4 steps at
    batch 8 x 1,024 in 2 microbatches, ssd_scan and its backward
    (ssd_scan_bwd) on every layer of every microbatch, against the plain
-   versions.
+   versions. Then moonshot-v1-16b-a3b at full width (d_model 2,048, 16
+   heads of 128, 64 experts of d_ff 1,408 top-6, vocab 163,840 tied; f32,
+   AdamW f32), its depth cut to the dense first layer and 4 MoE layers
+   (2.64 B parameters): 4 steps the same way, B5 and its backward on every
+   layer, each plain step from the kernel step's state, the routes held
+   flip by flip, and the step-1 parameters against a plain step that takes
+   the kernel run's routes; a step that drops one expert's gradient must
+   fail that gate.
 
 6. MoE serving on moonshot-v1-16b-a3b at full width (48 layers, the first
    dense, d_model 2,048, 16 heads of 128, 64 experts of d_ff 1,408 top-6,
@@ -70,8 +81,9 @@ and read just after:
 9. The reduced minicpm-2b, qwen2.5-32b and llava-next-34b (8 stub patches
    ahead of the prompts) on the card against the CPU as in 7, the reduced
    seamless prefill and 8 decode steps, and one ``make_train_step`` step
-   each of reduced seamless (B5 forward and backward non-causal) and
-   minicpm (WSD schedule) against the CPU.
+   each of reduced seamless (B5 forward and backward non-causal), minicpm
+   (WSD schedule), phi3.5-moe, moonshot and jamba (B7 and its backward at
+   N 16, P 8; bf16 optimizer state) against the CPU.
 10. Dense serving on qwen2.5-32b at full width (64 layers, d_model 5,120,
    40 query heads over 8 KV heads of 128 (G 5), QKV bias, d_ff 27,648,
    vocab 152,064, untied head; 32.8 B bf16 parameters, ~61 GiB): the
@@ -100,6 +112,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -127,6 +140,7 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import lm, moe, ssm  # noqa: E402
+from repro_torch.obs import Obs, load_trace  # noqa: E402
 from repro_torch.optim import make_schedule  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.serving.engine import PipelineInstance  # noqa: E402
@@ -221,9 +235,11 @@ TRAIN_PARAM_SHARE = 1e-3
 # backward agree with their plain versions to ~1e-5 of scale (decays as
 # exp of differences of f32 cumulative sums), which 48 layers carry into
 # the first layers' gradients, so AdamW's first updates of near-zero
-# gradients differ, and the two free runs part further each step. Gated from one state, every step holds olmo's gates
-# (the kernel run's step from the state after its own previous step, the
-# plain run's step from that same state); the free plain run is reported.
+# gradients differ, and the two free runs part further each step. Gated
+# from one state, every step holds olmo's gates (the kernel run's step from
+# the state after its own previous step, the plain run's step from that
+# same state, run in lock step: ``_train_lockstep``); the free plain run is
+# reported.
 TRAIN_RESYNC = True
 # For the same reason more of mamba's parameters part after step 1 than
 # olmo's TRAIN_PARAM_SHARE allows: AdamW's first update is ±lr wherever
@@ -231,11 +247,46 @@ TRAIN_RESYNC = True
 # differs, and the 48 layers leave many entries' gradients smaller than
 # the two runs' difference. How many is a property of the f32 function,
 # not of the kernels: the plain version parts from itself as much when
-# only the order of its sums changes (its chunk at TRAIN_CALIBRATE_CHUNK
-# instead of 128). The kernel run may part from the plain run in at most
-# TRAIN_NOISE_FACTOR times that share.
-TRAIN_CALIBRATE_CHUNK = 64
+# only the order of its sums changes (``ops.ssd``'s chunk at 64 instead of
+# 128: TRAIN_CALIBRATE). The kernel run may part from the plain run in at
+# most TRAIN_NOISE_FACTOR times that share.
+TRAIN_CALIBRATE = ("ssd", "chunk", 64)
 TRAIN_NOISE_FACTOR = 2.0
+# Training the MoE family at full width: moonshot-v1-16b-a3b's widths (d_model
+# 2,048, 16 heads of 128, 64 experts of d_ff 1,408 top-6, vocab 163,840
+# tied), its depth cut to the dense first layer and MOE_TRAIN_LAYERS - 1
+# MoE layers: all 48 layers' f32 weights, gradient sum and two AdamW moments
+# would take ~435 GB; five take ~42 GB, and one microbatch's per-step
+# gradients, activations and (4 x 512 x 163,840) logits most of the rest.
+# The kernel and plain runs follow olmo's gates (TRAIN_LOSS_TOL,
+# TRAIN_GNORM_TOL; parameters within 2 lr(1) after step 1, all but a share
+# within 1e-3 lr(1)). What olmo does not have is routing: a token whose
+# router logits nearly tie can take other experts in the two runs. Each
+# such flip must be at a near tie (the plain run's k-th and (k+1)-th
+# logits within twice the two runs' largest logit difference), and at
+# most MOE_FLIP_SHARE of a call's tokens may flip (``_train_route_gate``).
+# A flip moves its token's whole output, and through attention the rest
+# of its sequence: on an NVIDIA H100 (700 W), 4 flips in 32,768 routes at
+# step 1 parted 0.71% of the parameters by more than 1e-3 lr(1), spread
+# over every expert, while the plain version in another summation order
+# (MOE_TRAIN_CALIBRATE: its attention's key block at 128, not 256) parts
+# from itself by 1.2e-6, flipping none. So the parameter gate compares
+# the kernel run's step 1 with a plain step 1 that takes the kernel run's
+# routes (``_ReplayRoutes``), at olmo's share or TRAIN_NOISE_FACTOR times
+# the calibration's, whichever is larger; the freely routed comparison is
+# reported. A kernel step 1 whose backward drops expert 0's gradient in
+# every MoE layer (``_drop_expert_grad``) parts ~1.3% of the parameters by
+# ~lr(1): the phase fails unless the gate rejects it.
+# Left to run free, the kernel and plain runs part by step 4 as AdamW parts
+# them, and routing amplifies it (hundreds of a call's 4,096 tokens take
+# other experts by step 4: line ``moe train plain run left to run free``).
+# So each plain step starts from the kernel step's state, as mamba's do
+# (TRAIN_RESYNC), and the free plain run is reported, not gated.
+MOE_TRAIN_LAYERS = 5
+MOE_TRAIN_CALIBRATE = ("attention", "block_k", 128)
+# The logits' f32 rounding when recomputed for the route gate: a softmax
+# of logits up to |l| rounds each probability by ~|l| 2**-24 relative.
+ROUTE_SLACK = 2.0 ** -20
 # B5's backward against its plain version (f32): each 3xTF32 product keeps
 # ~2**-22 of its operands' precision, each row tile's sum is added to the
 # total with an f32 add, and dK and dV sum 1,024 products an entry (dQ
@@ -318,8 +369,14 @@ LLAVA_ROW = (4, 1600, 56, 8)   # B5 at llava-next-34b's heads (G 7), bf16
 # The remaining dense and vlm configs reduced, card against CPU, and one
 # train step each of reduced seamless and minicpm (WSD)
 REDUCED_A21_ARCHS = ("minicpm-2b", "qwen2.5-32b", "llava-next-34b")
-REDUCED_TRAIN_ARCHS = ("seamless-m4t-medium", "minicpm-2b")
+REDUCED_TRAIN_ARCHS = ("seamless-m4t-medium", "minicpm-2b",
+                       "phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b",
+                       "jamba-1.5-large-398b")
 REDUCED_TRAIN_TOL = 1e-4  # f32 through 4 layers, as the CUDA tests hold it
+# jamba keeps bf16 optimizer state: its gradients are summed in bf16, each
+# entry within two bf16 ulps of the CPU's, so its grad norm is held to
+# 2**-7 relative (|‖a‖ − ‖b‖| ≤ ‖a − b‖; tests/test_torch_moe_train.py)
+REDUCED_TRAIN_BF16_GNORM_TOL = 2.0 ** -7
 
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
@@ -361,32 +418,6 @@ FUNCTIONS = {
     "ssd_scan_bwd": ("ssd_bwd_dstate", "ssd_bwd_reverse", "ssd_bwd_cols",
                      "ssd_bwd_rows"),
 }
-
-
-class _Recorder:
-    """Duck-typed metrics sink: keeps the data plane's histogram samples
-    (``profile=True`` times each dispatch to completion)."""
-
-    class _Series:
-        def __init__(self, samples):
-            self.samples = samples
-
-        def observe(self, v):
-            self.samples.append(v)
-
-        def inc(self, v=1):
-            pass
-
-        def set(self, v):
-            pass
-
-    def __init__(self):
-        self.samples = {}
-
-    def histogram(self, name, **labels):
-        return self._Series(self.samples.setdefault(name, []))
-
-    counter = gauge = histogram
 
 
 def _nvidia_smi() -> str:
@@ -498,27 +529,35 @@ def _assert_batches_equal(got, want, ctx):
 
 
 def drive(name, factory, batches):
-    """Main path of one app: counts reset just before, read just after."""
-
-    rec = _Recorder()
+    """Main path of one app: counts reset just before, read just after. The
+    plane writes its counters, dispatch timings (``profile=True`` times
+    each dispatch to completion) and trace events into the port's ``Obs``;
+    the per-batch dispatch times are read back from its histogram."""
+    o = Obs(seed=0)
     dp = ParallelDataPlane(factory(), num_pipelines=PIPELINES,
                            capacity_per_pipeline=CAPACITY, ring_capacity=RING,
-                           metrics=rec, profile=True)
-    outs, ms, hit_rates, Ms = [], [], [], []
+                           metrics=o.metrics, trace=o.trace, profile=True)
+    outs, ms, hit_rates, Ms, disp = [], [], [], [], []
+    hist = o.metrics.histogram("dataplane_dispatch_us", app=dp.app.name)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     for i, b in enumerate(batches):
+        o.set_tick(i)
         fs0 = dict(dp.to.fast_stats)
+        us0 = hist.sum
         t0 = time.perf_counter()
-        outs.append(dp.process(b))
+        outs.append(dp.process(b, tenant=name))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        disp.append(hist.sum - us0)
         hp = dp.to.fast_stats["hit_pkts"] - fs0["hit_pkts"]
         mp = dp.to.fast_stats["miss_pkts"] - fs0["miss_pkts"]
         hit_rates.append(hp / max(1, hp + mp))
         Ms.append(_bucket(int(max(p.load for p in dp.to.pipelines))))
         if i == WARMUP - 1:
             warm_compiles = dp.dispatch_stats["compiles"]
+            o.snapshot_compile_caches([dp])
+            warm_misses = _compile_misses(o)
     launches = _build.launch_counts()
     if dp.dispatch_stats["compiles"] != warm_compiles:
         raise AssertionError(f"{name}: {dp.dispatch_stats['compiles']} "
@@ -527,8 +566,10 @@ def drive(name, factory, batches):
     plain = factory(impl="torch")
     for i, (b, out) in enumerate(zip(batches, outs)):
         _assert_batches_equal(out, run_pipeline(plain, b), f"{name} batch {i}")
+    o.snapshot_compile_caches([dp])
+    obs_report = obs_checks(name, o, dp, disp, warm_misses)
     steady = ms[WARMUP:]
-    disp = rec.samples["dataplane_dispatch_us"][WARMUP:]
+    disp = disp[WARMUP:]
     stages = dp.profile_stages(batches[-1], iters=5)
     report = {
         "app": name, "batches": len(batches), "warmup": WARMUP,
@@ -545,8 +586,104 @@ def drive(name, factory, batches):
         "launches": launches,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "equal_to_plain_run_pipeline": True,
+        "obs": obs_report,
     }
     return report, dp
+
+
+def _compile_misses(o):
+    """{cache: misses} from the ``compile_cache_miss`` gauges that
+    ``Obs.snapshot_compile_caches`` set."""
+    return {dict(g.labels)["cache"]: g.value
+            for g in o.metrics.series("compile_cache_miss")}
+
+
+def obs_checks(name, o, dp, disp, warm_misses):
+    """What the data plane wrote into its ``Obs``, held to the plane's own
+    state: one dispatch time a batch in the histogram (its reservoir exact,
+    so the samples are the times themselves), the flow-cache counters
+    equal to the flow cache's stats, no compile-cache miss after the
+    warm-up, and the dumped artifacts loading back to a trace that answers
+    ``query``, ``why`` and ``spans`` as the live one does."""
+    import tempfile
+    app = dp.app.name
+    hist = o.metrics.get("dataplane_dispatch_us", app=app)
+    if hist.count != len(disp) or not hist.reservoir.exact:
+        raise AssertionError(f"{name}: {hist.count} dispatch samples for "
+                             f"{len(disp)} batches")
+    if not np.allclose(hist.reservoir.samples(), sorted(disp), rtol=1e-9):
+        raise AssertionError(f"{name}: the histogram's samples are not the "
+                             f"dispatch times")
+    fc = dp.to.flow_cache.stats
+    counters = {k: o.metrics.get(f"flow_cache_{k}_total", app=app)
+                for k in ("hits", "misses", "evictions", "invalidations")}
+    counters = {k: (0 if c is None else c.value) for k, c in counters.items()}
+    for k, v in counters.items():
+        if v != fc[k]:
+            raise AssertionError(f"{name}: flow_cache_{k}_total {v}, the "
+                                 f"flow cache counted {fc[k]}")
+    misses = _compile_misses(o)
+    steady = {c: misses[c] - warm_misses.get(c, 0) for c in misses}
+    if any(steady.values()):
+        raise AssertionError(f"{name}: compile-cache misses after warm-up "
+                             f"{steady}")
+    calls = o.metrics.get("dataplane_dispatch_calls_total", app=app).value
+    if calls != len(disp) or o.metrics.get(
+            "dataplane_dispatch_calls").value != len(disp):
+        raise AssertionError(f"{name}: {calls} dispatch calls counted")
+    events = {}
+    for e in o.trace.events:
+        events[e.name] = events.get(e.name, 0) + 1
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        paths = o.dump(tmp, prefix=name)
+        loaded = load_trace(paths["trace"])
+        records = [json.loads(line) for line in
+                   Path(paths["metrics"]).read_text().splitlines()]
+        prom = Path(paths["prom"]).read_text()
+    js = lambda evs: [e.to_json() for e in evs]
+    queries = [{"name": n} for n in sorted(events)] + [
+        {"tenant": name}, {"kind": "decision"}, {"tick": WARMUP},
+        {"since": WARMUP, "until": len(disp) - 1}]
+    if (js(loaded.events) != js(o.trace.events)
+            or any(js(loaded.query(**q)) != js(o.trace.query(**q))
+                   for q in queries)
+            or any(js(loaded.why(name, t)) != js(o.trace.why(name, t))
+                   for t in range(len(disp)))
+            or loaded.spans() != o.trace.spans()):
+        raise AssertionError(f"{name}: the dumped trace answers otherwise "
+                             f"than the live one")
+    if records != json.loads(json.dumps(o.metrics.to_records())) or (
+            prom != o.metrics.render_prometheus()):
+        raise AssertionError(f"{name}: the dumped metrics differ")
+    return {
+        "dispatch_us_p50": hist.quantile(0.5),
+        "dispatch_us_p99": hist.quantile(0.99),
+        "dispatch_samples": hist.count,
+        "flow_cache_counters": counters,
+        "flow_cache_stats_hits": fc["hits"],
+        "compile_cache": {
+            f"{dict(g.labels)['cache']}.{g.name[len('compile_cache_'):]}":
+            g.value for g in o.metrics._metrics.values()
+            if g.name.startswith("compile_cache_")},
+        "compile_cache_misses_after_warmup": steady,
+        "trace_events": events,
+        "artifact_round_trip_equal": True,
+    }
+
+
+def print_obs(report):
+    """The data plane's ``Obs`` line of one app."""
+    r = report["obs"]
+    print(f"obs {report['app']}: dataplane_dispatch_us p50 "
+          f"{r['dispatch_us_p50']:.1f} p99 {r['dispatch_us_p99']:.1f} "
+          f"({r['dispatch_samples']} samples); flow_cache_hits_total "
+          f"{r['flow_cache_counters']['hits']} == flow cache stats hits "
+          f"{r['flow_cache_stats_hits']}; compile-cache misses after "
+          f"warm-up {json.dumps(r['compile_cache_misses_after_warmup'])}; "
+          f"compile_cache gauges {json.dumps(r['compile_cache'])}; trace "
+          f"events {json.dumps(r['trace_events'])}; artifacts round trip "
+          f"equal")
 
 
 def kernel_checks(dp, last_batch, launches_isg, launches_id):
@@ -1336,118 +1473,271 @@ def _restore(params, opt, snap):
         opt.count.copy_(count)
 
 
-def _train_run(model, batches, impl, profile_last=False, keep=False,
-               start=None):
-    """``make_train_step`` over ``batches`` (steps numbered 1, 2, ...) from
-    the seeded parameters: per-step loss, grad norm, ms and launches, and a
-    copy of the parameters after step 1. With ``profile_last`` the last
-    batch is one more step under ``torch.profiler`` (not timed, not
-    compared), for the device's busy share. With ``keep`` the state each
-    step from the second on starts from is kept on the host
-    (``out["starts"]``); ``start`` (such a dict) makes each of those steps
-    start from the given state instead, loaded before its timing."""
+def _train_setup(model, impls):
+    """The seeded f32 parameters (requiring gradients), and for each of
+    ``impls`` a ``make_train_step`` step at batch TRAIN_BATCH x TRAIN_SEQ
+    in 2 microbatches; then the AdamW state."""
     cfg = model.cfg
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         torch.float32).requires_grad_(True)
     shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
-    step_fn, opt_init = make_train_step(model, shape, base_lr=TRAIN_LR,
-                                        warmup=TRAIN_WARMUP,
-                                        total_steps=TRAIN_STEPS, impl=impl)
-    if step_fn.accum != 2:
-        raise AssertionError(f"{cfg.name}: {step_fn.accum} microbatches, "
-                             f"want 2")
-    opt = opt_init(params)
-    out = {"loss": [], "grad_norm": [], "ms": [], "launches": []}
+    steps = []
+    for impl in impls:
+        step_fn, opt_init = make_train_step(model, shape, base_lr=TRAIN_LR,
+                                            warmup=TRAIN_WARMUP,
+                                            total_steps=TRAIN_STEPS,
+                                            impl=impl)
+        if step_fn.accum != 2:
+            raise AssertionError(f"{cfg.name}: {step_fn.accum} "
+                                 f"microbatches, want 2")
+        steps.append(step_fn)
+    return params, steps, opt_init(params)
+
+
+def _timed_step(step_fn, params, opt, toks, s, out):
+    """Step ``s`` (counts reset before it, read after), recorded in ``out``;
+    after step 1 a host copy of the parameters."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, opt, loss, gn = step_fn(params, opt, {"tokens": toks}, s)
+    torch.cuda.synchronize()
+    out["ms"].append((time.perf_counter() - t0) * 1e3)
+    out["launches"].append(_build.launch_counts())
+    out["loss"].append(float(loss))
+    out["grad_norm"].append(float(gn))
+    if s == 1:
+        out["params_step1"] = {k: p.detach().to("cpu", copy=True)
+                               for k, p in params.named_parameters()}
+    return params, opt
+
+
+def _new_run():
+    return {"loss": [], "grad_norm": [], "ms": [], "launches": []}
+
+
+def _train_run(model, batches, impl, profile_last=False):
+    """``make_train_step`` over ``batches`` (steps numbered 1, 2, ...) from
+    the seeded parameters: per-step loss, grad norm, ms and launches, and a
+    host copy of the parameters after step 1. With ``profile_last`` the last
+    batch is one more step under ``torch.profiler`` (not timed, not
+    compared), for the device's busy share."""
+    params, (step_fn,), opt = _train_setup(model, (impl,))
+    out = _new_run()
     timed = batches[:-1] if profile_last else batches
-    starts = {}
     for s, toks in enumerate(timed, 1):
-        if keep and s > 1:
-            starts[s] = _snapshot(params, opt)
-        if start and s in start:
-            _restore(params, opt, start[s])
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        t0 = time.perf_counter()
-        params, opt, loss, gn = step_fn(params, opt, {"tokens": toks}, s)
-        torch.cuda.synchronize()
-        out["ms"].append((time.perf_counter() - t0) * 1e3)
-        out["launches"].append(_build.launch_counts())
-        out["loss"].append(float(loss))
-        out["grad_norm"].append(float(gn))
-        if s == 1:
-            out["params_step1"] = {k: p.detach().clone()
-                                   for k, p in params.named_parameters()}
+        params, opt = _timed_step(step_fn, params, opt, toks, s, out)
     if profile_last:
         n = len(batches)
         out["profile"] = _profile(lambda: step_fn(
             params, opt, {"tokens": batches[-1]}, n))
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
-    if keep:
-        out["starts"] = starts
     del params, opt
     return out
 
 
+def _train_lockstep(model, batches, rk, rp):
+    """The kernel and plain runs in lock step on one set of parameters:
+    before each step its state goes to the host, the plain step runs from
+    it (routes into ``rp``), the state is loaded back and the kernel step
+    runs (routes into ``rk``), so each plain step starts from the state its
+    kernel step starts from, with one host copy of the state at a time.
+    The last batch is one more kernel step under ``torch.profiler``.
+    Returns (kernel run, plain run) as ``_train_run`` does."""
+    params, (kernel_fn, plain_fn), opt = _train_setup(model, (None, "torch"))
+    k, p = _new_run(), _new_run()
+    for s, toks in enumerate(batches[:-1], 1):
+        snap = _snapshot(params, opt)
+        with rp:
+            params, opt = _timed_step(plain_fn, params, opt, toks, s, p)
+        _restore(params, opt, snap)
+        del snap
+        with rk:
+            params, opt = _timed_step(kernel_fn, params, opt, toks, s, k)
+    n = len(batches)
+    k["profile"] = _profile(lambda: kernel_fn(params, opt,
+                                              {"tokens": batches[-1]}, n))
+    k["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del params, opt
+    return k, p
+
+
 def _param_diff(a, b, lr1):
-    """Largest |a - b| over two parameter dicts, and the share of entries
-    apart by more than 1e-3 lr1."""
+    """Largest |a - b| over two parameter dicts (host copies, compared on
+    the card a tensor at a time), and the share of entries apart by more
+    than 1e-3 lr1."""
     worst, off, total = 0.0, 0, 0
     for name, x in a.items():
-        d = (x - b[name]).abs()
+        d = (x.cuda() - b[name].cuda()).abs()
         worst = max(worst, float(d.max()))
         off += int((d > 1e-3 * lr1).sum())
         total += d.numel()
     return worst, off / total
 
 
-def training_phase(arch, kernels, resync=False, calibrate_chunk=None):
+def _with_calibration(calibrate, fn):
+    """``fn()`` with ``ops.<name>`` called with ``kw=value`` (``calibrate``
+    = (name, kw, value)): the plain version's sums in another order."""
+    name, kw, value = calibrate
+    real = getattr(ops, name)
+    setattr(ops, name, lambda *a, **k: real(*a, **{**k, kw: value}))
+    try:
+        return fn()
+    finally:
+        setattr(ops, name, real)
+
+
+def _drop_expert_grad(fn):
+    """``fn()`` with the gradient of expert 0's gate, up and down weights
+    dropped in every MoE layer; the forward is unchanged (v * 1 + 0 and
+    v * 0 + v are v)."""
+    real = moe._expert_matmuls
+
+    def dropped(p, xe):
+        keep = torch.ones((p["gate"].shape[0], 1, 1), dtype=p["gate"].dtype,
+                          device=xe.device)
+        keep[0] = 0
+        return real({k: p[k] * keep + (p[k] * (1 - keep)).detach()
+                     for k in ("gate", "up", "down")}, xe)
+    moe._expert_matmuls = dropped
+    try:
+        return fn()
+    finally:
+        moe._expert_matmuls = real
+
+
+def _train_route_gate(rk, rp, cfg, n_moe):
+    """The route flips between the kernel run's recorded routes ``rk`` and
+    the plain run's ``rp`` (the same calls: steps x microbatches x MoE
+    layers), counted per MoE layer. A token's chosen experts (the top-k of
+    its router probabilities, recomputed from the recorded inputs and
+    router as ``moe.route`` computes them) may differ only at a near tie:
+    if they differ, some expert a chosen by the kernel run and b chosen by
+    the plain run have lp_b - lp_a <= (lp_b - lk_b) + (lk_a - lp_a), so the
+    plain run's gap between its k-th and (k+1)-th logits is at most twice
+    the two runs' largest logit difference d (plus ROUTE_SLACK of the
+    largest logit for the recomputation). At most MOE_FLIP_SHARE of a
+    call's tokens may flip. Tokens whose chosen experts agree but whose
+    kept experts do not were pushed past (or under) a capacity by a flip
+    before them; they are counted apart."""
+    calls = len(rp.calls)
+    if len(rk.calls) < calls or calls % n_moe:
+        raise AssertionError(f"{len(rk.calls)} routed calls with the "
+                             f"kernels, {calls} plain")
+    per_layer = [{"flips": 0, "capacity_only": 0, "near_ties": 0,
+                  "tokens": 0} for _ in range(n_moe)]
+    worst_share = 0.0
+    for j, (ck, cp) in enumerate(zip(rk.calls, rp.calls)):
+        lk = (ck["x"] @ ck["router"]).float()
+        lp = (cp["x"] @ cp["router"]).float()
+        chose = (_top_k_set(torch.softmax(lk, -1), cfg.top_k)
+                 == _top_k_set(torch.softmax(lp, -1), cfg.top_k)).all(-1)
+        top = torch.sort(lp, dim=-1, descending=True).values
+        gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+        d = (lk - lp).abs().amax(-1)
+        near = gap <= 2 * d + ROUTE_SLACK * lp.abs().amax(-1)
+        if bool((~chose & ~near).any()):
+            t = int((~chose & ~near).nonzero()[0])
+            raise AssertionError(
+                f"train routes, call {j}: token {t} changed experts at a "
+                f"logit gap {float(gap[t])} over twice the runs' logit "
+                f"difference {float(d[t])}")
+        same = _route_flips(types.SimpleNamespace(calls=[ck]),
+                            types.SimpleNamespace(calls=[cp]))[0]
+        flips = int((~chose).sum())
+        T = chose.numel()
+        layer = per_layer[j % n_moe]
+        layer["flips"] += flips
+        layer["capacity_only"] += int((chose & same).sum())
+        layer["near_ties"] += int(near.sum())
+        layer["tokens"] += T
+        worst_share = max(worst_share, flips / T)
+        if flips > MOE_FLIP_SHARE * T:
+            raise AssertionError(f"train routes, call {j}: {flips} of {T} "
+                                 f"tokens changed experts")
+    return {"per_moe_layer": per_layer, "calls": calls,
+            "max_call_flip_share": worst_share}
+
+
+def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
+                   fault=False):
     """``arch`` at full width: ``TRAIN_STEPS`` steps with the kernels (the
     main path: counts reset before each step, read after), then the same
     steps with the plain versions from the same parameters and data. The
     config's ``microbatch`` (the accumulation count) is capped at 2: 2
-    microbatches of 4. Each of ``kernels`` must launch once per layer of
-    each microbatch, and nothing else may launch.
+    microbatches of 4; ``layers`` cuts its depth. Each of ``kernels`` must
+    launch once per layer of each microbatch, and nothing else may launch.
 
     With ``resync`` each plain step starts from the state the kernel step
-    of the same number started from, so every step's loss and grad norm
-    are gated from one state; a third run, the plain versions left to run
-    free, is reported beside them, not gated (mamba2-370m: the two free
-    runs part as AdamW parts them, see TRAIN_RESYNC).
+    of the same number started from (``_train_lockstep``), so every step's
+    loss and grad norm are gated from one state; a third run, the plain
+    versions left to run free, is reported beside them, not gated
+    (mamba2-370m and moonshot: the two free runs part as AdamW parts them,
+    see TRAIN_RESYNC and MOE_TRAIN_LAYERS).
 
-    With ``calibrate_chunk`` one more plain step 1 runs with ``ops.ssd``'s
-    chunk set to it (the same function, its f32 sums in another order),
-    and the kernel run's parameters after step 1 may part from the plain
-    run's in at most TRAIN_NOISE_FACTOR times the share that plain run
-    parts from it (TRAIN_PARAM_SHARE at least)."""
+    With ``calibrate`` = (op, keyword, value) one more plain step 1 runs
+    with ``ops.<op>`` called with that keyword (the same function, its f32
+    sums in another order), and the kernel run's parameters after step 1
+    may part from the plain run's in at most TRAIN_NOISE_FACTOR times the
+    share that plain run parts from it (TRAIN_PARAM_SHARE at least).
+
+    A model with MoE layers has its routes recorded in both runs and held
+    by ``_train_route_gate``; its parameter gate compares the kernel run's
+    step 1 with a plain step 1 that takes the kernel run's routes
+    (``_ReplayRoutes``): a route flip at a near tie moves its token's whole
+    output, and through attention the rest of its sequence, and AdamW's
+    first update parts every entry whose gradient that outweighs (the
+    plain run that routes freely is reported beside it). With ``fault``
+    the kernel run's step 1 runs again with its routes and one expert's
+    gradient dropped (``_drop_expert_grad``), and the phase fails unless
+    the parameter gate rejects it."""
     cfg = get_arch(arch)
     cfg = cfg.replace(microbatch=min(cfg.microbatch, 2))
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     model = build(cfg, "cuda")
     ds = SyntheticLMDataset(vocab=cfg.vocab, seq_len=TRAIN_SEQ + 1)
     batches = [torch.from_numpy(ds.batch(i, TRAIN_BATCH)["tokens"]
                                 [:, :TRAIN_SEQ]).long().cuda()
                for i in range(1, TRAIN_STEPS + 2)]
     n_params = model.param_counts()[0]
+    n_moe = sum(seg.count for seg in lm.build_schedule(cfg)
+                for spec in seg.body if spec.ffn == "moe")
     torch.cuda.reset_peak_memory_stats()
-    k = _train_run(model, batches, None, profile_last=True, keep=resync)
-    torch.cuda.empty_cache()
-    p = _train_run(model, batches[:TRAIN_STEPS], "torch",
-                   start=k.pop("starts", None))
+    rk, rp = _Routes(keep_inputs=True), _Routes(keep_inputs=True)
+    if resync:
+        k, p = _train_lockstep(model, batches, rk, rp)
+    else:
+        with rk:
+            k = _train_run(model, batches, None, profile_last=True)
+        torch.cuda.empty_cache()
+        with rp:
+            p = _train_run(model, batches[:TRAIN_STEPS], "torch")
+    routes = _train_route_gate(rk, rp, cfg, n_moe) if n_moe else None
+    step1_routes = rk.calls[:2 * n_moe]
+    del rp
     free = None
     if resync:
         torch.cuda.empty_cache()
-        free = _train_run(model, batches[:TRAIN_STEPS], "torch")
+        with _Routes(keep_inputs=True) as rf:
+            free = _train_run(model, batches[:TRAIN_STEPS], "torch")
+        del free["params_step1"]
+        if n_moe:
+            routes["free_run_flips_per_call"] = [
+                int((_top_k_set(torch.softmax(ck["x"] @ ck["router"], -1),
+                                cfg.top_k)
+                     != _top_k_set(torch.softmax(cf["x"] @ cf["router"], -1),
+                                   cfg.top_k)).any(-1).sum())
+                for ck, cf in zip(rk.calls, rf.calls)]
+        del rf
+    del rk
     lr1 = float(make_schedule(cfg.schedule, TRAIN_LR, TRAIN_WARMUP,
                               TRAIN_STEPS)(1))
     share_cap, floor = TRAIN_PARAM_SHARE, None
-    if calibrate_chunk:
-        real_ssd = ops.ssd
-        ops.ssd = lambda *a, **kw: real_ssd(*a, **{**kw,
-                                                  "chunk": calibrate_chunk})
-        try:
-            torch.cuda.empty_cache()
-            cal = _train_run(model, batches[:1], "torch")
-        finally:
-            ops.ssd = real_ssd
+    if calibrate:
+        torch.cuda.empty_cache()
+        cal = _with_calibration(calibrate, lambda: _train_run(
+            model, batches[:1], "torch"))
         _, floor = _param_diff(cal["params_step1"], p["params_step1"], lr1)
         share_cap = max(TRAIN_PARAM_SHARE, TRAIN_NOISE_FACTOR * floor)
         del cal
@@ -1465,16 +1755,45 @@ def training_phase(arch, kernels, resync=False, calibrate_chunk=None):
             if not (np.isfinite(a) and abs(a - b) <= tol * abs(b)):
                 raise AssertionError(f"train step {s}: {key} {a} with the "
                                      f"kernels, {b} plain (rtol {tol})")
-    worst, share = _param_diff(k["params_step1"], p["params_step1"], lr1)
-    if not (worst <= 2 * lr1 * 1.001 and share <= share_cap):
+    routed_free = None
+    ref = p["params_step1"]
+    if n_moe:
+        # the kernel run's step-1 routes replayed in a plain step 1, so the
+        # gate sees attention's arithmetic apart from the route flips,
+        # which _train_route_gate holds
+        routed_free = _param_diff(k["params_step1"], ref, lr1)
+        p.pop("params_step1")
+        torch.cuda.empty_cache()
+        with _ReplayRoutes(step1_routes):
+            ref = _train_run(model, batches[:1], "torch")["params_step1"]
+    worst, share = _param_diff(k["params_step1"], ref, lr1)
+    gate = lambda w, sh: w <= 2 * lr1 * 1.001 and sh <= share_cap
+    if not gate(worst, share):
         raise AssertionError(f"train step 1: parameters differ by up to "
                              f"{worst} (bound {2 * lr1}), a share {share} "
                              f"by more than {1e-3 * lr1} (at most "
                              f"{share_cap})")
+    faulted = None
+    if fault:
+        # the kernel run's step 1 again, its routes replayed and expert 0's
+        # gradient dropped in every MoE layer: the gate must reject it
+        torch.cuda.empty_cache()
+        with _ReplayRoutes(step1_routes):
+            bad = _drop_expert_grad(lambda: _train_run(model, batches[:1],
+                                                       None))
+        f_worst, f_share = _param_diff(bad["params_step1"], ref, lr1)
+        del bad
+        if gate(f_worst, f_share):
+            raise AssertionError(f"train step 1 with expert 0's gradient "
+                                 f"dropped passes the parameter gate (a "
+                                 f"share {f_share}, at most {share_cap})")
+        faulted = {"max_abs_diff": f_worst, "share_off": f_share,
+                   "rejected": True}
+    del ref
     step_ms = statistics.median(k["ms"][1:])
     prof = k["profile"]
     report = {
-        "arch": arch, "params": n_params,
+        "arch": arch, "params": n_params, "layers": cfg.n_layers,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "accum": 2,
         "steps": TRAIN_STEPS, "lr_step1": lr1,
         "loss": k["loss"], "plain_loss": p["loss"],
@@ -1488,7 +1807,12 @@ def training_phase(arch, kernels, resync=False, calibrate_chunk=None):
         "params_step1_max_abs_diff": worst,
         "params_step1_share_off": share,
         "params_step1_share_cap": share_cap,
-        "plain_other_chunk_share_off": floor,
+        "plain_other_order_share_off": floor,
+        "params_step1_routed_freely": (None if routed_free is None else {
+            "max_abs_diff": routed_free[0], "share_off": routed_free[1]}),
+        "calibrate": calibrate,
+        "faulted_step1": faulted,
+        "routes": routes,
         "profiled_step": prof,
         "device_busy_share": prof["device_ms"] / prof["wall_ms_profiled"],
         "peak_mem_bytes": k["peak_mem_bytes"],
@@ -1590,7 +1914,8 @@ def train_ssd_rows(model, tokens, launches_train):
 
 def print_training(tag, tr, seconds):
     """A training phase's lines, each prefixed ``tag``."""
-    print(f"{tag}train: {tr['arch']} at full width, {tr['params']} "
+    print(f"{tag}train: {tr['arch']} at full width, {tr['layers']} layers, "
+          f"{tr['params']} "
           f"parameters (f32, AdamW f32), batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
           f"2 microbatches, {TRAIN_STEPS} steps in {seconds:.2f} s (with the "
           f"plain run)")
@@ -1606,8 +1931,27 @@ def print_training(tag, tr, seconds):
           f"{tr['params_step1_max_abs_diff']} (bound 2 lr(1) = "
           f"{2 * tr['lr_step1']}), a share {tr['params_step1_share_off']} "
           f"by more than 1e-3 lr(1) (at most {tr['params_step1_share_cap']}"
-          f"; the plain version at another chunk: "
-          f"{tr['plain_other_chunk_share_off']})")
+          f"; the plain version in another summation order "
+          f"{tr['calibrate']}: {tr['plain_other_order_share_off']})")
+    if tr["params_step1_routed_freely"]:
+        f = tr["params_step1_routed_freely"]
+        print(f"{tag}train step 1 against the plain step that routes freely "
+              f"(reported, not gated): a share {f['share_off']} apart by "
+              f"more than 1e-3 lr(1), up to {f['max_abs_diff']}")
+    if tr["faulted_step1"]:
+        f = tr["faulted_step1"]
+        print(f"{tag}train step 1 with expert 0's gradient dropped: a share "
+              f"{f['share_off']} apart by more than 1e-3 lr(1), up to "
+              f"{f['max_abs_diff']}: rejected by the gate")
+    if tr["routes"]:
+        r = tr["routes"]
+        print(f"{tag}train route flips per MoE layer (kernels against plain,"
+              f" {r['calls']} routed calls): "
+              f"{[x['flips'] for x in r['per_moe_layer']]}, capacity-only "
+              f"changes {[x['capacity_only'] for x in r['per_moe_layer']]}, "
+              f"near ties {[x['near_ties'] for x in r['per_moe_layer']]} of "
+              f"{r['per_moe_layer'][0]['tokens']} tokens a layer; largest "
+              f"share in a call {r['max_call_flip_share']}")
     print(f"{tag}train launches per step: "
           f"{json.dumps(tr['launches_per_step'])}")
     print(f"{tag}train loss {tr['loss']} (plain {tr['plain_loss']}), grad "
@@ -1789,8 +2133,10 @@ class _Routes:
         def route(p, xf, cfg):
             probs, gate_w, ids = self._route(p, xf, cfg)
             self.calls.append({
-                "x": xf if self.keep_inputs else None,
-                "router": p["router"] if self.keep_inputs else None})
+                "chosen": ids,
+                "x": xf.detach() if self.keep_inputs else None,
+                "router": (p["router"].detach().clone() if self.keep_inputs
+                           else None)})
             return probs, gate_w, ids
 
         def dispatch(ids, T, E, C):
@@ -1803,6 +2149,34 @@ class _Routes:
 
     def __exit__(self, *exc):
         moe.route, moe.dispatch = self._route, self._dispatch
+
+
+class _ReplayRoutes:
+    """While installed, ``moe.route`` takes each call's experts from a
+    recorded run (``calls``' chosen ids, in call order) and gates them with
+    this run's own probabilities, renormalised as ``route`` does: where
+    the recorded run chose as this one would, nothing changes (the sort's
+    values are the probabilities it gathers), and the gradient reaches the
+    router the same way, through the gathered probabilities."""
+
+    def __init__(self, calls):
+        self.calls = calls
+
+    def __enter__(self):
+        self._route = moe.route
+        chosen = iter([c["chosen"] for c in self.calls])
+
+        def route(p, xf, cfg):
+            probs, _, _ = self._route(p, xf, cfg)
+            ids = next(chosen)
+            gate_w = probs.gather(1, ids)
+            return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(
+                1e-9), ids
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
 
 
 def _route_flips(got, want):
@@ -2570,8 +2944,10 @@ def reduced_train_step(arch):
     schedule is then in its decay): loss and grad norm within
     REDUCED_TRAIN_TOL (f32 through 4 layers; for seamless the encoder's
     and cross-attention's B5 forward and backward run with
-    ``causal=False``). Exactly one B5 forward and one backward a
-    microbatch per attention call."""
+    ``causal=False``; jamba's grad norm, of gradients summed in bf16 for
+    its bf16 optimizer state, within REDUCED_TRAIN_BF16_GNORM_TOL). Exactly
+    one B5 forward and one backward a microbatch per attention call, and
+    one B7 forward and one backward per mamba layer (jamba: N 16, P 8)."""
     cfg = get_arch(arch).reduced().replace(remat=False, microbatch=2)
     shape = ShapeConfig("t", 32, 4, "train")
     rng = np.random.default_rng(0)
@@ -2595,22 +2971,61 @@ def reduced_train_step(arch):
                                  {k: t.to(dev) for k, t in batch.items()},
                                  10)
         torch.cuda.synchronize()
-        runs.append((float(loss), float(gn), _build.launch_counts()))
-    (loss_cpu, gn_cpu, _), (loss, gn, launches) = runs
-    for what, a, b in (("loss", loss, loss_cpu), ("grad norm", gn, gn_cpu)):
-        if abs(a - b) > REDUCED_TRAIN_TOL * (1 + abs(b)):
-            raise AssertionError(f"reduced {arch} train step: {what} {a} on "
-                                 f"the card, {b} on the CPU")
-    calls = 2 * (cfg.enc_layers + 2 * cfg.dec_layers
-                 if cfg.family == "encdec" else cfg.n_layers)
-    for k in ("flash_attention", "flash_attention_bwd"):
-        if launches[k] != calls:
+        runs.append((float(loss), float(gn), _build.launch_counts(),
+                     str(next(iter(opt.mu.values())).dtype)))
+    (loss_cpu, gn_cpu, _, _), (loss, gn, launches, state) = runs
+    gn_tol = (REDUCED_TRAIN_BF16_GNORM_TOL * abs(gn_cpu)
+              if cfg.bf16_optimizer_state
+              else REDUCED_TRAIN_TOL * (1 + abs(gn_cpu)))
+    if abs(loss - loss_cpu) > REDUCED_TRAIN_TOL * (1 + abs(loss_cpu)) or \
+            abs(gn - gn_cpu) > gn_tol:
+        raise AssertionError(f"reduced {arch} train step: loss {loss}, grad "
+                             f"norm {gn} on the card; {loss_cpu}, {gn_cpu} "
+                             f"on the CPU")
+    if cfg.family == "encdec":
+        attn, mamba = cfg.enc_layers + 2 * cfg.dec_layers, 0
+    else:
+        mixers = [spec.mixer for seg in lm.build_schedule(cfg)
+                  for _ in range(seg.count) for spec in seg.body]
+        attn, mamba = len(mixers) - mixers.count("mamba"), \
+            mixers.count("mamba")
+    want = {"flash_attention": 2 * attn, "flash_attention_bwd": 2 * attn,
+            "ssd_scan": 2 * mamba, "ssd_scan_bwd": 2 * mamba}
+    for k, n in want.items():
+        if launches[k] != n:
             raise AssertionError(f"reduced {arch} train step launched {k} "
-                                 f"{launches[k]} times, not {calls}")
+                                 f"{launches[k]} times, not {n}")
     return {"arch": arch, "schedule": cfg.schedule, "loss": loss,
             "loss_cpu": loss_cpu, "grad_norm": gn, "grad_norm_cpu": gn_cpu,
-            "launches": {k: launches[k] for k in ("flash_attention",
-                                                  "flash_attention_bwd")}}
+            "optimizer_state": state,
+            "launches": {k: n for k, n in want.items() if n}}
+
+
+def moe_backward_repeat():
+    """``moe_ffn``'s backward twice on the same inputs at moonshot's expert
+    widths (one microbatch: 4,096 tokens of d_model 2,048, 64 experts of
+    d_ff 1,408, top-6, f32): whether the two calls' gradients are bit-equal
+    (the backward of the slot gathers is an ``index_put`` with
+    accumulation, which sorts its indices on the card; reported, not
+    gated), and the largest difference."""
+    cfg = get_arch(MOE_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    p = {k: v.requires_grad_() for k, v in
+         moe.moe_init(g, cfg, torch.float32, "cuda").items()}
+    x = torch.randn((4, 1024, cfg.d_model), generator=g,
+                    device="cuda").requires_grad_()
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    grads = []
+    for _ in range(2):
+        out = moe.moe_ffn(p, x, cfg)
+        grads.append(torch.autograd.grad(out, [x] + list(p.values()), dy))
+    torch.cuda.synchronize()
+    names = ["x"] + list(p)
+    diff = {n: float((a - b).abs().max()) for n, a, b in
+            zip(names, *grads)}
+    del p, x, dy, grads
+    torch.cuda.empty_cache()
+    return {"bit_equal": not any(diff.values()), "max_abs_diff": diff}
 
 
 def dense_bf16_attention_rows(model, cache, launches_pd):
@@ -2727,11 +3142,13 @@ def main() -> int:
           f"{FLOWS} flows on the card in {time.perf_counter() - t0:.2f} s")
 
     isg, dp = drive("ISG", ipsec_gateway, batches)
+    print_obs(isg)
     print("main path " + json.dumps(isg))
     for k in ("flow_lookup", "dfa_regex", "keyed_hash", "arx_cipher"):
         if isg["launches"][k] < 1:
             raise AssertionError(f"ISG main path never launched {k}")
     ids, _ = drive("ID", intrusion_detection, batches)
+    print_obs(ids)
     print("main path " + json.dumps(ids))
     for k in ("flow_lookup", "dfa_regex"):
         if ids["launches"][k] < 1:
@@ -2849,7 +3266,7 @@ def main() -> int:
     t0 = time.perf_counter()
     mtr, launches_mtrain = training_phase(
         MAMBA_ARCH, ("ssd_scan", "ssd_scan_bwd"), resync=TRAIN_RESYNC,
-        calibrate_chunk=TRAIN_CALIBRATE_CHUNK)
+        calibrate=TRAIN_CALIBRATE)
     torch.cuda.empty_cache()
     print_training("mamba ", mtr, time.perf_counter() - t0)
     if "free_plain_loss" in mtr:
@@ -2867,6 +3284,31 @@ def main() -> int:
         launches_mtrain["ssd_scan"])
     del model, toks
     torch.cuda.empty_cache()
+
+    # training: moonshot-v1-16b-a3b at full width, depth cut
+    t0 = time.perf_counter()
+    otr, launches_otrain = training_phase(
+        MOE_ARCH, ("flash_attention", "flash_attention_bwd"),
+        resync=TRAIN_RESYNC, calibrate=MOE_TRAIN_CALIBRATE,
+        layers=MOE_TRAIN_LAYERS, fault=True)
+    torch.cuda.empty_cache()
+    print_training("moe ", otr, time.perf_counter() - t0)
+    print(f"moe train plain run left to run free (not gated): loss "
+          f"{otr['free_plain_loss']}, grad norm "
+          f"{otr['free_plain_grad_norm']}, grad norm off the kernel run's "
+          f"by {otr['free_grad_norm_rel_diff']} (relative); tokens routed "
+          f"otherwise than in the kernel run, by call "
+          f"{otr['routes']['free_run_flips_per_call']}")
+    rep = moe_backward_repeat()
+    otr["moe_backward_repeat"] = rep
+    print(f"moe backward twice on the same inputs (moonshot's experts, one "
+          f"microbatch): bit-equal {rep['bit_equal']}, largest difference "
+          f"{json.dumps(rep['max_abs_diff'])}")
+    print("moe train " + json.dumps(otr))
+    by_name = {row["name"]: row for row in kernels}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        by_name[name]["launches_by_path"]["moonshot_train"] = (
+            launches_otrain[name])
 
     # MoE serving: moonshot-v1-16b-a3b at full width, bf16 parameters
     moe_rows, moe_pd, moe_eng = moe_phase()
@@ -2929,14 +3371,14 @@ def main() -> int:
             red_l[name])
     for arch in REDUCED_TRAIN_ARCHS:
         rt = reduced_train_step(arch)
-        print(f"reduced {arch} train step on the card ({rt['schedule']}): "
-              f"loss {rt['loss']} (CPU {rt['loss_cpu']}), grad norm "
-              f"{rt['grad_norm']} (CPU {rt['grad_norm_cpu']}); launches "
+        print(f"reduced {arch} train step on the card ({rt['schedule']}, "
+              f"optimizer state {rt['optimizer_state']}): loss {rt['loss']} "
+              f"(CPU {rt['loss_cpu']}), grad norm {rt['grad_norm']} (CPU "
+              f"{rt['grad_norm_cpu']}); launches "
               f"{json.dumps(rt['launches'])}")
         print("reduced train " + json.dumps(rt))
-        for name in ("flash_attention", "flash_attention_bwd"):
-            by_name[name]["launches_by_path"][f"reduced {arch} train"] = (
-                rt["launches"][name])
+        for name, n in rt["launches"].items():
+            by_name[name]["launches_by_path"][f"reduced {arch} train"] = n
 
     # qwen2.5-32b at full width, bf16 parameters (llava's B5 row beside it)
     q_rows, q_pd, q_eng = dense_bf16_phase()

@@ -1503,3 +1503,119 @@ def test_reduced_train_step_encdec_and_wsd_on_card_equal_cpu(cuda, name):
         loose += int((~close).sum())
         total += close.numel()
     assert loose < 1e-3 * total
+
+
+_ROUTE = moe.route
+
+
+def _routing(monkeypatch, record=None, replay=None):
+    """Installs, in place of ``moe.route``, a route that appends each
+    call's (chosen ids, f32 router logits) to ``record``, or takes each
+    call's experts from ``replay`` (such a list from another run), gated
+    with this run's own probabilities renormalised as ``route`` does."""
+    real = _ROUTE
+    calls = iter(replay or ())
+
+    def route(p, xf, cfg):
+        probs, gate_w, ids = real(p, xf, cfg)
+        if replay is not None:
+            ids = next(calls)[0].to(ids.device)
+            gate_w = probs.gather(1, ids)
+            gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+        if record is not None:
+            record.append((ids.detach().cpu(),
+                           (xf @ p["router"]).float().detach().cpu()))
+        return probs, gate_w, ids
+    monkeypatch.setattr(moe, "route", route)
+
+
+@pytest.mark.parametrize("name", ["phi3.5-moe-42b-a6.6b",
+                                  "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_reduced_moe_and_hybrid_train_step_on_card_equal_cpu(cuda, name,
+                                                             monkeypatch):
+    """One ``make_train_step`` step (accumulation 2) of the reduced MoE and
+    hybrid configs on the card against the CPU. phi3.5-moe runs B5 at G 2,
+    moonshot its dense first layer and MoE layers, jamba B5 on its
+    attention layers and B7 with its backward (N 16, P 8) on its mamba
+    layers, with bf16 optimizer state: gradients summed in bf16 and bf16
+    moments.
+
+    A token whose router logits nearly tie may take other experts on the
+    card than on the CPU, and then moves its whole output (reduced jamba
+    at this seed: one token of the second microbatch's first MoE layer).
+    So the card's step takes the CPU step's routes (replayed, gated with
+    its own probabilities), and a free forward on the card must route as
+    the CPU does except at near ties: the CPU's k-th and (k+1)-th logits
+    within twice the two runs' largest logit difference (plus 2**-20 of
+    the largest logit). Loss at atol = rtol = 1e-4; grad norm at the
+    same, jamba's at 2**-7 relative (each bf16-summed gradient within two
+    bf16 ulps of the CPU's, see ``test_torch_moe_train.py``); parameters
+    at atol = rtol = 1e-4 but for a share under 1e-3 (see
+    ``test_reduced_train_step_on_card_equals_cpu``); exactly one forward
+    and one backward launch per attention and per mamba layer of each
+    microbatch."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    cfg = get_arch(name).reduced().replace(remat=False, microbatch=2)
+    shape = ShapeConfig("t", 32, 4, "train")
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(4, 32)))
+    cpu_routes, free_routes = [], []
+    runs = []
+    for dev in ("cpu", cuda):
+        if dev == "cpu":
+            _routing(monkeypatch, record=cpu_routes)
+        else:
+            _routing(monkeypatch, replay=cpu_routes)
+        model = build(cfg, dev)
+        params = build(cfg, "cpu").init(torch.Generator().manual_seed(0),
+                                        torch.float32).to(dev)
+        params.requires_grad_(True)
+        step_fn, opt_init = make_train_step(model, shape, base_lr=1e-2,
+                                            warmup=1, total_steps=10)
+        opt = opt_init(params)
+        _build.reset_launch_counts()
+        params, opt, loss, gn = step_fn(params, opt,
+                                        {"tokens": tokens.to(dev)}, 1)
+        runs.append((params, opt, float(loss), float(gn),
+                     _build.launch_counts()))
+    (p_cpu, o_cpu, l_cpu, g_cpu, _), (p_card, o_card, l_card, g_card,
+                                      counts) = runs
+    mixers = [spec.mixer for seg in lm.build_schedule(cfg)
+              for _ in range(seg.count) for spec in seg.body]
+    n_mamba = mixers.count("mamba")
+    n_attn = len(mixers) - n_mamba
+    assert counts["flash_attention"] == 2 * n_attn == \
+        counts["flash_attention_bwd"]
+    assert counts["ssd_scan"] == 2 * n_mamba == counts["ssd_scan_bwd"]
+    state = torch.bfloat16 if cfg.bf16_optimizer_state else torch.float32
+    assert all(v.dtype == state for v in o_card.mu.values())
+    np.testing.assert_allclose(l_card, l_cpu, atol=1e-4, rtol=1e-4)
+    if cfg.bf16_optimizer_state:
+        np.testing.assert_allclose(g_card, g_cpu, atol=0, rtol=2.0 ** -7)
+    else:
+        np.testing.assert_allclose(g_card, g_cpu, atol=1e-4, rtol=1e-4)
+    loose = total = 0
+    for a, b in zip(p_card.parameters(), p_cpu.parameters()):
+        close = torch.isclose(a.detach().cpu(), b.detach(), atol=1e-4,
+                              rtol=1e-4)
+        loose += int((~close).sum())
+        total += close.numel()
+    assert loose < 1e-3 * total
+    # the card's own routes: as the CPU's but at near ties
+    _routing(monkeypatch, record=free_routes)
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0),
+                                    torch.float32).to(cuda)
+    model = build(cfg, cuda)
+    with torch.no_grad():
+        for mb in tokens.reshape(2, 2, 32):
+            model.loss(params, {"tokens": mb.to(cuda)})
+    assert len(free_routes) == len(cpu_routes) > 0
+    for (ids_k, lk), (ids_c, lc) in zip(free_routes, cpu_routes):
+        flip = (ids_k.sort(-1).values != ids_c.sort(-1).values).any(-1)
+        top = lc.sort(-1, descending=True).values
+        gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+        bound = 2 * (lk - lc).abs().amax(-1) + 2.0 ** -20 * lc.abs().amax(-1)
+        assert not bool((flip & (gap > bound)).any())

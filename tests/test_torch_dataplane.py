@@ -19,7 +19,6 @@ from repro.apps import ALL_APPS as JALL_APPS
 from repro.apps import synth_packets as jsynth
 from repro.core import ringbuffer as jring
 from repro.core.executor import ParallelDataPlane as JPlane
-from repro.obs import Obs
 from repro_torch import convert
 from repro_torch.apps import ALL_APPS, synth_packets
 from repro_torch.core import graph, ringbuffer
@@ -27,6 +26,7 @@ from repro_torch.core.executor import (MIN_BUCKET, ParallelDataPlane,
                                        PipelineRunner, _bucket)
 from repro_torch.core.graph import chain_runner, run_pipeline, stage_runner
 from repro_torch.core.orchestrator import flow_ids
+from repro_torch.obs import Obs
 
 APPS = ["ID", "ICG", "ISG", "FW", "FM", "LLB"]
 KW = dict(batch=96, num_flows=12, pkt_bytes=128, seed=7)
