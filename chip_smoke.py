@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Ten paths, each driven with the launch counts set to 0 just before it
+Eleven paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -90,6 +90,17 @@ and read just after:
    prefill of 4 x 1,024 tokens (64 B5) and 32 decode steps (64 B6 a
    step), the engine as ``launch.serve`` builds it, kernels against plain;
    the gate holds each layer to the plain run's input, as for moonshot.
+11. The control plane (CP2), after path 1 on its first batch: the six
+   apps profiled by ``profiler.measure_app`` on the card (B2 for ISG's
+   ``url_check`` and ID's ``dpi_regex``, B4 for ``sha``, B3 for ``aes``,
+   each exactly 2 + 5 + 1 launches), with Algorithm 1's R and the
+   simulator's throughput at it; ``cost_model_latency`` on ``ddos_check``
+   beside its measured time, and its refusal of ``url_check``;
+   ``bounded_sync_deltas`` over 8 replicas of the flow cache's 2^17 int64
+   slot counters for 16 rounds, each merge equal to the host form on the
+   CPU, a faulted sync rejected. After path 2's engine run, Algorithm 2
+   places gemma3-1b's measured plan over ``tpu_pod_pool()`` and the pool's
+   ledger is clean after ``commit`` and ``release``.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -122,14 +133,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import hw  # noqa: E402
-from repro_torch.apps import (intrusion_detection, ipsec_gateway,  # noqa: E402
-                              synth_packets)
+from repro_torch.apps import (ALL_APPS, intrusion_detection,  # noqa: E402
+                              ipsec_gateway, synth_packets)
 from repro_torch.apps.nf import SNORT_RULES  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.core import (profiler, replication, sim,  # noqa: E402
+                              state_engine)
+from repro_torch.core.allocation import commit, release  # noqa: E402
 from repro_torch.core.executor import ParallelDataPlane, _bucket  # noqa: E402
-from repro_torch.core.graph import bits, run_pipeline, tree_leaves  # noqa: E402
+from repro_torch.core.graph import (bits, run_pipeline,  # noqa: E402
+                                    stage_runner, tree_leaves)
 from repro_torch.core.orchestrator import flow_ids  # noqa: E402
+from repro_torch.core.pool import CPU, tpu_pod_pool  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import _build, crypto, dfa_regex, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -377,6 +393,18 @@ REDUCED_TRAIN_TOL = 1e-4  # f32 through 4 layers, as the CUDA tests hold it
 # entry within two bf16 ulps of the CPU's, so its grad norm is held to
 # 2**-7 relative (|‖a‖ − ‖b‖| ≤ ‖a − b‖; tests/test_torch_moe_train.py)
 REDUCED_TRAIN_BF16_GNORM_TOL = 2.0 ** -7
+
+# the control plane (CP2): measure_app on the card, the cost model, the
+# flow-state sync and Algorithm 2's placement of gemma3-1b's plan
+PROFILE_ITERS = 5          # timed calls a stage, after 2 warm-up calls
+# each kernel stage launches on the warm-up and timed calls and on the call
+# that advances the chain to the next stage
+PROFILE_LAUNCHES = 2 + PROFILE_ITERS + 1
+KERNEL_OF_STAGE = {"url_check": "dfa_regex", "dpi_regex": "dfa_regex",
+                   "sha": "keyed_hash", "aes": "arx_cipher"}
+SIM_SEQS = 1000
+SYNC_ROUNDS = 16
+SYNC_INC_MAX = 64          # packets a slot and replica gains between syncs
 
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
@@ -836,6 +864,165 @@ def kernel_checks(dp, last_batch, launches_isg, launches_id):
         else:
             rows_out[name] = row
     return list(rows_out.values())
+
+
+# -- the control plane (CP2) ---------------------------------------------------
+
+def profile_apps(batch):
+    """``measure_app`` on the card for the six apps over ``batch``: exactly
+    PROFILE_LAUNCHES launches of each kernel stage's kernel (counts reset
+    just before each app, read just after) and none from any other stage,
+    the chain's output after profiling equal to the plain ``run_pipeline``
+    bit for bit, and the profile's own sums. Algorithm 1's R and the
+    simulator's throughput at that R are reported beside the bound
+    min(R_s / l_s), not gated."""
+    report = {}
+    for key, app in ALL_APPS().items():
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        prof = profiler.measure_app(app, batch, iters=PROFILE_ITERS)
+        launches = _build.launch_counts()
+        want = {k: 0 for k in launches}
+        for stage in prof.stages:
+            if stage in KERNEL_OF_STAGE:
+                want[KERNEL_OF_STAGE[stage]] += PROFILE_LAUNCHES
+        if launches != want:
+            raise AssertionError(f"measure_app {key}: launches {launches}, "
+                                 f"not {want}")
+        cur = batch
+        for fn in app.stages:
+            cur = stage_runner(fn)(cur)
+        _assert_batches_equal(cur, run_pipeline(ALL_APPS(impl="torch")[key],
+                                                batch), f"measure_app {key}")
+        bits_ = prof.batch_bits()
+        if prof.l_p != sum(prof.l_s.values()) or (
+                prof.t_p != bits_ / max(prof.l_s.values()) / 1e9):
+            raise AssertionError(f"measure_app {key}: l_p or t_p is not the "
+                                 f"profile's own sum")
+        R = replication.num_replication(prof.stages, prof.l_s)
+        res = sim.simulate(prof.stages, prof.l_s, R, SIM_SEQS)
+        report[key] = {
+            "stages": prof.stages, "l_s": prof.l_s, "t_s": prof.t_s,
+            "l_p": prof.l_p, "t_p": prof.t_p, "bits": bits_,
+            "launches": {k: n for k, n in launches.items() if n},
+            "R": R, "sim_seqs_per_s": res.throughput,
+            "bound_seqs_per_s": min(R[s] / prof.l_s[s] for s in prof.stages),
+        }
+        print(f"measure_app {key} on the card: l_s "
+              f"{json.dumps({k: round(v * 1e3, 4) for k, v in prof.l_s.items()})}"
+              f" ms, l_p {prof.l_p * 1e3:.4f} ms, t_p {prof.t_p:.3f} Gbps; "
+              f"R {json.dumps(R)}; sim {res.throughput:.1f} batches/s "
+              f"(bound {report[key]['bound_seqs_per_s']:.1f}); launches "
+              f"{json.dumps(report[key]['launches'])}")
+    return report
+
+
+def cost_model_checks(batch, isg):
+    """``cost_model_latency`` on ISG's ``ddos_check`` (plain PyTorch) beside
+    its measured time, reported; on ``url_check``, whose B2 launch no aten
+    op sees, it must refuse and name the kernel."""
+    stages = {fn.name: fn for fn in ALL_APPS()["ISG"].stages}
+    ddos = stage_runner(stages["ddos_check"])
+    flops, nbytes = profiler.op_cost(ddos, batch)
+    est = profiler.cost_model_latency(ddos, batch)
+    measured = isg["l_s"]["ddos_check"]
+    try:
+        profiler.op_cost(stage_runner(stages["url_check"]), batch)
+    except RuntimeError as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("cost_model_latency counted url_check, whose "
+                             "kernel launch it cannot see")
+    if "dfa_regex" not in refusal:
+        raise AssertionError(f"url_check refused without naming dfa_regex: "
+                             f"{refusal}")
+    out = {"stage": "ddos_check", "flops": flops, "bytes": nbytes,
+           "estimate_ms": est * 1e3, "measured_ms": measured * 1e3,
+           "measured_over_estimate": measured / est,
+           "url_check_refused": refusal}
+    print(f"cost model ISG ddos_check: {flops} FLOPs, {nbytes} B -> "
+          f"estimate {est * 1e3:.4f} ms at {hw.HBM_BW:.3g} B/s; measured "
+          f"l_s {measured * 1e3:.4f} ms ({measured / est:.2f}x the "
+          f"estimate); url_check refused ({refusal})")
+    return out
+
+
+def _sync_without_replica0(value, snapshot):
+    """A faulted sync that leaves replica 0's delta out of the sum."""
+    delta = value - snapshot
+    total = delta[1:].sum(0, keepdim=True)
+    return value + (total - delta)
+
+
+def sync_checks(slots):
+    """``bounded_sync_deltas`` on the card: PIPELINES replicas of per-slot
+    int64 counters over the flow cache's slots, SYNC_ROUNDS rounds of seeded
+    increments, one sync a round, each equal to the host form on the CPU
+    bit for bit; after the last every replica holds the global sum. A sync
+    that drops replica 0's delta must fail both gates."""
+    rng = np.random.default_rng(0)
+    value = torch.zeros(PIPELINES, slots, dtype=torch.int64, device="cuda")
+    snap = torch.zeros_like(value)
+    host_v, host_s = value.cpu(), snap.cpu()
+    total = torch.zeros(slots, dtype=torch.int64)
+    for r in range(SYNC_ROUNDS):
+        inc = torch.from_numpy(rng.integers(0, SYNC_INC_MAX,
+                                            size=(PIPELINES, slots)))
+        total += inc.sum(0)
+        value, host_v = value + inc.cuda(), host_v + inc
+        merged, new_snap = state_engine.bounded_sync_deltas(value, snap)
+        want, want_snap = state_engine.bounded_sync(host_v, host_s)
+        if not (torch.equal(merged.cpu(), want)
+                and torch.equal(new_snap.cpu(), want_snap)):
+            raise AssertionError(f"sync round {r}: the card's merge differs "
+                                 f"from the host form")
+        if r == SYNC_ROUNDS - 1:
+            faulted = _sync_without_replica0(value, snap).cpu()
+            if torch.equal(faulted, want) or bool((faulted == total).all()):
+                raise AssertionError("a sync that drops replica 0's delta "
+                                     "passed the gate")
+        value, snap, host_v, host_s = merged, new_snap, want, want_snap
+    if not bool((value.cpu() == total).all()):
+        raise AssertionError("after the last sync a replica does not hold "
+                             "the global sum")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    ms = _time_ms(lambda: state_engine.bounded_sync_deltas(value, snap),
+                  KERNEL_REPS, flush)
+    out = {"replicas": PIPELINES, "slots": slots, "rounds": SYNC_ROUNDS,
+           "bytes": value.numel() * 8, "equal_to_host_form": True,
+           "faulted_sync_rejected": True, "sync_ms_median": ms}
+    print(f"bounded_sync_deltas on the card: {PIPELINES} replicas x {slots} "
+          f"int64 slots, {SYNC_ROUNDS} rounds, each merge equal to the host "
+          f"form, every replica at the global sum; a sync that drops replica "
+          f"0's delta is rejected; one sync {ms:.4f} ms (median of "
+          f"{KERNEL_REPS}, L2 flushed)")
+    return out
+
+
+def placement_check(model, latencies):
+    """Algorithm 2 places the measured plan's segments over
+    ``tpu_pod_pool()``; ``commit`` then ``release`` leave the pool's ledger
+    with no problem."""
+    pool = tpu_pod_pool()
+    plan = plan_serving(model, latencies, pool=pool)
+    alloc = plan.allocation
+    need = {s: CPU for s in plan.stages}
+    if not alloc.satisfied():
+        raise AssertionError(f"placement left {alloc.unmet} unplaced")
+    commit(pool, alloc, need)
+    held = {n: {CPU: sum(row.values())} for n, row in alloc.A.items()
+            if any(row.values())}
+    problems = pool.check_ledger([held], [alloc.bw_charge], strict=False)
+    release(pool, alloc, need)
+    problems += pool.check_ledger(strict=False)
+    if problems:
+        raise AssertionError(f"pool ledger after commit/release: {problems}")
+    print("control plane placement of the measured plan over tpu_pod_pool():")
+    print(plan.summary())
+    return {"stages": plan.stages, "R": plan.R,
+            "nics": {s: alloc.nics_for(s) for s in plan.stages},
+            "bw_charge": {n: c for n, c in alloc.bw_charge.items() if c},
+            "ledger_problems": problems}
 
 
 # -- LM serving ---------------------------------------------------------------
@@ -3156,6 +3343,19 @@ def main() -> int:
 
     kernels = kernel_checks(dp, batches[-1], isg["launches"],
                             ids["launches"])
+
+    # the control plane (CP2), on the first batch (seed 0) while it is on
+    # the card
+    t0 = time.perf_counter()
+    control = {"apps": profile_apps(batches[0])}
+    control["cost_model"] = cost_model_checks(batches[0],
+                                              control["apps"]["ISG"])
+    control["sync"] = sync_checks(dp.to.flow_cache.capacity)
+    control["seconds"] = time.perf_counter() - t0
+    by_name = {row["name"]: row for row in kernels}
+    for key, rep in control["apps"].items():
+        for name, n in rep["launches"].items():
+            by_name[name]["launches_by_path"][f"measure_app {key}"] = n
     del dp, batches
     torch.cuda.empty_cache()
 
@@ -3187,6 +3387,10 @@ def main() -> int:
           f"pipelines; plain versions {eng['plain_tokens_per_s']:.1f})")
     print("engine launches: " + json.dumps(eng["launches"]))
     print("engine " + json.dumps(eng))
+    t0 = time.perf_counter()
+    control["placement"] = placement_check(model, eng["latencies_s"])
+    control["seconds"] += time.perf_counter() - t0
+    print("control plane " + json.dumps(control))
     kernels += attention_checks(model, cache, engine, pd["launches"],
                                 eng["launches"])
     del model, params, cache, engine, prompts

@@ -1619,3 +1619,56 @@ def test_reduced_moe_and_hybrid_train_step_on_card_equal_cpu(cuda, name,
         gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
         bound = 2 * (lk - lc).abs().amax(-1) + 2.0 ** -20 * lc.abs().amax(-1)
         assert not bool((flip & (gap > bound)).any())
+
+
+# -- the control plane's device parts (measure_app, bounded_sync_deltas) ----------
+
+def test_measure_app_on_card_launches_each_kernel_stage(cuda):
+    """ISG profiled on the card with iters 3 (2 warm-up calls): each kernel
+    stage launches its kernel 2 + 3 + 1 times (the last call advances the
+    chain), no other stage launches any, and the chain's output equals the
+    same chain on the CPU."""
+    from repro_torch.core import graph, profiler
+    kw = dict(batch=192, num_flows=40, seed=5)
+    app = ALL_APPS()["ISG"]
+    on_card = synth_packets(device=cuda, **kw)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    prof = profiler.measure_app(app, on_card, iters=3)
+    counts = _build.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "dfa_regex": 6,
+                      "keyed_hash": 6, "arx_cipher": 6}
+    assert prof.l_p == sum(prof.l_s.values())
+    assert prof.batch_bits() == float(on_card.length.sum()) * 8.0
+    got, want = on_card, synth_packets(device="cpu", **kw)
+    for fn in app.stages:
+        got = graph.stage_runner(fn)(got)
+        want = graph.stage_runner(fn)(want)
+    for x, y in zip(convert.leaves_to_numpy(got),
+                    convert.leaves_to_numpy(want)):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float32])
+def test_bounded_sync_deltas_on_card_equals_cpu(cuda, dtype):
+    """Eight replicas of 2^12 per-slot counters synced on the card: int64
+    bit-equal to the CPU; f32 within P · 2^-24 · Σ|delta| (the sum's order
+    may differ)."""
+    from repro_torch.core import state_engine as se
+    rng = np.random.default_rng(0)
+    P, N = 8, 1 << 12
+    v = torch.zeros(P, N, dtype=dtype)
+    s = torch.zeros(P, N, dtype=dtype)
+    for _ in range(4):
+        inc = rng.integers(0, 1 << 16, size=(P, N)) if dtype == torch.int64 \
+            else rng.normal(0, 100, size=(P, N))
+        v = v + torch.from_numpy(inc).to(dtype)
+        got, got_snap = se.bounded_sync_deltas(v.to(cuda), s.to(cuda))
+        want, want_snap = se.bounded_sync(v, s)
+        assert got.is_cuda and got_snap.data_ptr() != got.data_ptr()
+        if dtype == torch.int64:
+            assert torch.equal(got.cpu(), want)
+        else:
+            bound = P * 2.0 ** -24 * (v - s).abs().sum(0, keepdim=True)
+            assert bool(((got.cpu() - want).abs() <= bound).all())
+        v, s = want, want_snap

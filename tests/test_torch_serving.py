@@ -2,7 +2,9 @@
 package.
 
 * ``plan_serving`` gives the same replication factors R and pipeline count
-  as the reference for the same latency dict, and the stage names agree.
+  as the reference for the same latency dict, and the stage names agree;
+  with ``pool=`` (``paper_cluster()`` or ``tpu_pod_pool()``) it places the
+  replicas as the reference does (Algorithm 2).
 * ``ServingEngine.run`` on reduced gemma3-1b, mamba2-370m, moonshot-v1-16b-a3b
   (MoE) and jamba-1.5-large-398b (hybrid), with
   the reference's ``init`` parameters carried across, completes the same
@@ -21,11 +23,13 @@ import pytest
 import torch
 
 from repro.configs import ARCHS
+from repro.core import pool as jpool
 from repro.models import build as jbuild
 from repro.serving import engine as jengine
 from repro.serving import planner as jplanner
 from repro_torch import convert
 from repro_torch.configs import get_arch
+from repro_torch.core import pool as pool_mod
 from repro_torch.launch import serve
 from repro_torch.models import build
 from repro_torch.serving import engine, planner
@@ -56,11 +60,44 @@ def test_plan_serving_equals_reference(name, latencies):
     assert got.summary() == want.summary()
 
 
-def test_plan_serving_pool_waits_for_allocation():
-    cfg = get_arch("gemma3-1b")
-    lat = dict(zip(planner.segment_stage_names(cfg), [1.0, 0.5]))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        planner.plan_serving(build(cfg, "cpu"), lat, pool=object())
+@pytest.mark.parametrize("pool_fn", ["paper_cluster", "tpu_pod_pool"])
+@pytest.mark.parametrize("name,latencies,unit", [
+    ("gemma3-1b", [2.4e-3, 2.1e-4], None),
+    ("gemma3-1b", [2.4e-3, 2.1e-4], [30.0, 55.0]),
+    ("moonshot-v1-16b-a3b", [1e-4, 4e-3], [120.0, 7.5]),
+    ("jamba-1.5-large-398b", [6e-3], None),
+])
+def test_plan_serving_pool_equals_reference(pool_fn, name, latencies, unit):
+    """Algorithm 2 places each segment's R replicas over the pool: the
+    same allocation (``A``, ``unmet``, ``bw_after``, ``bw_charge``) and
+    placement lines as the reference's plan."""
+    names = planner.segment_stage_names(get_arch(name))
+    lat = dict(zip(names, latencies))
+    t_s = dict(zip(names, unit)) if unit else None
+    got = planner.plan_serving(build(get_arch(name), "cpu"), lat,
+                               pool=getattr(pool_mod, pool_fn)(),
+                               unit_throughput_gbps=t_s)
+    want = jplanner.plan_serving(jbuild(ARCHS[name]), lat,
+                                 pool=getattr(jpool, pool_fn)(),
+                                 unit_throughput_gbps=t_s)
+    ga, wa = got.allocation, want.allocation
+    assert (ga.A, ga.unmet, ga.bw_after, ga.bw_charge) == \
+        (wa.A, wa.unmet, wa.bw_after, wa.bw_charge)
+    assert ga.units(names[0]) == got.R[names[0]]
+    assert got.summary() == want.summary()
+    assert " -> [" in got.summary()
+
+
+def test_meili_serving_plan():
+    """``test_system.py::test_meili_serving_plan``'s asserts on the port."""
+    cfg = get_arch("jamba-1.5-large-398b").reduced().replace(remat=False)
+    model = build(cfg, "cpu")
+    plan = planner.plan_serving(model, {"seg0": 3.0e-3})
+    assert plan.num_pipelines == 1
+    assert plan.allocation is None
+    plan = planner.plan_serving(model, {"enc": 2.0e-3, "dec": 0.9e-3})
+    assert plan.R["enc"] == 3 and plan.R["dec"] == 1
+    assert plan.throughput_gain > 1.5
 
 
 def assert_tokens_agree(got, want, margin_tol):
