@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Eleven paths, each driven with the launch counts set to 0 just before it
+Twelve paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -101,6 +101,21 @@ and read just after:
    CPU, a faulted sync rejected. After path 2's engine run, Algorithm 2
    places gemma3-1b's measured plan over ``tpu_pod_pool()`` and the pool's
    ledger is clean after ``commit`` and ``release``.
+12. The control plane (CP3), after path 11 while the traffic is on the
+   card: ``MeiliController`` over ``paper_cluster()`` places the six apps
+   from their measured profiles; each deployment's ``ParallelDataPlane``
+   (its pipelines, ``_pipeline_capacity``, the controller's ``Obs``) runs
+   the 7 batches, equal to the plain ``run_pipeline``, B1 and each kernel
+   stage's kernel launched once a batch; then adaptive scale up and down
+   (the plane rebuilt and checked), defragmentation, a forced migration
+   with a NIC failing mid-way (the failover span inside the migrate span),
+   replication and failover with the state restored, and terminate, the
+   ledger clean after every step and the pool back at its baseline. Then
+   the governor's DWRR tick with ``VectorizedScheduler`` on the card
+   against the scalar governor at 200 and 1,024 tenants, every tick within
+   the contract (``sched_kernel.contract_errors``) and no new shape key
+   after the warm-up, and a tick with one tenant's weight doubled that the
+   contract must reject.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -117,7 +132,9 @@ coalesced read of their input timed the same way), and
 """
 from __future__ import annotations
 
+import itertools
 import json
+import random
 import re
 import statistics
 import subprocess
@@ -138,14 +155,16 @@ from repro_torch.apps import (ALL_APPS, intrusion_detection,  # noqa: E402
 from repro_torch.apps.nf import SNORT_RULES  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
-from repro_torch.core import (profiler, replication, sim,  # noqa: E402
-                              state_engine)
+from repro_torch.core import (profiler, replication,  # noqa: E402
+                              sched_kernel, sim, state_engine)
 from repro_torch.core.allocation import commit, release  # noqa: E402
+from repro_torch.core.controller import MeiliController  # noqa: E402
 from repro_torch.core.executor import ParallelDataPlane, _bucket  # noqa: E402
 from repro_torch.core.graph import (bits, run_pipeline,  # noqa: E402
                                     stage_runner, tree_leaves)
 from repro_torch.core.orchestrator import flow_ids  # noqa: E402
-from repro_torch.core.pool import CPU, tpu_pod_pool  # noqa: E402
+from repro_torch.core.pool import CPU, paper_cluster, tpu_pod_pool  # noqa: E402
+from repro_torch.core.qos import ResourceGovernor, TenantQuota  # noqa: E402
 from repro_torch.data import SyntheticLMDataset  # noqa: E402
 from repro_torch.kernels import _build, crypto, dfa_regex, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -405,6 +424,22 @@ KERNEL_OF_STAGE = {"url_check": "dfa_regex", "dpi_regex": "dfa_regex",
 SIM_SEQS = 1000
 SYNC_ROUNDS = 16
 SYNC_INC_MAX = 64          # packets a slot and replica gains between syncs
+
+# the control plane (CP3): the controller over paper_cluster() with the
+# measured profiles, each deployment's data plane on the card, the lifecycle,
+# and the governor's DWRR tick on the card
+# targets as multiples of each app's measured t_p: 1.5 gives ISG 2 units a
+# stage (its sha and aes share the pool's 4 crypto engines), 2.5 FW 3
+CTRL_TARGETS = {"ISG": 1.5, "ID": 0.5, "FW": 2.5, "ICG": 0.5, "FM": 0.5,
+                "LLB": 0.5}
+CTRL_REQUIRED = ("ISG", "ID", "FW")
+CTRL_SCALE = ("FW", 3.5, 1.5)   # FW up to 4 pipelines, then down to 2
+CTRL_REBUILD_BATCHES = 2        # batches through a plane rebuilt mid-phase
+DWRR_TENANTS = (200, 1024)
+DWRR_BUDGET = 2e6               # bytes a tick (the reference's smoke)
+DWRR_CAP = 5e4
+DWRR_TICKS = 30
+DWRR_CAPPED_TICKS = 12
 
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
@@ -875,12 +910,13 @@ def profile_apps(batch):
     the chain's output after profiling equal to the plain ``run_pipeline``
     bit for bit, and the profile's own sums. Algorithm 1's R and the
     simulator's throughput at that R are reported beside the bound
-    min(R_s / l_s), not gated."""
-    report = {}
+    min(R_s / l_s), not gated. Returns the report and the profiles."""
+    report, profiles = {}, {}
     for key, app in ALL_APPS().items():
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        prof = profiler.measure_app(app, batch, iters=PROFILE_ITERS)
+        prof = profiles[key] = profiler.measure_app(app, batch,
+                                                    iters=PROFILE_ITERS)
         launches = _build.launch_counts()
         want = {k: 0 for k in launches}
         for stage in prof.stages:
@@ -914,7 +950,7 @@ def profile_apps(batch):
               f"R {json.dumps(R)}; sim {res.throughput:.1f} batches/s "
               f"(bound {report[key]['bound_seqs_per_s']:.1f}); launches "
               f"{json.dumps(report[key]['launches'])}")
-    return report
+    return report, profiles
 
 
 def cost_model_checks(batch, isg):
@@ -1023,6 +1059,424 @@ def placement_check(model, latencies):
             "nics": {s: alloc.nics_for(s) for s in plan.stages},
             "bw_charge": {n: c for n, c in alloc.bw_charge.items() if c},
             "ledger_problems": problems}
+
+
+# -- the control plane (CP3) ---------------------------------------------------
+
+def _pool_free(pool):
+    return {n: (dict(st.free), st.free_bw_gbps)
+            for n, st in pool.nics.items()}
+
+
+def _ledger(ctrl, step, report):
+    """``check_ledger(strict=True)`` after a lifecycle step: it raises on a
+    problem, and must return no entries."""
+    problems = ctrl.check_ledger(strict=True)
+    if problems:
+        raise AssertionError(f"ledger after {step}: {problems}")
+    report["ledger_checks"].append(step)
+
+
+def _plane_check(ctrl, key, batches, step, report, launches_total):
+    """The deployment's data plane built as the service runtime builds it
+    (``ParallelDataPlane`` with its pipelines and ``_pipeline_capacity``,
+    writing into the controller's ``Obs``), on the card: every output equal
+    to the plain ``run_pipeline`` bit for bit, and B1 plus each kernel
+    stage's kernel launched once a batch (counts reset just before, read
+    just after), as on the main path."""
+    dep = ctrl.deployments[ALL_APPS()[key].name]
+    cap = ctrl._pipeline_capacity(dep.profile, dep.num_pipelines)
+    dp = ParallelDataPlane(dep.app, num_pipelines=dep.num_pipelines,
+                           capacity_per_pipeline=cap,
+                           metrics=ctrl.obs.metrics, trace=ctrl.obs.trace)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [dp.process(b, tenant=dep.tenant) for b in batches]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    launches = _build.launch_counts()
+    want = {k: 0 for k in launches}
+    want["flow_lookup"] = len(batches)
+    for stage in dep.profile.stages:
+        if stage in KERNEL_OF_STAGE:
+            want[KERNEL_OF_STAGE[stage]] = len(batches)
+    if launches != want:
+        raise AssertionError(f"{key} plane ({step}): launches {launches}, "
+                             f"not {want}")
+    plain = ALL_APPS(impl="torch")[key]
+    for i, (b, out) in enumerate(zip(batches, outs)):
+        _assert_batches_equal(out, run_pipeline(plain, b),
+                              f"{key} plane ({step}) batch {i}")
+    for k, n in launches.items():
+        launches_total[k] = launches_total.get(k, 0) + n
+    row = {"app": key, "step": step, "pipelines": dep.num_pipelines,
+           "capacity_per_pipeline": cap, "batches": len(batches),
+           "ms_per_batch": ms, "launches": {k: n for k, n in launches.items()
+                                            if n},
+           "equal_to_plain_run_pipeline": True}
+    report["planes"].append(row)
+    print(f"controller plane {key} ({step}): {dep.num_pipelines} pipelines, "
+          f"{len(batches)} batches, {ms:.3f} ms a batch, outputs equal to "
+          f"the plain run_pipeline; launches {json.dumps(row['launches'])}")
+
+
+def _print_deployment(key, dep):
+    stages = dep.profile.stages
+    print(f"controller deploy {key} ({dep.app.name}): target {dep.target_gbps:.1f} "
+          f"Gbps, R {json.dumps(dep.R)}, r_s {json.dumps(dep.r_s)}, NICs "
+          f"{json.dumps({s: dep.allocation.nics_for(s) for s in stages})}, "
+          f"{dep.num_pipelines} pipelines, achievable "
+          f"{dep.achievable_gbps:.1f} Gbps")
+
+
+def _deployment_row(dep):
+    stages = dep.profile.stages
+    return {"target_gbps": dep.target_gbps, "R": dep.R, "r_s": dep.r_s,
+            "nics": {s: dep.allocation.nics_for(s) for s in stages},
+            "num_pipelines": dep.num_pipelines,
+            "achievable_gbps": dep.achievable_gbps}
+
+
+def _migration_flow_check(dep, before, ctx):
+    """After a migration every flow the deployment's TO had homed keeps its
+    identity on an active pipeline, and none waits in the side buffer."""
+    active = {p.pid for p in dep.to.pipelines if p.active}
+    if set(dep.to.flow_table) != set(before):
+        raise AssertionError(f"{ctx}: flows changed identity")
+    if not set(dep.to.flow_table.values()) <= active:
+        raise AssertionError(f"{ctx}: a flow landed on a halted pipeline")
+    if dep.to.halted_flows:
+        raise AssertionError(f"{ctx}: {len(dep.to.halted_flows)} flows "
+                             f"still halted")
+
+
+def controller_checks(profiles, batches):
+    """The §2.2 workflow on the card: the controller places the six apps
+    over ``paper_cluster()`` from their measured profiles, each deployment's
+    data plane runs on the card against the plain ``run_pipeline``, then the
+    lifecycle (adaptive scale up and down, defragmentation or a migration,
+    a forced migration with a NIC failing mid-way, replication and
+    failover with the state restored, terminate), the pool's ledger checked
+    after every step and at its baseline at the end."""
+    steps = itertools.count()
+    pool = paper_cluster()
+    base = _pool_free(paper_cluster())
+    ctrl = MeiliController(pool, clock=lambda: 0.25 * next(steps))
+    apps = ALL_APPS()
+    name = {key: app.name for key, app in apps.items()}
+    report = {"deployments": {}, "planes": [], "ledger_checks": [],
+              "lifecycle": {}}
+    launches = {}
+    for key, mult in CTRL_TARGETS.items():
+        prof = profiles[key]
+        dep = ctrl.submit(apps[key], mult * prof.t_p, prof,
+                          backup_nic="bf1-0" if key == "ID" else None)
+        if not dep.allocation.satisfied():
+            if key in CTRL_REQUIRED:
+                raise AssertionError(f"{key} did not place at "
+                                     f"{mult} x t_p: {dep.allocation.unmet}")
+            ctrl.terminate(name[key])
+            print(f"controller deploy {key}: unplaceable at {mult} x t_p, "
+                  f"terminated")
+            continue
+        _print_deployment(key, dep)
+        report["deployments"][key] = _deployment_row(dep)
+    _ledger(ctrl, "submit", report)
+    crypto = {s: ctrl.deployments[name["ISG"]].r_s[s]
+              for s in ("sha", "aes")}
+    if max(crypto.values()) > 2:
+        raise AssertionError(f"ISG holds {crypto} crypto units a stage")
+    if max(d.num_pipelines for d in ctrl.deployments.values()) < 2:
+        raise AssertionError("no deployment runs 2 or more pipelines")
+    for key in report["deployments"]:
+        _plane_check(ctrl, key, batches, "deploy", report, launches)
+
+    # adaptive scale up, then down; the plane rebuilt at each new size
+    key, up, down = CTRL_SCALE
+    life = report["lifecycle"]
+    for step, mult in (("scale_up", up), ("scale_down", down)):
+        before = ctrl.deployments[name[key]].num_pipelines
+        dep = ctrl.adaptive_scale(name[key], mult * profiles[key].t_p)
+        _ledger(ctrl, step, report)
+        life[step] = {"app": key, "pipelines": [before, dep.num_pipelines],
+                      "r_s": dep.r_s, "achievable_gbps": dep.achievable_gbps}
+        print(f"controller {step} {key}: {before} -> {dep.num_pipelines} "
+              f"pipelines, r_s {json.dumps(dep.r_s)}, achievable "
+              f"{dep.achievable_gbps:.1f} Gbps")
+        if dep.num_pipelines == before:
+            raise AssertionError(f"{step} left {key} at {before} pipelines")
+        _plane_check(ctrl, key, batches[:CTRL_REBUILD_BATCHES], step,
+                     report, launches)
+
+    # flows homed in every deployment's TO, then defragment (or migrate)
+    for dep in ctrl.deployments.values():
+        dep.to.partition_assign(batches[0])
+    homes = {k: dict(d.to.flow_table) for k, d in ctrl.deployments.items()}
+    moved = ctrl.defragment(max_migrations=2, min_score=1.0)
+    how = "defragment"
+    if not moved:
+        how = "migrate"
+        for k in ctrl.deployments:
+            ev = ctrl.migrate(k, require_improvement=False)
+            if ev is not None:
+                moved = [ev]
+                break
+    if not moved:
+        raise AssertionError("neither defragment nor migrate moved a "
+                             "deployment")
+    _ledger(ctrl, how, report)
+    for ev in moved:
+        _migration_flow_check(ctrl.deployments[ev["app"]], homes[ev["app"]],
+                              f"{how} {ev['app']}")
+    life[how] = [{k: ev[k] for k in ("app", "nics_before", "nics_after",
+                                     "hop_pairs_before", "hop_pairs_after")}
+                 for ev in moved]
+    print(f"controller {how}: " + json.dumps(life[how]))
+
+    # a forced migration with a NIC failing mid-way: failover inside migrate.
+    # The first deployment with an admissible plan moves (ISG cannot: its
+    # sha and aes hold every crypto engine, and a plan takes free units only)
+    failed = []
+
+    def on_swap(app_name):
+        nic = sorted(ctrl.deployments[app_name].nics_used())[0]
+        failed.append(nic)
+        ctrl.handle_failure(nic)
+
+    ctrl.mid_migration_hook = on_swap
+    for key in ("FW", "ID", "FM", "LLB", "ICG", "ISG"):
+        if name[key] not in ctrl.deployments:
+            continue
+        before = dict(ctrl.deployments[name[key]].to.flow_table)
+        pipes = ctrl.deployments[name[key]].num_pipelines
+        ev = ctrl.migrate(name[key], forced=True, require_improvement=False)
+        if ev is not None:
+            break
+    ctrl.mid_migration_hook = None
+    if ev is None or not failed:
+        raise AssertionError("no forced migration committed with its "
+                             "mid-migration failure")
+    _ledger(ctrl, "migrate_mid_failure", report)
+    _migration_flow_check(ctrl.deployments[name[key]], before,
+                          "migrate with a mid-migration failure")
+    tr = ctrl.obs.trace
+    mig = tr.spans(name="migrate")[-1]
+    fo = tr.spans(name="failover")[-1]
+    if fo.parent_id != mig.span_id or mig.detail.get("outcome") != \
+            "committed":
+        raise AssertionError("the failover span is not inside the committed "
+                             "migrate span")
+    life["migrate_mid_failure"] = {"app": key, "failed_nic": failed[0],
+                                   "nics_after": ev["nics_after"],
+                                   "failover_inside_migrate": True}
+    print(f"controller migrate {key} with {failed[0]} failing mid-way: "
+          f"committed onto {ev['nics_after']}; failover span inside the "
+          f"migrate span")
+    if ctrl.deployments[name[key]].num_pipelines != pipes:
+        _plane_check(ctrl, key, batches[:CTRL_REBUILD_BATCHES],
+                     "migrate_mid_failure", report, launches)
+
+    # replicate ID's state to its backup NIC, fail one of its NICs, restore
+    key = "ID"
+    dep = ctrl.deployments[name[key]]
+    s_name = next(iter(dep.app.state_decls))
+    victim = sorted(n for n in dep.nics_used() if pool[n].alive)[0]
+    ctrl.state.ne_set(s_name, 0xC0FFEE, local=victim)
+    ctrl.replicate_for_failover(name[key])
+    if dep.state_snapshot != {s_name: 0xC0FFEE}:
+        raise AssertionError(f"replication snapshot {dep.state_snapshot}")
+    pipes = dep.num_pipelines
+    impacted = ctrl.handle_failure(victim)
+    _ledger(ctrl, "failover", report)
+    dep = ctrl.deployments[name[key]]
+    if name[key] not in impacted or victim in dep.nics_used():
+        raise AssertionError(f"failover of {victim} left {key} on it")
+    restored = {n: ctrl.state.get(s_name, local=n) for n in pool.names()}
+    if any(v != 0xC0FFEE for v in restored.values()):
+        raise AssertionError(f"state not restored from the snapshot: "
+                             f"{restored}")
+    life["failover"] = {"nic": victim, "impacted": impacted,
+                        "r_s": dep.r_s, "state_restored_on": len(restored)}
+    print(f"controller failover {victim}: impacted {impacted}, {key} r_s "
+          f"{json.dumps(dep.r_s)}, {s_name} restored from the snapshot on "
+          f"{len(restored)} live NICs")
+    if dep.num_pipelines != pipes:
+        _plane_check(ctrl, key, batches[:CTRL_REBUILD_BATCHES], "failover",
+                     report, launches)
+
+    for app_name in list(ctrl.deployments):
+        ctrl.terminate(app_name)
+    _ledger(ctrl, "terminate", report)
+    end = _pool_free(pool)
+    for n, (units, bw) in base.items():
+        if end[n][0] != units or abs(end[n][1] - bw) > 1e-6:
+            raise AssertionError(f"{n} ends at {end[n]}, not its baseline "
+                                 f"{(units, bw)}")
+    if pool.usage_snapshot():
+        raise AssertionError(f"usage left: {pool.usage_snapshot()}")
+    report["pool_at_baseline"] = True
+    report["events"] = [e["event"] for e in ctrl.events]
+    report["trace_spans"] = len(tr.spans())
+    return report, launches
+
+
+def _dwrr_governors(weights, device):
+    scalar, kernel = ResourceGovernor(), ResourceGovernor()
+    for t, w in weights.items():
+        scalar.register(t, TenantQuota(weight=w))
+        kernel.register(t, TenantQuota(weight=w))
+    sched = sched_kernel.VectorizedScheduler(device=device)
+    kernel.attach_kernel(sched)
+    return scalar, kernel, sched
+
+
+def _deficit_gaps(scalar, sched, budget, weights, served_s):
+    """Kernel deficits (one read) against the scalar's, per tenant: the
+    errors at the contract's per-tenant tolerance, and the largest gap in
+    units of the tenant's quantum * weight."""
+    quantum = budget / (8.0 * sum(weights.values()))
+    kernel = sched.deficits()
+    errs, worst = [], 0.0
+    for t, w in weights.items():
+        tol = max(sched_kernel.ATOL, 1.05 * quantum * w
+                  + sched_kernel.RTOL * served_s[t])
+        gap = abs(kernel[t] - scalar._deficit.get(t, 0.0))
+        worst = max(worst, gap / (quantum * w))
+        if gap > tol:
+            errs.append(f"{t}: deficit off by {gap} (tolerance {tol})")
+    return errs, worst
+
+
+def dwrr_checks(device="cuda"):
+    """The governor's DWRR tick with ``VectorizedScheduler`` on the card,
+    against the scalar governor on the same seeded inputs: the reference's
+    200-tenant smoke and the same at 1,024 tenants (a warm-up tick, then
+    DWRR_TICKS timed ticks: every tick within the contract, no new shape
+    key, rounds and host reads per tick), a DWRR_CAPPED_TICKS run with
+    random rate caps and budgets (every tick, and the persistent deficits,
+    within the contract), and a faulted tick (one tenant's weight doubled
+    in the kernel's copy only) that the contract must reject."""
+    rounds = []
+    step = sched_kernel.dwrr_step
+
+    def counted_step(*args, **kw):
+        out = step(*args, **kw)
+        rounds.append(out[3])
+        return out
+
+    sched_kernel.dwrr_step = counted_step
+    try:
+        return _dwrr_cases(device, rounds)
+    finally:
+        sched_kernel.dwrr_step = step
+
+
+def _dwrr_cases(device, rounds):
+    out = {}
+    for n in DWRR_TENANTS:
+        weights = {f"m{i:04d}": float(1 + i % 4) for i in range(n)}
+        scalar, kernel, sched = _dwrr_governors(weights, device)
+        rng = random.Random(0)
+        caps = {t: DWRR_CAP for t in weights}
+        times, scalar_times, worst = [], [], 0.0
+        for tick in range(1 + DWRR_TICKS):
+            q = {t: rng.uniform(0.0, 1e5) for t in weights}
+            t0 = time.perf_counter()
+            o_s, s_s = scalar.dwrr_schedule(dict(q), caps,
+                                            capacity_bytes=DWRR_BUDGET)
+            scalar_times.append(time.perf_counter() - t0)
+            if tick == 1:           # after the warm-up tick
+                sched_kernel.reset_trace_counts()
+                sched_kernel.reset_host_reads()
+                del rounds[:]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o_k, s_k = kernel.dwrr_schedule(dict(q), caps,
+                                            capacity_bytes=DWRR_BUDGET)
+            times.append(time.perf_counter() - t0)
+            errs = sched_kernel.contract_errors(o_s, s_s, o_k, s_k,
+                                                DWRR_BUDGET, weights,
+                                                check_order=(tick == 0))
+            if errs:
+                raise AssertionError(f"DWRR {n} tenants, tick {tick}: "
+                                     f"{errs[:3]}")
+            quantum = DWRR_BUDGET / (8.0 * sum(weights.values()))
+            worst = max(worst, max(abs(s_k[t] - s_s[t]) / (quantum * w)
+                                   for t, w in weights.items()))
+        keys = sched_kernel.trace_counts()
+        if keys:
+            raise AssertionError(f"DWRR {n} tenants: new shape keys after "
+                                 f"warm-up {keys}")
+        reads = sched_kernel.host_reads()
+        case = {"tenants": n, "rows": sched._padded, "ticks": DWRR_TICKS,
+                "ms_per_tick_median": statistics.median(times[1:]) * 1e3,
+                "warmup_ms": times[0] * 1e3,
+                "scalar_ms_per_tick_median":
+                    statistics.median(scalar_times[1:]) * 1e3,
+                "rounds": sorted(set(rounds)),
+                "host_reads_per_tick": sum(reads.values()) / DWRR_TICKS,
+                "host_reads": reads, "new_shape_keys_after_warmup": 0,
+                "max_served_gap_in_quanta": worst,
+                "within_contract": True}
+
+        # a capped run: random caps and budgets, deficits persisting
+        scalar, kernel, sched = _dwrr_governors(weights, device)
+        rng = random.Random(1)
+        worst_d = 0.0
+        for tick in range(DWRR_CAPPED_TICKS):
+            q = {t: rng.uniform(0.0, 1e5) for t in weights}
+            caps_t = {t: rng.uniform(1e4, 6e4) for t in weights}
+            budget = rng.uniform(0.5, 4.0) * DWRR_BUDGET * n / 200
+            o_s, s_s = scalar.dwrr_schedule(dict(q), caps_t,
+                                            capacity_bytes=budget)
+            o_k, s_k = kernel.dwrr_schedule(dict(q), caps_t,
+                                            capacity_bytes=budget)
+            errs = sched_kernel.contract_errors(
+                o_s, s_s, o_k, s_k, budget, weights, check_order=(tick == 0))
+            d_errs, gap = _deficit_gaps(scalar, sched, budget, weights, s_s)
+            if errs or d_errs:
+                raise AssertionError(f"DWRR capped {n} tenants, tick "
+                                     f"{tick}: {(errs + d_errs)[:3]}")
+            worst_d = max(worst_d, gap)
+        case["capped_ticks"] = DWRR_CAPPED_TICKS
+        case["capped_within_contract"] = True
+        case["capped_max_deficit_gap_in_quanta"] = worst_d
+        out[n] = case
+        print(f"DWRR tick on the card, {n} tenants ({sched._padded} rows): "
+              f"{case['ms_per_tick_median']:.3f} ms a tick (median of "
+              f"{DWRR_TICKS}; the scalar governor on the host "
+              f"{case['scalar_ms_per_tick_median']:.3f} ms), rounds "
+              f"{case['rounds']}, "
+              f"{case['host_reads_per_tick']:.2f} host reads a tick, no new "
+              f"shape key after warm-up; every tick within the contract "
+              f"(largest served gap {worst:.2e} quanta); {DWRR_CAPPED_TICKS} "
+              f"capped ticks within it, deficits within {worst_d:.2e} quanta")
+
+    # the faulted reading: one tenant's weight doubled in the kernel's copy
+    n = DWRR_TENANTS[0]
+    weights = {f"m{i:04d}": float(1 + i % 4) for i in range(n)}
+    scalar, _, sched = _dwrr_governors(weights, device)
+    rng = random.Random(0)
+    q = {t: rng.uniform(0.0, 1e5) for t in weights}
+    caps = {t: DWRR_CAP for t in weights}
+    o_s, s_s = scalar.dwrr_schedule(dict(q), caps, capacity_bytes=DWRR_BUDGET)
+    victim = max((t for t in weights if min(q[t], caps[t]) > 2 * s_s[t]),
+                 key=lambda t: (s_s[t], t))
+    bad = dict(weights, **{victim: 2 * weights[victim]})
+    o_f, s_f = sched.schedule(dict(q), caps, DWRR_BUDGET, weights=bad)
+    errs = sched_kernel.contract_errors(o_s, s_s, o_f, s_f, DWRR_BUDGET,
+                                        weights)
+    if not any(e.startswith(f"{victim}:") for e in errs):
+        raise AssertionError(f"a tick with {victim}'s weight doubled passed "
+                             f"the contract")
+    out["faulted"] = {"tenant": victim, "weight": weights[victim],
+                      "served_scalar": s_s[victim],
+                      "served_faulted": s_f[victim], "rejected": True}
+    print(f"DWRR faulted tick ({victim}'s weight {weights[victim]} doubled "
+          f"in the kernel's copy): served {s_f[victim]:.1f} against the "
+          f"scalar's {s_s[victim]:.1f}; rejected by the contract")
+    return out
 
 
 # -- LM serving ---------------------------------------------------------------
@@ -3347,7 +3801,8 @@ def main() -> int:
     # the control plane (CP2), on the first batch (seed 0) while it is on
     # the card
     t0 = time.perf_counter()
-    control = {"apps": profile_apps(batches[0])}
+    apps_report, profiles = profile_apps(batches[0])
+    control = {"apps": apps_report}
     control["cost_model"] = cost_model_checks(batches[0],
                                               control["apps"]["ISG"])
     control["sync"] = sync_checks(dp.to.flow_cache.capacity)
@@ -3356,6 +3811,19 @@ def main() -> int:
     for key, rep in control["apps"].items():
         for name, n in rep["launches"].items():
             by_name[name]["launches_by_path"][f"measure_app {key}"] = n
+
+    # the control plane (CP3): the controller and its governor, the
+    # deployments' data planes on the card while the traffic is there
+    t0 = time.perf_counter()
+    cp3, launches_cp3 = controller_checks(profiles, batches)
+    cp3["dwrr"] = dwrr_checks()
+    cp3["seconds"] = time.perf_counter() - t0
+    print("controller " + json.dumps(cp3))
+    for name in ("flow_lookup", "dfa_regex", "keyed_hash", "arx_cipher"):
+        if launches_cp3.get(name, 0) < 1:
+            raise AssertionError(f"the controller's planes never launched "
+                                 f"{name}")
+        by_name[name]["launches_by_path"]["controller"] = launches_cp3[name]
     del dp, batches
     torch.cuda.empty_cache()
 

@@ -1672,3 +1672,79 @@ def test_bounded_sync_deltas_on_card_equals_cpu(cuda, dtype):
             bound = P * 2.0 ** -24 * (v - s).abs().sum(0, keepdim=True)
             assert bool(((got.cpu() - want).abs() <= bound).all())
         v, s = want, want_snap
+
+
+# -- the control plane's third slice: the DWRR tick and a deployment's plane ----
+
+@pytest.mark.parametrize("n", [200, 1024])
+def test_vectorized_scheduler_on_card_within_contract(cuda, n):
+    """The governor's DWRR tick with ``VectorizedScheduler`` on the card
+    (its default device) against the port's scalar governor on the same
+    seeded inputs: every tick of a warm-up and 8 steady ticks within the
+    contract (``sched_kernel.contract_errors``, order from the fresh ring),
+    deficits on the card, no new shape key after the warm-up tick, and two
+    device-to-host reads a tick."""
+    import random
+    from repro_torch.core import sched_kernel as sk
+    from repro_torch.core.qos import ResourceGovernor, TenantQuota
+    weights = {f"m{i:04d}": float(1 + i % 4) for i in range(n)}
+    scalar, kernel = ResourceGovernor(), ResourceGovernor()
+    for t, w in weights.items():
+        scalar.register(t, TenantQuota(weight=w))
+        kernel.register(t, TenantQuota(weight=w))
+    sched = sk.VectorizedScheduler()
+    kernel.attach_kernel(sched)
+    rng = random.Random(0)
+    caps = {t: 5e4 for t in weights}
+    for tick in range(9):
+        if tick == 1:
+            sk.reset_trace_counts()
+            sk.reset_host_reads()
+        q = {t: rng.uniform(0.0, 1e5) for t in weights}
+        o_s, s_s = scalar.dwrr_schedule(dict(q), caps, capacity_bytes=2e6)
+        o_k, s_k = kernel.dwrr_schedule(dict(q), caps, capacity_bytes=2e6)
+        assert sk.contract_errors(o_s, s_s, o_k, s_k, 2e6, weights,
+                                  check_order=(tick == 0)) == []
+    assert sched._deficits.is_cuda
+    assert sk.trace_counts() == {}
+    assert sk.host_reads() == {"dwrr_step": 2 * 8}
+
+
+def test_plane_from_a_deployment_on_card_equals_cpu(cuda):
+    """FW and ISG placed by the controller over ``paper_cluster()``, each
+    deployment's data plane built as the service runtime builds it: the
+    card's outputs equal the same plane's on the CPU, and the card's plane
+    launches B1 and ISG's kernel stages once a batch."""
+    from repro_torch.core.controller import MeiliController
+    from repro_torch.core.pool import paper_cluster
+    from repro_torch.core.profiler import synthetic_profile
+    ctrl = MeiliController(paper_cluster())
+    lat = {"FW": {"rule_match": 200e-6, "conn_track": 150e-6},
+           "ISG": {"ddos_check": 400e-6, "url_check": 300e-6,
+                   "ipsec_encap": 150e-6, "sha": 250e-6, "aes": 350e-6}}
+    for key, target in (("FW", 20.0), ("ISG", 5.0)):
+        app = ALL_APPS()[key]
+        prof = synthetic_profile(app.stage_names(), lat[key],
+                                 1500 * 8 * 256.0)
+        dep = ctrl.submit(app, target, prof)
+        assert dep.allocation.satisfied()
+        cap = ctrl._pipeline_capacity(dep.profile, dep.num_pipelines)
+        planes = {d: ParallelDataPlane(dep.app,
+                                       num_pipelines=dep.num_pipelines,
+                                       capacity_per_pipeline=cap,
+                                       metrics=ctrl.obs.metrics,
+                                       trace=ctrl.obs.trace, device=d)
+                  for d in ("cpu", "cuda")}
+        kw = dict(batch=512, num_flows=64, pkt_bytes=256)
+        _build.reset_launch_counts()
+        for seed in range(3):
+            got = planes["cuda"].process(synth_packets(seed=seed, **kw))
+            want = planes["cpu"].process(synth_packets(seed=seed,
+                                                       device="cpu", **kw))
+            for x, y in zip(convert.leaves_to_numpy(got),
+                            convert.leaves_to_numpy(want)):
+                np.testing.assert_array_equal(x, y)
+        counts = _build.launch_counts()
+        assert counts["flow_lookup"] == 3
+        kernels = ("dfa_regex", "keyed_hash", "arx_cipher")
+        assert all(counts[k] == (3 if key == "ISG" else 0) for k in kernels)

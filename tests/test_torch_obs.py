@@ -28,9 +28,10 @@ one process, neither repeats it in another. The tests compare within one
 process, as the reference's own A/B comparisons do.
 
 The reference tests that need the controller (``test_obs.py``'s span
-story and trace round trip of a migration) wait for the controller's port;
-those of ``test_slo.py`` and ``test_obs_runtime.py`` that drive the
-service runtime wait for the runtime's.
+story and trace round trip of a migration) run on the port in
+``test_torch_controller.py``; those of ``test_slo.py`` and
+``test_obs_runtime.py`` that drive the service runtime wait for the
+runtime's.
 """
 import itertools
 import json
