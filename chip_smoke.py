@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Twelve paths, each driven with the launch counts set to 0 just before it
+Thirteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -116,6 +116,23 @@ and read just after:
    the contract (``sched_kernel.contract_errors``) and no new shape key
    after the warm-up, and a tick with one tenant's weight doubled that the
    contract must reject.
+13. The service runtime (CP4), after path 12: ``ServiceRuntime`` over
+   ``paper_cluster()`` drives every tenant's ``ParallelDataPlane`` on the
+   card each tick, with the DWRR tick on tensors on the card
+   (``vectorized_sched``). R1: the six-tenant mix (backup NICs) under the
+   chaos scenario for 40 ticks at 192 packets of 192 B a tick, a crash of
+   the busiest NIC, a gray BF-2 and a crash inside a migration, recovery
+   with parking and brownout, the SLO engine, burn-rate alerts and flight
+   recorder on; held to its replay on the CPU with ``==`` (tenant and
+   cluster ticks, fault records, alert transitions, dispatch attribution),
+   and a replay whose scheduler drops t-fw's served bytes at one tick must
+   fail that gate. R2: t-isg and t-fw under megaflow traffic (10^5
+   concurrent flows, 0.5% churn a tick) at 16,384 packets of 1,500 B a
+   tick for 12 ticks. In both, every plane output equals the plain
+   ``run_pipeline`` bit for bit, each dispatch launches B1 and each kernel
+   stage's kernel once, the DWRR tick reads the host at most twice and
+   adds no shape key after the warm-up (R2's planes none either), and the
+   ledger is clean at the end.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -132,6 +149,7 @@ coalesced read of their input timed the same way), and
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import random
@@ -159,9 +177,12 @@ from repro_torch.core import (profiler, replication,  # noqa: E402
                               sched_kernel, sim, state_engine)
 from repro_torch.core.allocation import commit, release  # noqa: E402
 from repro_torch.core.controller import MeiliController  # noqa: E402
-from repro_torch.core.executor import ParallelDataPlane, _bucket  # noqa: E402
-from repro_torch.core.graph import (bits, run_pipeline,  # noqa: E402
-                                    stage_runner, tree_leaves)
+from repro_torch.core.executor import (ParallelDataPlane,  # noqa: E402
+                                       _bucket, _sync)
+from repro_torch.core.faults import (ChaosEngine, FaultEvent,  # noqa: E402
+                                     FaultPlan, RecoveryConfig)
+from repro_torch.core.graph import (bits, compile_cache_stats,  # noqa: E402
+                                    run_pipeline, stage_runner, tree_leaves)
 from repro_torch.core.orchestrator import flow_ids  # noqa: E402
 from repro_torch.core.pool import CPU, paper_cluster, tpu_pod_pool  # noqa: E402
 from repro_torch.core.qos import ResourceGovernor, TenantQuota  # noqa: E402
@@ -175,11 +196,15 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import lm, moe, ssm  # noqa: E402
-from repro_torch.obs import Obs, load_trace  # noqa: E402
+from repro_torch.obs import FIRING, PAGE, WARN, Obs, load_trace  # noqa: E402
 from repro_torch.optim import make_schedule  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.serving.engine import PipelineInstance  # noqa: E402
 from repro_torch.serving.planner import plan_serving  # noqa: E402
+from repro_torch.service import (RuntimeConfig, ServiceRuntime,  # noqa: E402
+                                 TenantRegistry, default_tenant_mix)
+from repro_torch.service.tenants import contracts  # noqa: E402
+from repro_torch.service.workload import make_scenario  # noqa: E402
 
 BATCH = 16384
 FLOWS = 10_000
@@ -440,6 +465,19 @@ DWRR_BUDGET = 2e6               # bytes a tick (the reference's smoke)
 DWRR_CAP = 5e4
 DWRR_TICKS = 30
 DWRR_CAPPED_TICKS = 12
+SERVICE_TICKS = 40
+SERVICE_WARMUP = 2              # ticks before counts of keys and reads
+# R1's fault plan (tick, kind, NIC, fraction): the busiest NIC crashes, a
+# BF-2 turns gray at a quarter of its capacity, a crash lands inside a
+# make-before-break migration
+SERVICE_FAULTS = ((10, "crash", None, 1.0), (13, "gray", "bf2-2", 0.25),
+                  (21, "mid_migration", None, 1.0))
+SERVICE_DROP = ("t-fw", 12)     # the negative control: served bytes dropped
+SERVICE_MAX_READS = 2           # host reads a DWRR tick
+MEGAFLOW_TENANTS = ("t-isg", "t-fw")
+MEGAFLOW_TICKS = 12
+MEGAFLOW_PKTS = 16384
+MEGAFLOW_PKT_BYTES = 1500
 
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
@@ -1476,6 +1514,296 @@ def _dwrr_cases(device, rounds):
     print(f"DWRR faulted tick ({victim}'s weight {weights[victim]} doubled "
           f"in the kernel's copy): served {s_f[victim]:.1f} against the "
           f"scalar's {s_s[victim]:.1f}; rejected by the contract")
+    return out
+
+
+# -- the service runtime (CP4) -------------------------------------------------
+
+def _fixed_clock():
+    steps = itertools.count()
+    return lambda: 0.25 * next(steps)
+
+
+class _ServiceTap:
+    """Thin wrappers, for one run, around ``ParallelDataPlane.process``
+    (each batch, its output, the plane's flow-cache counters and the time
+    to completion) and ``VectorizedScheduler.schedule`` (its time and host
+    reads a tick). ``drop`` = (tenant, tick): the scheduler's served bytes
+    for that tenant at that tick are set to 0 (the negative control)."""
+
+    def __init__(self, keep=True, drop=None):
+        self.keep, self.drop = keep, drop
+        self.planes = []        # (tenant, batch, output)
+        self.plane_ms = {}      # tenant -> ms a batch, each call
+        self.fast = []          # (tenant, hit_pkts, miss_pkts, fallbacks)
+        self.dwrr_ms, self.dwrr_reads = [], []
+
+    def __enter__(self):
+        proc = self._proc = ParallelDataPlane.process
+        sched = self._sched = sched_kernel.VectorizedScheduler.schedule
+        tap = self
+
+        def process(dp, batch, tenant=None):
+            fs0 = dict(dp.to.fast_stats)
+            t0 = time.perf_counter()
+            out = proc(dp, batch, tenant=tenant)
+            _sync(dp.device)
+            tap.plane_ms.setdefault(tenant, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            fs = dp.to.fast_stats
+            tap.fast.append((tenant, fs["hit_pkts"] - fs0["hit_pkts"],
+                             fs["miss_pkts"] - fs0["miss_pkts"],
+                             fs["fallbacks"] - fs0["fallbacks"]))
+            if tap.keep:
+                tap.planes.append((tenant, batch, out))
+            return out
+
+        def schedule(s, *args, **kw):
+            r0 = sum(sched_kernel.host_reads().values())
+            t0 = time.perf_counter()
+            order, served = sched(s, *args, **kw)
+            tap.dwrr_ms.append((time.perf_counter() - t0) * 1e3)
+            tap.dwrr_reads.append(sum(sched_kernel.host_reads().values())
+                                  - r0)
+            if tap.drop is not None and len(tap.dwrr_ms) - 1 == tap.drop[1] \
+                    and tap.drop[0] in served:
+                served = dict(served, **{tap.drop[0]: 0.0})
+            return order, served
+
+        ParallelDataPlane.process = process
+        sched_kernel.VectorizedScheduler.schedule = schedule
+        return self
+
+    def __exit__(self, *exc):
+        ParallelDataPlane.process = self._proc
+        sched_kernel.VectorizedScheduler.schedule = self._sched
+
+
+def _service_runtime(device, scenario, tenants=None, chaos=True,
+                     flight_dir=None, **cfg):
+    """A runtime over ``paper_cluster()`` with every clock fixed, so that a
+    replay on another device compares with ``==``."""
+    o = Obs(clock=_fixed_clock())
+    ctrl = MeiliController(paper_cluster(), clock=_fixed_clock(), obs=o)
+    registry = TenantRegistry(ctrl)
+    mix = [s for s in default_tenant_mix()
+           if tenants is None or s.name in tenants]
+    for spec in mix:
+        registry.register(spec)
+    wl = make_scenario(scenario, contracts(mix), seed=0)
+    rcfg = RuntimeConfig(dataplane_every=1, vectorized_sched=True,
+                         flight_dir=flight_dir, **cfg)
+    rt = ServiceRuntime(ctrl, registry, wl, rcfg, device=device,
+                        recovery=RecoveryConfig(park=True, brownout=True)
+                        if chaos else None)
+    registry.admit_all()
+    engine = ChaosEngine(FaultPlan([
+        FaultEvent(tick=t, kind=k, nic=n, fraction=f)
+        for t, k, n, f in SERVICE_FAULTS])) if chaos else None
+    return rt, engine
+
+
+def _service_record(rt):
+    return {"tenant_ticks": [dataclasses.asdict(t)
+                             for t in rt.telemetry.tenant_ticks],
+            "cluster_ticks": [dataclasses.asdict(c)
+                              for c in rt.telemetry.cluster_ticks],
+            "faults": [dataclasses.asdict(f)
+                       for f in rt.telemetry.fault_events],
+            "alerts": [dataclasses.asdict(t)
+                       for t in rt.alerts.transitions],
+            "dataplane": rt.dataplane_stats()}
+
+
+def _replay_errors(got, want):
+    """Each record that differs: its field, its index and the first key."""
+    errs = []
+    for field in want:
+        a, b = got[field], want[field]
+        if a == b:
+            continue
+        if isinstance(a, list) and len(a) == len(b):
+            i = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            keys = [k for k in a[i] if a[i][k] != b[i][k]]
+            errs.append(f"{field}[{i}] {keys}: {a[i]} != {b[i]}")
+        else:
+            errs.append(f"{field}: {str(a)[:200]} != {str(b)[:200]}")
+    return errs
+
+
+def _service_run(rt, engine, ticks, tap):
+    """Run ``ticks`` one at a time; ms a tick, the launch counts (set to 0
+    just before, read just after) and the planes' new dispatch shape keys
+    after the warm-up ticks (DWRR shape keys and host reads are reset
+    there too)."""
+    times = []
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with tap:
+        for tick in range(ticks):
+            if tick == SERVICE_WARMUP:
+                sched_kernel.reset_trace_counts()
+                sched_kernel.reset_host_reads()
+                warm = compile_cache_stats()["dispatch"]["miss"]
+            t0 = time.perf_counter()
+            rt.run(1, chaos=engine)
+            times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    return times, launches, compile_cache_stats()["dispatch"]["miss"] - warm
+
+
+def _service_gates(name, rt, tap, launches, times):
+    """The planes' outputs against the plain ``run_pipeline`` bit for bit,
+    each dispatch's launches, the DWRR's host reads and shape keys, and the
+    ledger; returns the run's numbers."""
+    want = {k: 0 for k in launches}
+    plain = {}
+    for tenant, batch, out in tap.planes:
+        spec = rt.registry.specs[tenant]
+        key = tenant[len("t-"):].upper()
+        if key not in plain:
+            plain[key] = ALL_APPS(impl="torch")[key]
+        _assert_batches_equal(out, run_pipeline(plain[key], batch),
+                              f"service {name} {tenant}")
+        want["flow_lookup"] += 1
+        for stage in spec.app.stage_names():
+            if stage in KERNEL_OF_STAGE:
+                want[KERNEL_OF_STAGE[stage]] += 1
+    if launches != want:
+        raise AssertionError(f"service {name}: launches {launches}, not "
+                             f"{want} for {len(tap.planes)} dispatches")
+    steady_reads = tap.dwrr_reads[SERVICE_WARMUP:]
+    if max(steady_reads) > SERVICE_MAX_READS:
+        raise AssertionError(f"service {name}: {max(steady_reads)} host "
+                             f"reads in one DWRR tick")
+    keys = sched_kernel.trace_counts()
+    if keys:
+        raise AssertionError(f"service {name}: DWRR shape keys after the "
+                             f"warm-up {keys}")
+    problems = rt.ctrl.check_ledger(strict=True)
+    if problems:
+        raise AssertionError(f"service {name}: ledger {problems}")
+    steady = slice(SERVICE_WARMUP, None)
+    plane_ms = {t: statistics.median(v[SERVICE_WARMUP:] or v)
+                for t, v in sorted(tap.plane_ms.items())}
+    return {"ticks": len(times), "tenants": sorted(rt.registry.specs),
+            "runtime_ms_per_tick_median": statistics.median(times[steady]),
+            "runtime_ms_per_tick_warmup": times[:SERVICE_WARMUP],
+            "plane_ms_per_batch_median": plane_ms,
+            "dwrr_ms_per_tick_median": statistics.median(
+                tap.dwrr_ms[steady]),
+            "dwrr_host_reads_per_tick_max": max(steady_reads),
+            "dwrr_new_shape_keys_after_warmup": 0,
+            "dispatches": len(tap.planes), "launches": {
+                k: n for k, n in launches.items() if n},
+            "outputs_equal_to_plain_run_pipeline": True,
+            "ledger_clean": True}
+
+
+def service_checks():
+    """The service runtime on the card (CP4): R1, the six-tenant mix under
+    the chaos scenario and a crash, a gray NIC and a crash inside a
+    migration, every tenant's plane, the DWRR tick, the SLO engine, alerts
+    and flight recorder on the card path, held to its replay on the CPU;
+    a replay whose scheduler drops one tenant's served bytes for one tick
+    must fail that gate. R2, megaflow traffic at 16,384 x 1,500 B packets
+    a tick over 10^5 flows through t-isg and t-fw."""
+    import tempfile
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        rt, engine = _service_runtime(
+            "cuda", "chaos", slo_enabled=True, gray_detect=True,
+            flight_dir=str(Path(tmp) / "cuda"))
+        tap = _ServiceTap()
+        times, launches, new_keys = _service_run(rt, engine, SERVICE_TICKS,
+                                                 tap)
+        r1 = _service_gates("R1", rt, tap, launches, times)
+        r1["faults_fired"] = [ev.kind for ev in engine.fired]
+        r1["sentinel_checks"] = len(engine.fired)
+        r1["dispatch_shape_keys_after_warmup"] = new_keys
+        r1["fault_records"] = {}
+        for f in rt.telemetry.fault_events:
+            r1["fault_records"][f.kind] = r1["fault_records"].get(
+                f.kind, 0) + 1
+        tr = rt.alerts.transitions
+        r1["pages"] = sum(t.severity == PAGE and t.state == FIRING
+                          for t in tr)
+        r1["warnings"] = sum(t.severity == WARN and t.state == FIRING
+                             for t in tr)
+        r1["flight_bundles"] = len(rt.flight.dumps)
+        r1["events"] = {}
+        for e in rt.ctrl.events:
+            r1["events"][e["event"]] = r1["events"].get(e["event"], 0) + 1
+        got = _service_record(rt)
+        del tap
+
+        # the replay on the CPU, then the negative control
+        t0 = time.perf_counter()
+        replays = {}
+        for label, drop in (("replay", None), ("faulted", SERVICE_DROP)):
+            rp, ep = _service_runtime(
+                "cpu", "chaos", slo_enabled=True, gray_detect=True,
+                flight_dir=str(Path(tmp) / label))
+            with _ServiceTap(keep=False, drop=drop):
+                rp.run(SERVICE_TICKS, chaos=ep)
+            replays[label] = _replay_errors(got, _service_record(rp))
+        if replays["replay"]:
+            raise AssertionError(f"service R1 differs from its CPU replay: "
+                                 f"{replays['replay'][:3]}")
+        if not replays["faulted"]:
+            raise AssertionError(f"a replay with {SERVICE_DROP[0]}'s served "
+                                 f"bytes dropped at tick {SERVICE_DROP[1]} "
+                                 f"passed the replay gate")
+        r1["replay_equal"] = True
+        r1["replay_seconds"] = time.perf_counter() - t0
+        r1["faulted_replay_rejected"] = {
+            "tenant": SERVICE_DROP[0], "tick": SERVICE_DROP[1],
+            "first_difference": replays["faulted"][0][:300]}
+        out["R1"] = r1
+        print(f"service R1 (chaos, {SERVICE_TICKS} ticks, 6 tenants, "
+              f"{r1['dispatches']} plane dispatches): "
+              f"{r1['runtime_ms_per_tick_median']:.3f} ms a tick, DWRR "
+              f"{r1['dwrr_ms_per_tick_median']:.3f} ms a tick (at most "
+              f"{r1['dwrr_host_reads_per_tick_max']} host reads), plane ms "
+              f"a batch {json.dumps(r1['plane_ms_per_batch_median'])}; "
+              f"faults {json.dumps(r1['fault_records'])}, pages "
+              f"{r1['pages']}, warnings {r1['warnings']}, flight bundles "
+              f"{r1['flight_bundles']}; equal to its CPU replay, the "
+              f"faulted replay rejected")
+
+    # R2: megaflow at the main path's size
+    rt, _ = _service_runtime("cuda", "megaflow", tenants=MEGAFLOW_TENANTS,
+                             chaos=False, max_pkts_per_tick=MEGAFLOW_PKTS,
+                             pkt_bytes=MEGAFLOW_PKT_BYTES)
+    tap = _ServiceTap()
+    times, launches, new_keys = _service_run(rt, None, MEGAFLOW_TICKS, tap)
+    r2 = _service_gates("R2", rt, tap, launches, times)
+    if new_keys:
+        raise AssertionError(f"service R2: {new_keys} new dispatch shape "
+                             f"keys after the warm-up")
+    r2["dispatch_shape_keys_after_warmup"] = 0
+    steady = tap.fast[SERVICE_WARMUP * len(MEGAFLOW_TENANTS):]
+    hits = sum(h for _, h, _, _ in steady)
+    misses = sum(m for _, _, m, _ in steady)
+    r2["flow_cache_hit_rate_pkts"] = hits / max(1, hits + misses)
+    r2["flow_cache_hit_rate_pkts_all_ticks"] = (
+        sum(h for _, h, _, _ in tap.fast)
+        / max(1, sum(h + m for _, h, m, _ in tap.fast)))
+    r2["fallbacks"] = sum(f for *_, f in tap.fast)
+    r2["packets_per_tick"] = MEGAFLOW_PKTS
+    r2["events"] = [e["event"] for e in rt.ctrl.events]
+    out["R2"] = r2
+    print(f"service R2 (megaflow, {MEGAFLOW_TICKS} ticks, "
+          f"{len(MEGAFLOW_TENANTS)} tenants x {MEGAFLOW_PKTS} x "
+          f"{MEGAFLOW_PKT_BYTES} B packets): "
+          f"{r2['runtime_ms_per_tick_median']:.3f} ms a tick, DWRR "
+          f"{r2['dwrr_ms_per_tick_median']:.3f} ms a tick, plane ms a batch "
+          f"{json.dumps(r2['plane_ms_per_batch_median'])}; flow-cache hit "
+          f"rate {r2['flow_cache_hit_rate_pkts']:.4f} of packets after the "
+          f"warm-up ({r2['fallbacks']} fallbacks)")
+    del tap
     return out
 
 
@@ -3825,6 +4153,21 @@ def main() -> int:
                                  f"{name}")
         by_name[name]["launches_by_path"]["controller"] = launches_cp3[name]
     del dp, batches
+    torch.cuda.empty_cache()
+
+    # the service runtime (CP4): R1 under chaos against its CPU replay, R2
+    # at megaflow traffic; every tenant's plane and the DWRR tick on the card
+    t0 = time.perf_counter()
+    cp4 = service_checks()
+    cp4["seconds"] = time.perf_counter() - t0
+    print("service " + json.dumps(cp4))
+    for run in ("R1", "R2"):
+        for name, n in cp4[run]["launches"].items():
+            by_name[name]["launches_by_path"][f"service {run}"] = n
+    for name in ("flow_lookup", "dfa_regex", "keyed_hash", "arx_cipher"):
+        if cp4["R1"]["launches"].get(name, 0) < 1:
+            raise AssertionError(f"the service's planes never launched "
+                                 f"{name}")
     torch.cuda.empty_cache()
 
     # LM serving: gemma3-1b at full width, f32 parameters

@@ -7,7 +7,8 @@ JAX package's ``repro.core.controller``.
   workflow and ``test_obs.py``'s controller cases (the span story of a
   mid-migration crash, the trace's JSONL round trip) run on the port with
   their own asserts. ``test_ledger_roundtrip.py``'s two chaos cases drive
-  ``core.faults`` and ``service.runtime``, which are not ported yet.
+  ``core.faults`` and ``service.runtime``: they run in
+  ``test_torch_faults.py``.
 * A seeded lifecycle script (24 seeds, over ``paper_cluster()`` and a
   4-NIC one) runs submit (some tenants under quotas, some with a backup
   NIC), adaptive scale up and down, migrate, defragment, a migration with a

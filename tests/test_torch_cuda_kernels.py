@@ -1748,3 +1748,70 @@ def test_plane_from_a_deployment_on_card_equals_cpu(cuda):
         assert counts["flow_lookup"] == 3
         kernels = ("dfa_regex", "keyed_hash", "arx_cipher")
         assert all(counts[k] == (3 if key == "ISG" else 0) for k in kernels)
+
+
+def test_service_runtime_on_card_equals_cpu(cuda, monkeypatch):
+    """Four ticks of the service runtime over the six-tenant mix, every
+    tenant's plane on every tick and the DWRR tick on tensors
+    (``vectorized_sched``), on the card and on the CPU with fixed clocks:
+    every tenant and cluster tick, the dispatch attribution and every plane
+    output are equal, and the card's planes launch B1 once a dispatch and
+    each kernel stage's kernel (B2 for t-id and t-isg, B3 and B4 for t-isg)
+    once a dispatch of its tenant."""
+    import dataclasses
+    import itertools
+
+    from repro_torch.core.controller import MeiliController
+    from repro_torch.core.pool import paper_cluster
+    from repro_torch.obs import Obs
+    from repro_torch.service import (RuntimeConfig, ServiceRuntime,
+                                     TenantRegistry, default_tenant_mix)
+    from repro_torch.service.tenants import contracts
+    from repro_torch.service.workload import make_scenario
+
+    outs = []
+    proc = ParallelDataPlane.process
+
+    def process(dp, batch, tenant=None):
+        out = proc(dp, batch, tenant=tenant)
+        outs[-1].append((tenant, convert.leaves_to_numpy(out)))
+        return out
+
+    monkeypatch.setattr(ParallelDataPlane, "process", process)
+
+    def clock():
+        steps = itertools.count()
+        return lambda: 0.25 * next(steps)
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        outs.append([])
+        ctrl = MeiliController(paper_cluster(), clock=clock(),
+                               obs=Obs(clock=clock()))
+        registry = TenantRegistry(ctrl)
+        mix = default_tenant_mix()
+        for spec in mix:
+            registry.register(spec)
+        wl = make_scenario("bursty", contracts(mix), seed=0)
+        rt = ServiceRuntime(ctrl, registry, wl, RuntimeConfig(
+            dataplane_every=1, vectorized_sched=True), device=dev)
+        registry.admit_all()
+        _build.reset_launch_counts()
+        rt.run(4)
+        runs[dev] = (rt, _build.launch_counts())
+    (card, counts), (cpu, _) = runs["cuda"], runs["cpu"]
+    for a, b in ((card.telemetry.tenant_ticks, cpu.telemetry.tenant_ticks),
+                 (card.telemetry.cluster_ticks, cpu.telemetry.cluster_ticks)):
+        assert [dataclasses.asdict(x) for x in a] == [
+            dataclasses.asdict(x) for x in b]
+    assert card.dataplane_stats() == cpu.dataplane_stats()
+    assert len(outs[0]) == len(outs[1]) == 4 * 6
+    for (t1, xs), (t2, ys) in zip(*outs):
+        assert t1 == t2
+        for x, y in zip(xs, ys):
+            np.testing.assert_array_equal(x, y)
+    calls = {t: v["calls"] for t, v in card.dataplane_stats().items()}
+    assert counts["flow_lookup"] == sum(calls.values()) == 24
+    assert counts["dfa_regex"] == calls["t-id"] + calls["t-isg"]
+    assert counts["keyed_hash"] == counts["arx_cipher"] == calls["t-isg"]
+    assert card.ctrl.governor._kernel.device.type == "cuda"

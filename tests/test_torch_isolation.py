@@ -72,6 +72,11 @@ def test_entry_points_default_to_cuda():
     from repro_torch.models import Model, build
     from repro_torch.models.lm import init_lm
     from repro_torch.serving import ServingEngine
+    from repro_torch.core.controller import MeiliController
+    from repro_torch.core.pool import paper_cluster
+    from repro_torch.service import (ServiceRuntime, TenantRegistry,
+                                     run_comparison)
+    from repro_torch.service.workload import make_scenario
 
     cfg = get_arch("gemma3-1b").reduced()
     ssm_cfg = get_arch("mamba2-370m").reduced()
@@ -87,7 +92,12 @@ def test_entry_points_default_to_cuda():
              lambda: build(ssm_cfg),
              lambda: init_lm(ssm_cfg),
              lambda: ServingEngine(Model(cfg, torch.device("cuda")), None,
-                                   num_pipelines=1)]
+                                   num_pipelines=1),
+             lambda: make_scenario("steady", {"t": 1.0}).batch_for("t", 0),
+             lambda: ServiceRuntime(ctrl, TenantRegistry(ctrl),
+                                    make_scenario("steady", {})),
+             lambda: run_comparison(ticks=1, scenarios=("steady",))]
+    ctrl = MeiliController(paper_cluster())
     if torch.cuda.is_available():
         assert synth_packets(batch=4, num_flows=2, pkt_bytes=64).payload.is_cuda
         assert FlowCache().device.type == "cuda"
