@@ -133,6 +133,21 @@ and read just after:
    stage's kernel once, the DWRR tick reads the host at most twice and
    adds no shape key after the warm-up (R2's planes none either), and the
    ledger is clean at the end.
+14. The dry run (A22, ``launch.dryrun``), after every timed path: one
+   (arch x shape) cell per family and kind (18 cells) on the one-card
+   mesh, traced on the meta device in child processes on the host's CPU
+   (the whole table, 33 cells and 7 skips, is the CPU test's and the
+   CLI's). Held to the card: the FLOPs outside the kernels of one olmo-1b
+   training step (an extra kernel step of path 5) and of gemma3-1b's
+   warm-up prefill (path 2) equal ``FlopCounterMode``'s count on the card
+   with ``==``, the kernels' FLOPs equal their launches times their
+   formulas on the card's arguments; for the olmo-1b, mamba2-370m and
+   moonshot training steps the predicted rise of a step over its
+   arguments within 1% of each kernel step's own rise, and the predicted
+   peak within 10% of the largest peak a kernel step reached; at most
+   LEFTOVER_MAX allocated before the olmo-1b and mamba2-370m steps beyond
+   their arguments; and an ``mfu`` line for every timed prefill, decode
+   and training step.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -150,8 +165,10 @@ coalesced read of their input timed the same way), and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
+import os
 import random
 import re
 import statistics
@@ -192,6 +209,9 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flow_lookup as fl  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+from repro_torch.launch import dryrun as dry  # noqa: E402
+from repro_torch.launch import report as dry_report  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
@@ -205,6 +225,7 @@ from repro_torch.service import (RuntimeConfig, ServiceRuntime,  # noqa: E402
                                  TenantRegistry, default_tenant_mix)
 from repro_torch.service.tenants import contracts  # noqa: E402
 from repro_torch.service.workload import make_scenario  # noqa: E402
+from torch.utils.flop_counter import FlopCounterMode  # noqa: E402
 
 BATCH = 16384
 FLOWS = 10_000
@@ -478,6 +499,28 @@ MEGAFLOW_TENANTS = ("t-isg", "t-fw")
 MEGAFLOW_TICKS = 12
 MEGAFLOW_PKTS = 16384
 MEGAFLOW_PKT_BYTES = 1500
+
+# the dry run (A22): one cell per family and kind in child processes on the
+# host's CPU after the timed paths; predicted peaks held to measured
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+DRYRUN_FAMILIES = {"dense": "olmo-1b", "moe": "phi3.5-moe-42b-a6.6b",
+                   "ssm": "mamba2-370m", "vlm": "llava-next-34b",
+                   "hybrid": "jamba-1.5-large-398b",
+                   "encdec": "seamless-m4t-medium"}
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_WORKERS = 7              # the host's 8 cores less this process's
+DRYRUN_SKIPS = 7
+PEAK_MEM_TOL = 0.10             # the step's peak against the card's
+# a step's rise over its arguments against the card's (H100 80GB HBM3,
+# 700 W: olmo +0.15% at step 1, a cuBLAS workspace; mamba +0.008%;
+# moonshot +0.62%, the routes the route gate keeps on the card)
+PEAK_RISE_TOL = 0.01
+# what a training run without MoE routes finds allocated before a step
+# beyond its arguments: a cuBLAS workspace (32 MiB) per thread that ran a
+# product (the host thread's and autograd's), nothing of earlier paths
+LEFTOVER_MAX = 128 * 2**20
+MOE_FULL_DEPTH = 48             # moonshot's depth, for the dry run's peak
+_TIMED = []                     # every timed step, for its achieved shares
 
 REPLACES = {
     "flow_lookup": "src/repro/kernels/flow_lookup.py:142",
@@ -1878,7 +1921,8 @@ def _check_states(name, got, want, tol):
 
 
 def prefill_decode(model, params, prompts, cache_len, expect, prefill_tol,
-                   decode_tol, state_tol=None, frames=None):
+                   decode_tol, state_tol=None, frames=None,
+                   count_flops=False):
     """The serving path: prefill + DECODE_STEPS greedy decode steps with the
     kernels (counts reset just before, read just after), then the same
     prefill and the same decode inputs with the plain versions. ``expect``
@@ -1886,7 +1930,8 @@ def prefill_decode(model, params, prompts, cache_len, expect, prefill_tol,
     states, where the model has them, are held to ``state_tol``. An
     encoder-decoder takes ``frames`` beside the prompts; its prefill
     returns no cache (as the reference's), so decode starts from
-    ``init_cache(batch, cache_len)``."""
+    ``init_cache(batch, cache_len)``. With ``count_flops`` the warm-up
+    prefill runs under ``FlopCounterMode`` (``_flop_counted``)."""
     dev = prompts.device
     batch, prompt_len = prompts.shape
     inputs = {"tokens": prompts}
@@ -1898,7 +1943,8 @@ def prefill_decode(model, params, prompts, cache_len, expect, prefill_tol,
     # warm-up at the timed shape: the first call of a shape pays one-time
     # costs (the B5 key-split plan, scratch first taken from the driver,
     # library heuristics) that the timed prefill should not
-    model.prefill(params, inputs, max_len=cache_len)
+    warm = lambda: model.prefill(params, inputs, max_len=cache_len)
+    flop_count = _flop_counted(warm) if count_flops else warm()
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1976,7 +2022,32 @@ def prefill_decode(model, params, prompts, cache_len, expect, prefill_tol,
         "greedy_tokens_total": batch * (DECODE_STEPS + 1),
         "profiles": profiles,
     }
+    if count_flops:
+        report["flop_count"] = flop_count
+    _note_serving(model, params, batch, prompt_len, cache_len, report,
+                  frames)
     return report, cache
+
+
+def _note_serving(model, params, batch, prompt_len, cache_len, report,
+                  frames=None):
+    """Record a serving path's timed prefill and decode step in
+    ``_TIMED``, with the shapes the dry run traces them at (an
+    encoder-decoder's prefill takes as many frames as tokens)."""
+    dtype = next(params.parameters()).dtype
+    seq = prompt_len
+    if frames is not None:
+        if frames.shape[1] != prompt_len:
+            raise AssertionError("frames and tokens must split seq_len")
+        seq = 2 * prompt_len
+    base = {"cfg": model.cfg, "batch": batch, "dtype": dtype,
+            "cache_len": cache_len}
+    _TIMED.append({**base, "label": f"{model.cfg.name} prefill",
+                   "kind": "prefill", "seq": seq,
+                   "ms": report["prefill_ms"]})
+    _TIMED.append({**base, "label": f"{model.cfg.name} decode",
+                   "kind": "decode", "seq": cache_len,
+                   "ms": report["decode_ms_per_step"]})
 
 
 def every_position(model, params, prompts, tol):
@@ -2463,15 +2534,34 @@ def _train_setup(model, impls):
     return params, steps, opt_init(params)
 
 
+_PEAK = {"seen": 0}
+
+
+def _reset_peak():
+    """Reset the allocator's peak, keeping the largest seen since the
+    phase began in ``_PEAK`` (``_max_peak``)."""
+    _PEAK["seen"] = max(_PEAK["seen"], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _max_peak():
+    return max(_PEAK["seen"], torch.cuda.max_memory_allocated())
+
+
 def _timed_step(step_fn, params, opt, toks, s, out):
     """Step ``s`` (counts reset before it, read after), recorded in ``out``;
-    after step 1 a host copy of the parameters."""
+    after step 1 a host copy of the parameters. The allocator's peak is
+    reset before the step: the bytes allocated then and the step's peak
+    go into ``base_bytes`` and ``step_peak_bytes``."""
     torch.cuda.synchronize()
+    _reset_peak()
+    out["base_bytes"].append(torch.cuda.memory_allocated())
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     params, opt, loss, gn = step_fn(params, opt, {"tokens": toks}, s)
     torch.cuda.synchronize()
     out["ms"].append((time.perf_counter() - t0) * 1e3)
+    out["step_peak_bytes"].append(torch.cuda.max_memory_allocated())
     out["launches"].append(_build.launch_counts())
     out["loss"].append(float(loss))
     out["grad_norm"].append(float(gn))
@@ -2482,25 +2572,30 @@ def _timed_step(step_fn, params, opt, toks, s, out):
 
 
 def _new_run():
-    return {"loss": [], "grad_norm": [], "ms": [], "launches": []}
+    return {"loss": [], "grad_norm": [], "ms": [], "launches": [],
+            "base_bytes": [], "step_peak_bytes": []}
 
 
-def _train_run(model, batches, impl, profile_last=False):
+def _train_run(model, batches, impl, profile_last=False, count_flops=False):
     """``make_train_step`` over ``batches`` (steps numbered 1, 2, ...) from
     the seeded parameters: per-step loss, grad norm, ms and launches, and a
     host copy of the parameters after step 1. With ``profile_last`` the last
     batch is one more step under ``torch.profiler`` (not timed, not
-    compared), for the device's busy share."""
+    compared), for the device's busy share; with ``count_flops`` it is one
+    more step before that under ``FlopCounterMode`` (``_flop_counted``)."""
     params, (step_fn,), opt = _train_setup(model, (impl,))
     out = _new_run()
     timed = batches[:-1] if profile_last else batches
     for s, toks in enumerate(timed, 1):
         params, opt = _timed_step(step_fn, params, opt, toks, s, out)
+    if count_flops:
+        out["flop_count"] = _flop_counted(lambda: step_fn(
+            params, opt, {"tokens": batches[-1]}, len(batches)))
     if profile_last:
         n = len(batches)
         out["profile"] = _profile(lambda: step_fn(
             params, opt, {"tokens": batches[-1]}, n))
-    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_mem_bytes"] = _max_peak()
     del params, opt
     return out
 
@@ -2526,7 +2621,7 @@ def _train_lockstep(model, batches, rk, rp):
     n = len(batches)
     k["profile"] = _profile(lambda: kernel_fn(params, opt,
                                               {"tokens": batches[-1]}, n))
-    k["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    k["peak_mem_bytes"] = _max_peak()
     del params, opt
     return k, p
 
@@ -2629,7 +2724,7 @@ def _train_route_gate(rk, rp, cfg, n_moe):
 
 
 def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
-                   fault=False):
+                   fault=False, count_flops=False):
     """``arch`` at full width: ``TRAIN_STEPS`` steps with the kernels (the
     main path: counts reset before each step, read after), then the same
     steps with the plain versions from the same parameters and data. The
@@ -2659,7 +2754,10 @@ def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
     plain run that routes freely is reported beside it). With ``fault``
     the kernel run's step 1 runs again with its routes and one expert's
     gradient dropped (``_drop_expert_grad``), and the phase fails unless
-    the parameter gate rejects it."""
+    the parameter gate rejects it. With ``count_flops`` (no ``resync``)
+    one more kernel step runs under ``FlopCounterMode`` for the dry run's
+    gate. Each kernel step's peak memory (the allocator's peak reset
+    before it) is reported for the dry run's prediction."""
     cfg = get_arch(arch)
     cfg = cfg.replace(microbatch=min(cfg.microbatch, 2))
     if layers:
@@ -2673,12 +2771,14 @@ def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
     n_moe = sum(seg.count for seg in lm.build_schedule(cfg)
                 for spec in seg.body if spec.ffn == "moe")
     torch.cuda.reset_peak_memory_stats()
+    _PEAK["seen"] = 0
     rk, rp = _Routes(keep_inputs=True), _Routes(keep_inputs=True)
     if resync:
         k, p = _train_lockstep(model, batches, rk, rp)
     else:
         with rk:
-            k = _train_run(model, batches, None, profile_last=True)
+            k = _train_run(model, batches, None, profile_last=True,
+                           count_flops=count_flops)
         torch.cuda.empty_cache()
         with rp:
             p = _train_run(model, batches[:TRAIN_STEPS], "torch")
@@ -2785,8 +2885,14 @@ def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
         "profiled_step": prof,
         "device_busy_share": prof["device_ms"] / prof["wall_ms_profiled"],
         "peak_mem_bytes": k["peak_mem_bytes"],
+        "step_peak_bytes": k["step_peak_bytes"],
+        "step_base_bytes": k["base_bytes"],
+        "flop_count": k.get("flop_count"),
         "plain_steps_from_kernel_state": resync,
     }
+    _TIMED.append({"label": f"{arch} train", "cfg": cfg, "kind": "train",
+                   "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                   "dtype": torch.float32, "ms": step_ms})
     if free is not None:
         report["free_plain_loss"] = free["loss"]
         report["free_plain_grad_norm"] = free["grad_norm"]
@@ -2971,11 +3077,9 @@ def train_attention_rows(launches_train):
     B, S, H, D = TRAIN_BATCH // 2, TRAIN_SEQ, cfg.n_heads, cfg.head_dim
     q, k, v, do = (torch.randn((B, S, H, D), generator=g, device=dev)
                    for _ in range(4))
-    el = lambda t: t.numel() * t.element_size()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt, dot_ = (x.transpose(1, 2) for x in (q, k, v, do))
     peak = hw.peak_flops(q.dtype)
-    pairs = fa.work(q.shape, k.shape, True, None)
 
     # forward with lse
     run_f = lambda: fa.flash_attention_cuda(q, k, v, return_lse=True)
@@ -2989,8 +3093,8 @@ def train_attention_rows(launches_train):
         raise AssertionError(f"flash_attention (train): kernel differs from "
                              f"its plain version by {err_f}")
     lib_f = lambda: sdpa(qt, kt, vt, is_causal=True)
-    nbytes_f = el(q) * 2 + el(k) + el(v) + el(lse)
-    bound_s, bound_by = hw.bound_seconds(nbytes_f, pairs * 4 * D, peak)
+    ops_f, nbytes_f = fa.cost(q, k, v, True, None, return_lse=True)
+    bound_s, bound_by = hw.bound_seconds(nbytes_f, ops_f, peak)
     fwd = {
         "name": "flash_attention", "variant": "train",
         "launches": launches_train["flash_attention"],
@@ -3000,7 +3104,7 @@ def train_attention_rows(launches_train):
         "ms_l2_warm": _time_ms(run_f, KERNEL_REPS, _NoFlush()),
         "plain_ms": _time_ms(plain_f, PLAIN_REPS, flush),
         "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-        "bytes": int(nbytes_f), "ops": int(pairs * 4 * D),
+        "bytes": int(nbytes_f), "ops": int(ops_f),
         "peak_flops": peak,
         "library_ms": _time_ms(lib_f, KERNEL_REPS, flush),
         "library_call": "torch.nn.functional.scaled_dot_product_attention",
@@ -3025,8 +3129,7 @@ def train_attention_rows(launches_train):
     lib_err = max(float((a.transpose(1, 2) - b).abs().max())
                   for a, b in zip(lib_b(), want))
     f64 = _bwd_f64_errors(dev, g, D)
-    nbytes_b = 4 * el(q) + 4 * el(k) + el(lse)
-    ops_b = pairs * 5 * 2 * D
+    ops_b, nbytes_b = fa.cost_bwd(q, k, lse, True, None)
     bound_s, bound_by = hw.bound_seconds(nbytes_b, ops_b, peak)
     bwd = {
         "name": "flash_attention_bwd", "route": "cuda",
@@ -3441,6 +3544,7 @@ def bf16_prefill_decode(model, params, prompts, cache_len):
         "greedy_tokens_total": B * (DECODE_STEPS + 1),
         "profiles": profiles,
     }
+    _note_serving(model, params, B, S, cache_len, report)
     if n_moe:
         report.update({
             "prefill_tokens_with_changed_experts": flipped_prefill,
@@ -4077,6 +4181,324 @@ def dense_bf16_phase():
     return rows, pd["launches"], eng["launches"]
 
 
+# ---------------------------------------------------------------------------
+# the dry run (A22): counts of the meta trace held to the card
+# ---------------------------------------------------------------------------
+
+class _KernelTap:
+    """While active, each kernel wrapper's call adds its formula's FLOPs
+    (``fa.cost``/``cost_bwd``, ``da.cost`` over its ``kv_len``,
+    ``ss.work``/``work_bwd``) computed from the call's own arguments to
+    ``flops[name]``; the wrappers are replaced on their modules, where
+    ``ops`` looks them up."""
+
+    def __init__(self):
+        self.flops = {}
+
+    def _wrap(self, mod, attr, name, formula):
+        real = getattr(mod, attr)
+
+        def tapped(*args, **kw):
+            self.flops[name] = self.flops.get(name, 0) + formula(*args, **kw)
+            return real(*args, **kw)
+        setattr(mod, attr, tapped)
+        self._undo.append((mod, attr, real))
+
+    def __enter__(self):
+        self._undo = []
+        self._wrap(fa, "flash_attention_cuda", "flash_attention",
+                   lambda q, k, v, causal=True, window=None, scale=None,
+                   return_lse=False: fa.cost(q, k, v, causal, window,
+                                             return_lse)[0])
+        self._wrap(fa, "flash_attention_bwd_cuda", "flash_attention_bwd",
+                   lambda q, k, v, out, lse, dout, causal=True, window=None,
+                   scale=None: fa.cost_bwd(q, k, lse, causal, window)[0])
+        self._wrap(da, "decode_attention_cuda", "decode_attention",
+                   lambda q, k, v, kv_len, scale=None: da.cost(
+                       q, k, int(kv_len.clamp(0, k.shape[1]).sum()))[0])
+        self._wrap(ss, "ssd_scan_cuda", "ssd_scan",
+                   lambda x, a, b, c, chunk=128, return_scratch=False:
+                   ss.work(x, b, c)[0])
+        self._wrap(ss, "ssd_scan_bwd_cuda", "ssd_scan_bwd",
+                   lambda x, a, b, c, dy, dh, st, cl, chunk=128:
+                   ss.work_bwd(x, b, c, dh is not None)[0])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in reversed(self._undo):
+            setattr(mod, attr, real)
+
+
+def _flop_counted(fn):
+    """``fn()`` on the card under ``FlopCounterMode``, launch counts reset
+    before and read after, the kernels tapped (``_KernelTap``). The
+    kernels launch through ctypes, which no dispatch mode sees, so the
+    mode counts exactly the FLOPs outside them. Returns the counts."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with _KernelTap() as tap, FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    return {"aten_flops": int(fc.get_total_flops()),
+            "launches": {k: n for k, n in _build.launch_counts().items()
+                         if n},
+            "kernel_flops": tap.flops}
+
+
+class _DryrunSample:
+    """One dry-run cell per family and kind (``DRYRUN_FAMILIES`` x
+    ``DRYRUN_SHAPES``), each ``launch.dryrun`` on one cell in a child
+    process on the host's CPU with no card visible to it (the data
+    sheet's H100), at most ``DRYRUN_WORKERS`` at once, training cells
+    first. Started after the last timed path, so nothing timed runs
+    beside it; ``wait`` returns the records; ``close`` kills what still
+    runs."""
+
+    def __init__(self):
+        self.out = DRYRUN_DIR / "records"
+        self.out.mkdir(parents=True, exist_ok=True)
+        for f in self.out.glob("*.json"):
+            f.unlink()
+        self.todo = [(a, sh) for sh in DRYRUN_SHAPES
+                     for a in DRYRUN_FAMILIES.values()]
+        self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                        CUDA_VISIBLE_DEVICES="")
+        self.running = []
+        self.t0 = time.perf_counter()
+        self._fill()
+
+    def _fill(self):
+        while self.todo and len(self.running) < DRYRUN_WORKERS:
+            arch, shape = self.todo.pop(0)
+            log = open(DRYRUN_DIR / f"{arch}__{shape}.log", "w")
+            self.running.append((arch, shape, log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--device", "cpu",
+                 "--out", str(self.out)],
+                stdout=log, stderr=subprocess.STDOUT, env=self.env,
+                cwd=ROOT)))
+
+    def wait(self, timeout=600):
+        try:
+            while self.running:
+                if time.perf_counter() - self.t0 > timeout:
+                    raise AssertionError(f"dry run: cells still running "
+                                         f"after {timeout} s")
+                for job in list(self.running):
+                    arch, shape, log, proc = job
+                    rc = proc.poll()
+                    if rc is None:
+                        continue
+                    self.running.remove(job)
+                    log.close()
+                    if rc != 0:
+                        raise AssertionError(f"dry run {arch} x {shape}: "
+                                             f"exit {rc}; see {log.name}")
+                self._fill()
+                time.sleep(0.1)
+        finally:
+            self.close()
+        return dry_report.load(str(self.out)), time.perf_counter() - self.t0
+
+    def close(self):
+        self.todo = []
+        for *_, log, proc in self.running:
+            proc.kill()
+            proc.wait()
+            log.close()
+        self.running = []
+
+
+def _meta_model(cfg):
+    return build(cfg, "meta")
+
+
+def _train_cfg(arch, layers=None):
+    """``training_phase``'s config: microbatch capped at 2, depth cut."""
+    cfg = get_arch(arch)
+    cfg = cfg.replace(microbatch=min(cfg.microbatch, 2))
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+@functools.lru_cache(maxsize=None)
+def _train_trace(cfg):
+    """The meta trace of ``training_phase``'s kernel step (f32 parameters
+    and AdamW state, int64 tokens TRAIN_BATCH x TRAIN_SEQ), with its
+    predicted peak."""
+    fn, hold, _ = dry.step_call(
+        _meta_model(cfg), ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                      "train"), torch.float32,
+        tokens_dtype=torch.int64, base_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+        total_steps=TRAIN_STEPS)
+    return rl.trace(fn, hold=hold, memory=True)
+
+
+def _flop_gate(label, trace, card):
+    """The meta trace's FLOPs outside the kernels equal the card's
+    ``FlopCounterMode`` count; its kernel launches equal the card's, and
+    its kernel FLOPs each launch's formula on the card's arguments."""
+    want_l = {k: v["launches"] for k, v in trace["kernels"].items()}
+    want_f = {k: v["flops"] for k, v in trace["kernels"].items()}
+    if trace["aten_flops"] != card["aten_flops"]:
+        raise AssertionError(f"dry run {label}: {trace['aten_flops']} FLOPs "
+                             f"outside the kernels, the card counted "
+                             f"{card['aten_flops']}")
+    if want_l != card["launches"] or want_f != card["kernel_flops"]:
+        raise AssertionError(f"dry run {label}: kernels {want_l} / {want_f}, "
+                             f"the card launched {card['launches']} / "
+                             f"{card['kernel_flops']}")
+    return {"aten_flops": trace["aten_flops"], "launches": want_l,
+            "kernel_flops": want_f}
+
+
+def _achieved(t, smi):
+    """The dry run of a timed step at its shapes, and its shares of the
+    card's peak: ``mfu`` = model FLOPs / (peak x measured time), the
+    counted FLOPs' share likewise, and the roofline's dominant term."""
+    cfg = t["cfg"]
+    model = _meta_model(cfg)
+    shape = ShapeConfig(t["kind"], t["seq"], t["batch"], t["kind"])
+    if t["kind"] == "train":
+        rec = _train_trace(cfg)
+    else:
+        fn, hold, _ = dry.step_call(model, shape, t["dtype"],
+                                    tokens_dtype=torch.int64,
+                                    max_len=t.get("cache_len"))
+        rec = rl.trace(fn, hold=hold)
+    total, active = model.param_counts()
+    tokens = t["batch"] * (t["seq"] if t["kind"] != "decode" else 1)
+    mflops = rl.model_flops(total, active, t["kind"], tokens)
+    roof = rl.build(rec["flops"], rec["bytes"], mflops, t["dtype"])
+    sec = t["ms"] / 1e3
+    out = {"label": t["label"], "ms": t["ms"], "model_flops": mflops,
+           "counted_flops": rec["flops"], "counted_bytes": rec["bytes"],
+           "peak_flops": roof.peak_flops, "mfu": roof.mfu(sec),
+           "counted_share": rec["flops"] / (roof.peak_flops * sec),
+           "dominant": roof.dominant, "t_bound_ms": roof.t_bound * 1e3}
+    print(f"mfu {t['label']}: {out['mfu']:.4f} (model FLOPs "
+          f"{mflops:.6g} in {t['ms']:.3f} ms at "
+          f"{roof.peak_flops / 1e12:.0f} TFLOP/s); counted FLOPs "
+          f"{rec['flops']} share {out['counted_share']:.4f}; dominant "
+          f"{roof.dominant} (bound {out['t_bound_ms']:.3f} ms) [{smi}]")
+    return out
+
+
+def dryrun_checks(sample, gemma_pd, olmo_tr, peak_runs, smi):
+    """The dry run (A22) held to the card. FLOPs outside the kernels equal
+    ``FlopCounterMode`` on the card with ``==`` for one olmo-1b training
+    step and one gemma3-1b prefill, and the kernel FLOPs equal the
+    launches times their formulas (``_flop_gate``); for the olmo-1b,
+    mamba2-370m and moonshot training steps the predicted rise of the
+    step over its arguments lies within PEAK_RISE_TOL of each kernel
+    step's own rise over the bytes allocated before it, and the predicted
+    peak within PEAK_MEM_TOL of the largest peak a kernel step reached;
+    before the steps of a run without MoE routes (which the route gate
+    keeps on the card) at most LEFTOVER_MAX beyond their arguments is
+    allocated; an ``mfu`` line for every timed step (``_achieved``);
+    then the cells of ``sample`` (``_DryrunSample``): each ok, its peak
+    at least its
+    arguments, ``fits`` as the card's memory says, the attention and SSD
+    kernels traced through their kernel-shaped branches (a mamba layer
+    decodes by its recurrence), one line a cell, and one a skip."""
+    t0 = time.perf_counter()
+    out = {"flop_gates": {}, "peak_memory": {}, "achieved": []}
+    gcfg = get_arch(ARCH)
+    fn, hold, _ = dry.step_call(
+        _meta_model(gcfg), ShapeConfig("prefill", PROMPT_LEN, SERVE_BATCH,
+                                       "prefill"), torch.float32,
+        tokens_dtype=torch.int64, max_len=CACHE_LEN)
+    out["flop_gates"]["gemma3-1b prefill"] = _flop_gate(
+        "gemma3-1b prefill", rl.trace(fn, hold=hold), gemma_pd["flop_count"])
+    traces = {}
+    for arch, layers, tr in peak_runs:
+        traces[arch] = _train_trace(_train_cfg(arch, layers))
+    out["flop_gates"]["olmo-1b train"] = _flop_gate(
+        "olmo-1b train", traces[TRAIN_ARCH], olmo_tr["flop_count"])
+    for name, g in out["flop_gates"].items():
+        print(f"dry run FLOPs, {name}: {g['aten_flops']} outside the kernels "
+              f"== FlopCounterMode on the card; kernels "
+              f"{json.dumps(g['kernel_flops'])} == launches "
+              f"{json.dumps(g['launches'])} x formula [{smi}]")
+    for arch, layers, tr in peak_runs:
+        pred, held = traces[arch]["peak_bytes"], traces[arch]["held_bytes"]
+        meas = max(tr["step_peak_bytes"])
+        err = (pred - meas) / meas
+        rises = [p - b for p, b in zip(tr["step_peak_bytes"],
+                                       tr["step_base_bytes"])]
+        rise_err = [(pred - held - r) / r for r in rises]
+        row = {"predicted_bytes": pred, "measured_bytes": meas,
+               "rel_err": err, "predicted_held_bytes": held,
+               "measured_base_bytes": tr["step_base_bytes"],
+               "predicted_rise_bytes": pred - held,
+               "measured_rise_bytes": rises, "rise_rel_err": rise_err,
+               "base_over_held_bytes": min(tr["step_base_bytes"]) - held}
+        out["peak_memory"][arch] = row
+        print(f"dry run peak memory, {arch} train ({layers or 'all'} "
+              f"layers): the step's rise over its arguments predicted "
+              f"{pred - held} B, measured {rises} B (each kernel step), "
+              f"{max(rise_err, key=abs):+.5f} at worst; peak predicted "
+              f"{pred} B, measured {meas} B (max over the kernel steps), "
+              f"{err:+.4f}; arguments predicted {held} B, allocated before "
+              f"the steps {min(tr['step_base_bytes'])}-"
+              f"{max(tr['step_base_bytes'])} B [{smi}]")
+        if max(abs(e) for e in rise_err) > PEAK_RISE_TOL:
+            raise AssertionError(f"dry run {arch}: predicted rise "
+                                 f"{pred - held} B is off the measured "
+                                 f"{rises} B by more than {PEAK_RISE_TOL}")
+        if abs(err) > PEAK_MEM_TOL:
+            raise AssertionError(f"dry run {arch}: predicted peak {pred} B "
+                                 f"is {err:+.4f} off the measured {meas} B")
+        if arch != MOE_ARCH and row["base_over_held_bytes"] > LEFTOVER_MAX:
+            raise AssertionError(f"{arch} train: {row['base_over_held_bytes']}"
+                                 f" B allocated before the steps beyond their "
+                                 f"arguments, left by earlier paths")
+    for t in _TIMED:
+        out["achieved"].append(_achieved(t, smi))
+    full = _train_trace(_train_cfg(MOE_ARCH, MOE_FULL_DEPTH))
+    out["moonshot_full_depth_train_peak_bytes"] = full["peak_bytes"]
+    print(f"dry run: moonshot train at all {MOE_FULL_DEPTH} layers (f32, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ} in 2 microbatches) would peak "
+          f"at {full['peak_bytes']} B [{smi}]")
+    out["checks_s"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    recs, out["sample_s"] = sample.wait()
+    out["sample_wait_s"] = time.perf_counter() - t1
+    want = {(a, sh, "card") for a in DRYRUN_FAMILIES.values()
+            for sh in DRYRUN_SHAPES}
+    if set(recs) != want:
+        raise AssertionError(f"dry run cells: {sorted(recs)}, want "
+                             f"{sorted(want)}")
+    for (a, sh, _), r in sorted(recs.items()):
+        mem, roof = r["memory"], r["roofline"]
+        launches = {k: v["launches"] for k, v in r["step"]["kernels"].items()}
+        if (r["status"] != "ok"
+                or mem["peak_bytes"] < mem["argument_size_bytes"]
+                or mem["fits"] != (mem["peak_bytes"]
+                                   <= r["device"]["mem_bytes"])
+                or bool(launches) == (
+                    a == DRYRUN_FAMILIES["ssm"] and sh == "decode_32k")):
+            raise AssertionError(f"dry run {a} x {sh}: {json.dumps(r)}")
+        print(f"dryrun {a} x {sh}: {r['step']['flops']} FLOPs, "
+              f"{r['step']['bytes']} B, kernels {json.dumps(launches)}, "
+              f"peak {mem['peak_bytes']} B (fits {mem['fits']}), accum "
+              f"{r.get('accum', '-')}, {roof['dominant']}, t_bound "
+              f"{max(roof['t_compute'], roof['t_memory']):.6f} s, roofline "
+              f"{roof['roofline_fraction']:.4f}, trace {r['compile_s']:.2f} "
+              f"s")
+    _, skips = dry.all_cells()
+    if len(skips) != DRYRUN_SKIPS:
+        raise AssertionError(f"dry run: {len(skips)} skips")
+    for a, sh, why in skips:
+        print(f"dryrun {a} x {sh}: skipped ({why})")
+    out["cells_ok"], out["skips"] = len(recs), len(skips)
+    print(f"dry run phase: {out['checks_s']:.2f} s of checks; {len(recs)} "
+          f"cells (one per family and kind) in {out['sample_s']:.2f} s in "
+          f"{DRYRUN_WORKERS} child processes, {out['sample_wait_s']:.2f} s "
+          f"of it waited for here [{smi}]")
+    return out
+
+
 def main() -> int:
 
     if not torch.cuda.is_available():
@@ -4116,7 +4538,7 @@ def main() -> int:
     for k in ("flow_lookup", "dfa_regex", "keyed_hash", "arx_cipher"):
         if isg["launches"][k] < 1:
             raise AssertionError(f"ISG main path never launched {k}")
-    ids, _ = drive("ID", intrusion_detection, batches)
+    ids = drive("ID", intrusion_detection, batches)[0]
     print_obs(ids)
     print("main path " + json.dumps(ids))
     for k in ("flow_lookup", "dfa_regex"):
@@ -4189,7 +4611,8 @@ def main() -> int:
         model, params, prompts, CACHE_LEN,
         {"flash_attention": (model.cfg.n_layers, 0),
          "decode_attention": (0, n_global), "ssd_scan": (0, 0)},
-        PREFILL_TOL, DECODE_TOL)
+        PREFILL_TOL, DECODE_TOL, count_flops=True)
+    gemma_pd = pd
     print_serving("", pd)
     engine, eng = engine_run(ARCH, PREFILL_TOL, ("decode_attention",),
                              ("flash_attention", "ssd_scan"))
@@ -4233,19 +4656,20 @@ def main() -> int:
     n_params = sum(p.numel() for p in params.parameters())
     print(f"serving: {MAMBA_ARCH} at full width, {n_params} parameters (f32) "
           f"made on the card in {time.perf_counter() - t0:.2f} s")
-    mpd, _ = prefill_decode(
+    mpd = prefill_decode(
         model, params, prompts, MAMBA_PROMPT_LEN + DECODE_STEPS,
         {"ssd_scan": (model.cfg.n_layers, 0), "flash_attention": (0, 0),
          "decode_attention": (0, 0)},
-        MAMBA_LOGIT_TOL, MAMBA_LOGIT_TOL, MAMBA_STATE_TOL)
+        MAMBA_LOGIT_TOL, MAMBA_LOGIT_TOL, MAMBA_STATE_TOL)[0]
     mpd["forward_logit_max_abs_err"] = every_position(model, params, prompts,
                                                       MAMBA_LOGIT_TOL)
     print_serving("mamba ", mpd)
     print(f"mamba forward logits at every position: max abs err "
           f"{mpd['forward_logit_max_abs_err']} from the plain run "
           f"(tolerance {MAMBA_LOGIT_TOL})")
-    _, meng = engine_run(MAMBA_ARCH, MAMBA_LOGIT_TOL, (),
-                         ("ssd_scan", "flash_attention", "decode_attention"))
+    mengine, meng = engine_run(MAMBA_ARCH, MAMBA_LOGIT_TOL, (),
+                               ("ssd_scan", "flash_attention",
+                                "decode_attention"))
     print(f"mamba engine tokens/s: {meng['tokens_per_s']:.1f} "
           f"({meng['tokens']} tokens, {meng['requests']} requests over "
           f"{meng['pipelines']} pipelines; plain versions "
@@ -4254,13 +4678,14 @@ def main() -> int:
     print("mamba engine " + json.dumps(meng))
     kernels += ssd_checks(model, params, prompts, mpd["launches"],
                           meng["launches"])
-    del model, params, prompts
+    del model, params, prompts, mengine
     torch.cuda.empty_cache()
 
     # training: olmo-1b at full width, kernels against plain
     t0 = time.perf_counter()
     tr, launches_train = training_phase(
-        TRAIN_ARCH, ("flash_attention", "flash_attention_bwd"))
+        TRAIN_ARCH, ("flash_attention", "flash_attention_bwd"),
+        count_flops=True)
     torch.cuda.empty_cache()
     print_training("", tr, time.perf_counter() - t0)
     res = crash_resume()
@@ -4404,6 +4829,24 @@ def main() -> int:
     by_name["decode_attention"]["launches_by_path"]["qwen_engine"] = (
         q_eng["decode_attention"])
 
+    # the least time any launch takes, timed as the kernels are
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    floor_ms = _time_ms(lambda: _build.launch_floor(torch.device("cuda")),
+                        KERNEL_REPS, flush)
+    del flush
+
+    # the dry run (A22), nothing timed from here on: its counts and
+    # predicted peaks against the card's, achieved shares of every timed
+    # step, one cell per family and kind
+    sample = _DryrunSample()
+    try:
+        dr = dryrun_checks(sample, gemma_pd, tr,
+                           [(TRAIN_ARCH, None, tr), (MAMBA_ARCH, None, mtr),
+                            (MOE_ARCH, MOE_TRAIN_LAYERS, otr)], smi)
+    finally:
+        sample.close()
+    print("dryrun " + json.dumps(dr))
+
     for row in kernels:
         row["ptxas"] = _ptxas_of(ptxas, row["name"])
         _with_bound_share(row)
@@ -4419,10 +4862,6 @@ def main() -> int:
                   if v.get("spill_stores") or v.get("spill_loads")}
         if spills:
             raise AssertionError(f"{name} spills registers: {spills}")
-    # the least time any launch takes, timed as the kernels are
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    floor_ms = _time_ms(lambda: _build.launch_floor(torch.device("cuda")),
-                        KERNEL_REPS, flush)
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,13 +16,14 @@ Two profiling backends:
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
+import weakref
 from typing import Callable, Dict, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch import hw
@@ -89,45 +90,207 @@ def measure_app(app: MeiliApp, batch: PacketBatch, iters: int = 5) -> AppProfile
 
 
 def _tensor_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[0]
-               if isinstance(t, torch.Tensor))
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    """Identity of ``t``'s storage. Not its data pointer: every storage on
+    the meta device starts at 0."""
+    return t.untyped_storage()._cdata
+
+
+# Ops that only allocate: no byte moves (their outputs' storages are new).
+_ALLOCATIONS = {torch.ops.aten.empty, torch.ops.aten.empty_like,
+                torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
+                torch.ops.aten.new_empty_strided}
 
 
 def _moves_no_data(func, args, out) -> bool:
-    """A view (the schema marks the output as an alias of an input) or an
-    op whose every output shares an input's storage without writing it
-    (``_unsafe_view``, ``alias``): no byte moves."""
-    if func.is_view:
+    """A view (the schema marks the output as an alias of an input), an
+    allocation (``_ALLOCATIONS``), or an op whose every output shares an
+    input's storage without writing it (``_unsafe_view``, ``alias``): no
+    byte moves."""
+    if func.is_view or func.overloadpacket in _ALLOCATIONS:
         return True
     if any(r.alias_info is not None and r.alias_info.is_write
            for r in func._schema.arguments):
         return False
-    outs = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+    outs = list(_tensors(out))
     if not outs:
         return False
-    ins = {t.untyped_storage().data_ptr() for t in tree_flatten(args)[0]
-           if isinstance(t, torch.Tensor)}
-    return all(t.untyped_storage().data_ptr() in ins for t in outs)
+    ins = {_storage_key(t) for t in _tensors(args)}
+    return all(_storage_key(t) in ins for t in outs)
+
+
+_MISS = object()
+
+
+def _tensors(tree):
+    """The tensors of an op's (possibly nested) list, tuple or dict
+    arguments."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for e in tree:
+            yield from _tensors(e)
+    elif isinstance(tree, dict):
+        for e in tree.values():
+            yield from _tensors(e)
+
+
+def _key_of(x):
+    if isinstance(x, torch.Tensor):
+        if not x.is_meta or type(x) is not torch.Tensor:
+            raise TypeError
+        return (tuple(x.shape), x.stride(), x.dtype, x.storage_offset())
+    if isinstance(x, (list, tuple)):
+        return (type(x),) + tuple(_key_of(e) for e in x)
+    if isinstance(x, dict):
+        return tuple((k, _key_of(v)) for k, v in x.items())
+    hash(x)
+    return (type(x), x)
+
+
+def _meta_key(func, args, kwargs):
+    """A memo key of an op on plain meta tensors (their shapes, strides,
+    dtypes and offsets, and the other arguments), or None when an
+    argument is not such a tensor or not hashable."""
+    try:
+        return (func, _key_of(args), _key_of(kwargs))
+    except TypeError:
+        return None
+
+
+def _memo_entry(out, args, flops: int, nbytes: int):
+    """What a memoized meta op replays (whether it returned a tuple, each
+    output's shape, stride and dtype, its FLOPs and bytes), or None when
+    an output is not a plain meta tensor (a factory op on another
+    device: its arguments hold no tensor) or shares an input's storage
+    (``_unsafe_view``): such an op is run every time."""
+    outs = out if isinstance(out, tuple) else (out,)
+    ins = {_storage_key(t) for t in _tensors(args)}
+    if not all(type(o) is torch.Tensor and o.is_meta
+               and _storage_key(o) not in ins for o in outs):
+        return None
+    return (isinstance(out, tuple),
+            tuple((o.shape, o.stride(), o.dtype) for o in outs), flops,
+            nbytes)
+
+
+def _allocated(nbytes: int) -> int:
+    """Bytes the CUDA caching allocator books for a request: 512-byte
+    units, none for an empty tensor."""
+    return -(-nbytes // 512) * 512
 
 
 class _CostMode(TorchDispatchMode):
     """Counts FLOPs through ``torch.utils.flop_counter``'s registered
-    formulas and bytes as each aten op's tensor inputs and outputs."""
+    formulas and bytes as each aten op's tensor inputs and outputs
+    (``bytes_by_op`` per op). A hand-written kernel's launch on traced
+    tensors (``_build.trace_launch``) adds its work to ``kernels``
+    (name -> [launches, flops, bytes]), not to ``flops`` and ``nbytes``.
 
-    def __init__(self):
+    With ``memory`` it also follows the storages alive: each op output's
+    new storage is booked at its allocated size (``_allocated``) until the
+    storage dies, and ``peak_bytes`` is the most booked at once. ``hold``
+    books storages made before the mode was entered (parameters,
+    optimizer state, the batch)."""
+
+    def __init__(self, memory: bool = False):
         super().__init__()
         self.flops = 0
         self.nbytes = 0
+        self.bytes_by_op: Dict[str, int] = collections.Counter()
+        self.kernels: Dict[str, list] = {}
+        self._memory = memory
+        self._live: Dict[int, int] = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._memo: Dict = {}
+        self._memo_funcs: Dict = {}
+
+    def __enter__(self):
+        _build._SINKS.append(self)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _build._SINKS.remove(self)
+        return super().__exit__(*exc)
+
+    def kernel(self, name: str, flops: int, nbytes: int) -> None:
+        k = self.kernels.setdefault(name, [0, 0, 0])
+        k[0] += 1
+        k[1] += flops
+        k[2] += nbytes
+
+    def hold(self, tensors) -> None:
+        for t in _tensors(tensors):
+            self._book(t)
+
+    def _book(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._live:
+            return
+        n = _allocated(st.nbytes())
+        self._live[key] = n
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live_bytes -= self._live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        formula = flop_registry.get(func.overloadpacket)
-        if formula is not None:
-            self.flops += formula(*args, **kwargs, out_val=out)
-        if not _moves_no_data(func, (args, kwargs), out):
-            self.nbytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+        key = _meta_key(func, args, kwargs) if self._memo_ok(func) else None
+        got = self._memo.get(key, _MISS) if key is not None else _MISS
+        if got is not _MISS and got is not None:
+            many, metas, flops, n = got
+            outs = tuple(torch.empty_strided(sh, st, dtype=dt, device="meta")
+                         for sh, st, dt in metas)
+            out = outs if many else outs[0]
+        else:
+            out = func(*args, **kwargs)
+            formula = flop_registry.get(func.overloadpacket)
+            flops = 0 if formula is None else \
+                formula(*args, **kwargs, out_val=out)
+            n = 0 if _moves_no_data(func, (args, kwargs), out) else \
+                _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+            if got is _MISS and key is not None:
+                self._memo[key] = _memo_entry(out, args, flops, n)
+        self.flops += flops
+        if n:
+            self.nbytes += n
+            self.bytes_by_op[str(func.overloadpacket)] += n
+        if self._memory:
+            for t in _tensors(out):
+                self._book(t)
         return out
+
+    def _memo_ok(self, func) -> bool:
+        """``func`` is functional: no view, no aliased argument or result,
+        and it returns tensors only. A meta kernel computes only its
+        outputs' shapes, strides and dtypes, at up to ~0.2 ms an op, and a
+        dry run repeats each layer's ops thousands of times: on plain meta
+        tensors such an op is memoized by its inputs' metadata."""
+        ok = self._memo_funcs.get(func)
+        if ok is None:
+            sch = func._schema
+            ok = (not func.is_view and len(sch.returns) > 0
+                  and all(a.alias_info is None
+                          for a in (*sch.arguments, *sch.returns))
+                  and all(str(r.type) == "Tensor" for r in sch.returns))
+            self._memo_funcs[func] = ok
+        return ok
+
+    @property
+    def kernel_flops(self) -> int:
+        return sum(k[1] for k in self.kernels.values())
+
+    @property
+    def kernel_bytes(self) -> int:
+        return sum(k[2] for k in self.kernels.values())
 
 
 def op_cost(fn: Callable, *args) -> Tuple[int, int]:
@@ -142,7 +305,9 @@ def op_cost(fn: Callable, *args) -> Tuple[int, int]:
 
     A hand-written kernel launches through ctypes (``_build.launch``),
     which no dispatch mode sees, so its work would be left out: if any
-    kernel launched during the call, this raises and names it.
+    kernel launched during the call, this raises and names it. On traced
+    tensors (meta or fake) the kernels' wrappers report their work
+    instead of launching, and it is counted in.
     """
     before = _build.launch_counts()
     with _CostMode() as mode:
@@ -153,7 +318,7 @@ def op_cost(fn: Callable, *args) -> Tuple[int, int]:
         raise RuntimeError(
             f"op_cost: the call launched hand-written kernels {moved}, "
             f"whose work no aten op counts; time them instead")
-    return mode.flops, mode.nbytes
+    return mode.flops + mode.kernel_flops, mode.nbytes + mode.kernel_bytes
 
 
 def cost_model_latency(fn: Callable, *args,

@@ -12,6 +12,13 @@ Each kernel wrapper calls ``launch(name, ...)``, which counts one launch of
 ``name``, runs the C launcher on the current stream and raises when the
 launcher reports a CUDA error (a refused launch never runs, and a later
 synchronize would not report it).
+
+A tensor without data (on the meta device, or a ``FakeTensor``) never
+reaches ``launch``: the kernel-shaped branches of the attention and SSD
+wrappers allocate what their kernel's call allocates and report the
+kernel's operations and bytes through ``trace_launch`` to the counters
+that listen (``core/profiler.py``'s ``_CostMode``), so a dry run counts a
+kernel as the card runs it.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -229,11 +237,33 @@ def reset_launch_counts() -> None:
         _launches[name] = 0
 
 
+def traced(t: torch.Tensor) -> bool:
+    """True for a tensor that holds no data: on the meta device, or a
+    ``FakeTensor`` (whatever device it stands for)."""
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+_SINKS: List = []      # counters of traced launches (``_CostMode``)
+
+
+def trace_launch(name: str, flops: int, nbytes: int) -> None:
+    """Report one launch of kernel ``name`` on traced tensors, with the
+    operations and bytes its work needs, to every listening counter; no
+    kernel runs and ``launch_counts`` does not move."""
+    if name not in _launches:
+        raise KeyError(f"no kernel {name!r}")
+    for sink in _SINKS:
+        sink.kernel(name, flops, nbytes)
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
-    """Every tensor on one CUDA device and contiguous; returns the device."""
+    """Every tensor on one CUDA device (or every one traced, ``traced``)
+    and contiguous; returns the device."""
     dev = tensors[0].device
+    fake = traced(tensors[0])
     for t in tensors:
-        if t.device != dev or dev.type != "cuda":
+        if (t.device != dev or traced(t) != fake
+                or (dev.type != "cuda" and not fake)):
             raise ValueError(f"{name}: every tensor must be on one CUDA "
                              f"device, got {t.device} and {dev}")
         if not t.is_contiguous():

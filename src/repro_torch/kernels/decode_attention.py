@@ -236,6 +236,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            device=dev)
     part_ml = torch.empty((B * Hkv * ncl * CLUSTER * G * 2,),
                           dtype=torch.float32, device=dev)
+    if _build.traced(q):
+        # kv_len's values are unknown here: every row counts its whole
+        # cache, as a decode step at the cache's last position does (the
+        # dry run decodes at pos = S - 1); the arrival counters are
+        # allocated once per stream and kept, outside any step
+        _build.trace_launch(name, *cost(q, k, B * S))
+        return out
     counters = _arrival_counters(dev, B * Hkv * CLUSTER)
     _build.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   kv_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
@@ -251,3 +258,14 @@ def work(kv_len: torch.Tensor, S: int, Hq: int) -> int:
     batch: each costs 4·D flops (q·k and p·v)."""
     return int(kv_len.clamp(0, S).sum()) * Hq
 
+
+def cost(q: torch.Tensor, k: torch.Tensor, keys: int) -> Tuple[int, int]:
+    """(flops, bytes) of one call over ``keys`` valid cache rows in all
+    (``kv_len`` summed over the batch): 4·D flops per query head and key
+    (``work``); q read and out written at q's item size, kv_len (B,)
+    int32, and each valid row's k and v once at the cache's item size."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[2]
+    nbytes = (2 * q.numel() * q.element_size() + 4 * B
+              + keys * Hkv * D * 2 * k.element_size())
+    return keys * Hq * 4 * D, nbytes

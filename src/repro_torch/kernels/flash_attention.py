@@ -258,11 +258,12 @@ def split_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> None:
     """Raise on any input the attention kernels do not take."""
+    real = not _build.traced(q)
     for what, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES:
             raise TypeError(f"{name}: {what} must be float32 or bfloat16, "
                             f"got {t.dtype}")
-        if t.data_ptr() % 16:
+        if real and t.data_ptr() % 16:
             raise ValueError(f"{name}: {what} must start 16-byte aligned")
     D = q.shape[-1]
     if D not in HEAD_DIMS:
@@ -318,6 +319,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # widened here (exactly) and read as f32; the bf16 instance reads them
     # as they are
     kk, vv = (k, v) if bf16 else (k.float(), v.float())
+    if _build.traced(q):
+        _build.trace_launch(name, *cost(q, k, v, causal, window,
+                                        return_lse))
+        return (out, lse) if return_lse else out
     _build.launch(name, dev, q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
                   out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, int(causal),
                   0 if window is None else int(window), scale,
@@ -373,6 +378,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if B * Sq == 0:
         return dq.to(q.dtype), dk.zero_().to(k.dtype), dv.zero_().to(v.dtype)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    if _build.traced(q):
+        _build.trace_launch(name, *cost_bwd(q, k, lse, causal, window))
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
     _build.launch(name, dev, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(),
                   of.data_ptr(), dof.data_ptr(), lse.data_ptr(),
                   delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -387,9 +395,40 @@ def work(q_shape, k_shape, causal: bool, window: Optional[int]) -> int:
     forward must do, and whose five (QKᵀ, dO Vᵀ, dV, dK, dQ) a backward
     must do."""
     B, Sq, Hq, _ = q_shape
-    Sk = k_shape[1]
+    return B * Hq * _row_pairs(Sq, k_shape[1], causal, window)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_pairs(Sq: int, Sk: int, causal: bool, window: Optional[int]) -> int:
     pairs = 0
     for i in range(Sq):
         lo, hi = key_range(i, i + 1, Sq, Sk, causal, window)
         pairs += max(0, hi - lo)
-    return B * Hq * pairs
+    return pairs
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         window: Optional[int], return_lse: bool = False) -> Tuple[int, int]:
+    """(flops, bytes) that a forward needs: 4·D flops a pair (``work``);
+    q and v read and out written once at their item sizes (out is shaped
+    and typed as q), k once, and lse (B, Hq, Sq) f32 when returned."""
+    B, Sq, Hq, D = q.shape
+    nbytes = 2 * _nbytes(q) + _nbytes(k) + _nbytes(v)
+    if return_lse:
+        nbytes += B * Hq * Sq * 4
+    return work(q.shape, k.shape, causal, window) * 4 * D, nbytes
+
+
+def cost_bwd(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor,
+             causal: bool, window: Optional[int]) -> Tuple[int, int]:
+    """(flops, bytes) that the backward needs: 10·D flops a pair (its five
+    products, ``work``); q, out and dout read and dq written (four q-sized
+    tensors), k and v read and dk and dv written (four k-sized), lse
+    read."""
+    D = q.shape[-1]
+    nbytes = 4 * _nbytes(q) + 4 * _nbytes(k) + _nbytes(lse)
+    return work(q.shape, k.shape, causal, window) * 5 * 2 * D, nbytes

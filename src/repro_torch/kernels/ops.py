@@ -5,7 +5,12 @@ Two implementations per op:
   * the hand-written CUDA kernel — taken for tensors on a CUDA device;
   * the plain PyTorch version   — taken for tensors on the CPU.
 
-``impl=None`` dispatches by the tensors' device. ``impl="torch"`` forces the
+``impl=None`` dispatches by the tensors' device. The attention and SSD ops
+have a third branch, taken before the device is looked at, for tensors
+that hold no data (on the meta device, or fake: ``_build.traced``): their
+kernel wrapper allocates what the kernel's call allocates (outputs,
+scratch, the tensors saved for backward) and reports the kernel's work
+instead of launching it, so a dry run traces the card's path. ``impl="torch"`` forces the
 plain version on any device: only the tests and ``chip_smoke.py`` use it, to
 hold a kernel against its plain version on the card.
 """
@@ -15,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import crypto as _crypto
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import dfa_regex as _dfa
@@ -30,6 +36,17 @@ IMPLS = (None, "torch")
 def _check_impl(impl: Optional[str]) -> None:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+
+
+def _plain(impl: Optional[str], t: torch.Tensor) -> bool:
+    """Whether the plain version runs: with ``impl="torch"``, or for data
+    on the CPU. A traced tensor takes the kernel's wrapper (its
+    kernel-shaped branch), as a CUDA tensor does."""
+    if impl == "torch":
+        return True
+    if _build.traced(t):
+        return False
+    return not t.is_cuda
 
 
 def regex_scan(payload, length, table, out_count, *, packed=None,
@@ -109,7 +126,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``impl="torch"``."""
     _check_impl(impl)
     scale_v = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    plain = impl == "torch" or not q.is_cuda
+    plain = _plain(impl, q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _Attention.apply(q, k, v, causal, window, scale_v, plain,
@@ -131,7 +148,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``block_k`` is the plain version's key block."""
     _check_impl(impl)
     scale_v = float(scale) if scale is not None else q.shape[-1] ** -0.5
-    if impl == "torch" or not q.is_cuda:
+    if _plain(impl, q):
         return _da.decode_attention_torch(q, k, v, kv_len, scale=scale_v,
                                           block_k=block_k)
     return _da.decode_attention_cuda(q.contiguous(), k.contiguous(),
@@ -191,7 +208,7 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     backward kernel on the card, the plain pair on the CPU or with
     ``impl="torch"``."""
     _check_impl(impl)
-    plain = impl == "torch" or not x.is_cuda
+    plain = _plain(impl, x)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
         return _SSD.apply(x, a, b, c, chunk, plain)
     if plain:

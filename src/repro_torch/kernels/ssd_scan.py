@@ -223,7 +223,9 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     states = torch.empty((B, H, S // T, N, P), dtype=torch.float32,
                          device=dev)
     cl = torch.empty((B, H, S), dtype=torch.float32, device=dev)
-    if B * H:
+    if B * H and _build.traced(x):
+        _build.trace_launch(name, *work(x, b, c))
+    elif B * H:
         _build.launch(name, dev, x.data_ptr(), a.data_ptr(), b.data_ptr(),
                       c.data_ptr(), y.data_ptr(), h.data_ptr(),
                       states.data_ptr(), cl.data_ptr(), B, S, H, P, N, T,
@@ -275,6 +277,9 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         return dx, da, db, dc
     g = torch.empty_like(states)
     vec = torch.empty((4, B, H, S), dtype=torch.float32, device=dev)
+    if _build.traced(x):
+        _build.trace_launch(name, *work_bwd(x, b, c, dh_final is not None))
+        return dx, da, db, dc
     _build.launch(name, dev, x.data_ptr(), a.data_ptr(), b.data_ptr(),
                   c.data_ptr(), dy.data_ptr(),
                   None if dh_final is None else dh_final.data_ptr(),

@@ -28,6 +28,31 @@ def choose_microbatch(cfg: ArchConfig, global_batch: int, dp: int = 1) -> int:
     return 1
 
 
+def grad_buffers(named: Mapping[str, torch.Tensor], grad_dtype
+                 ) -> Dict[str, torch.Tensor]:
+    """A zeroed gradient sum per parameter, in ``grad_dtype``."""
+    return {k: torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
+            for k, p in named.items()}
+
+
+@torch.no_grad()
+def accumulate(g_acc: Dict[str, torch.Tensor],
+               grads: Mapping[str, Optional[torch.Tensor]]) -> None:
+    """Add one microbatch's gradients (None where a parameter is unused)
+    into the sums, in the sums' dtype."""
+    for k, g in grads.items():
+        if g is not None:
+            g_acc[k] += g.to(g_acc[k].dtype)
+
+
+@torch.no_grad()
+def finish_grads(g_acc: Dict[str, torch.Tensor], losses) -> torch.Tensor:
+    """Divide the sums by the microbatch count, in place; the mean loss."""
+    for g in g_acc.values():
+        g /= len(losses)
+    return torch.stack(losses).mean()
+
+
 def make_train_step(model: Model, shape: ShapeConfig, base_lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10000,
                     impl: Optional[str] = None):
@@ -48,8 +73,7 @@ def make_train_step(model: Model, shape: ShapeConfig, base_lr: float = 3e-4,
     def train_step(params, opt_state: AdamWState,
                    batch: Mapping[str, torch.Tensor], step):
         named = dict(params.named_parameters())
-        g_acc = {k: torch.zeros(p.shape, dtype=grad_dtype, device=p.device)
-                 for k, p in named.items()}
+        g_acc = grad_buffers(named, grad_dtype)
         losses = []
         for i in range(accum):
             mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
@@ -57,19 +81,13 @@ def make_train_step(model: Model, shape: ShapeConfig, base_lr: float = 3e-4,
             loss = model.loss(params, mb, impl=impl)
             grads = torch.autograd.grad(loss, list(named.values()),
                                         allow_unused=True)
-            with torch.no_grad():
-                for (k, _), g in zip(named.items(), grads):
-                    if g is not None:
-                        g_acc[k] += g.to(grad_dtype)
+            accumulate(g_acc, dict(zip(named, grads)))
             losses.append(loss.detach())
             del loss, grads
-        with torch.no_grad():
-            for g in g_acc.values():
-                g /= accum
+        mean_loss = finish_grads(g_acc, losses)
         _, opt_state, stats = adamw_update(named, g_acc, opt_state,
                                            lr_fn(step))
-        return params, opt_state, torch.stack(losses).mean(), \
-            stats["grad_norm"]
+        return params, opt_state, mean_loss, stats["grad_norm"]
 
     def opt_init(params) -> AdamWState:
         return adamw_init(dict(params.named_parameters()),

@@ -93,6 +93,31 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
         B, S)
 
 
+def encoder_layer(cfg, lp, h: torch.Tensor, positions: torch.Tensor,
+                  impl: Optional[str] = None) -> torch.Tensor:
+    """One encoder layer: bidirectional self-attention, then the MLP."""
+    _, norm_apply = make_norm(cfg)
+    h = h + attn_mod.attn_apply(lp["attn"], norm_apply(lp["norm1"], h),
+                                cfg, positions=positions, causal=False,
+                                impl=impl)
+    return h + mlp(lp["mlp"], norm_apply(lp["norm2"], h))
+
+
+def decoder_layer(cfg, lp, h: torch.Tensor, positions: torch.Tensor,
+                  enc_out: torch.Tensor, impl: Optional[str] = None
+                  ) -> torch.Tensor:
+    """One decoder layer over whole sequences: causal self-attention,
+    cross-attention over ``enc_out`` (bidirectional), the MLP."""
+    _, norm_apply = make_norm(cfg)
+    h = h + attn_mod.attn_apply(lp["self"], norm_apply(lp["norm1"], h),
+                                cfg, positions=positions, causal=True,
+                                impl=impl)
+    h = h + attn_mod.attn_apply(lp["cross"], norm_apply(lp["norm2"], h),
+                                cfg, positions=positions, causal=False,
+                                kv_x=enc_out, impl=impl)
+    return h + mlp(lp["mlp"], norm_apply(lp["norm3"], h))
+
+
 def encode(cfg, params: EncDec, frames: torch.Tensor,
            impl: Optional[str] = None) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> the encoder output, every
@@ -101,30 +126,20 @@ def encode(cfg, params: EncDec, frames: torch.Tensor,
     h = frames
     positions = _positions(frames)
     for lp in params.enc:
-        h = h + attn_mod.attn_apply(lp["attn"], norm_apply(lp["norm1"], h),
-                                    cfg, positions=positions, causal=False,
-                                    impl=impl)
-        h = h + mlp(lp["mlp"], norm_apply(lp["norm2"], h))
+        h = encoder_layer(cfg, lp, h, positions, impl)
     return norm_apply(params.enc_norm, h)
 
 
 def decode_train(cfg, params: EncDec, tokens: torch.Tensor,
                  enc_out: torch.Tensor, impl: Optional[str] = None
                  ) -> torch.Tensor:
-    """The decoder over whole token sequences: causal self-attention, then
-    cross-attention over ``enc_out`` (bidirectional), then the MLP.
+    """The decoder over whole token sequences (``decoder_layer`` each).
     Returns the final hidden states (B, S, D)."""
     _, norm_apply = make_norm(cfg)
     h = embed(params.embed, tokens)
     positions = _positions(h)
     for lp in params.dec:
-        h = h + attn_mod.attn_apply(lp["self"], norm_apply(lp["norm1"], h),
-                                    cfg, positions=positions, causal=True,
-                                    impl=impl)
-        h = h + attn_mod.attn_apply(lp["cross"], norm_apply(lp["norm2"], h),
-                                    cfg, positions=positions, causal=False,
-                                    kv_x=enc_out, impl=impl)
-        h = h + mlp(lp["mlp"], norm_apply(lp["norm3"], h))
+        h = decoder_layer(cfg, lp, h, positions, enc_out, impl)
     return norm_apply(params.dec_norm, h)
 
 
@@ -132,11 +147,18 @@ def encdec_loss(cfg, params: EncDec, frames: torch.Tensor,
                 tokens: torch.Tensor, impl: Optional[str] = None,
                 chunk: int = 512) -> torch.Tensor:
     """Next-token cross-entropy of the decoder, chunk by chunk, as the
-    reference's ``encdec_loss``: unlike ``lm.lm_loss`` its logits carry
-    ``vocab_bias``, so the padded vocab rows stay out of the log-sum-exp;
-    the predictions past the last whole chunk are dropped."""
+    reference's ``encdec_loss`` (``chunked_ce``)."""
     x = decode_train(cfg, params, tokens, encode(cfg, params, frames, impl),
                      impl)
+    return chunked_ce(cfg, params, x, tokens, chunk)
+
+
+def chunked_ce(cfg, params: EncDec, x: torch.Tensor, tokens: torch.Tensor,
+               chunk: int = 512) -> torch.Tensor:
+    """The loss of the decoder's final hidden states ``x``: unlike
+    ``lm.lm_loss`` the logits carry ``vocab_bias``, so the padded vocab
+    rows stay out of the log-sum-exp; the predictions past the last whole
+    chunk are dropped."""
     xs, tgt = x[:, :-1], tokens[:, 1:].long()
     B, S, _ = xs.shape
     chunk = min(chunk, S)
@@ -204,14 +226,24 @@ def decode_step_encdec(cfg, params: EncDec, cache: Tree,
     h = embed(params.embed, tokens)                           # (B, D)
     pos = int(cache["pos"])
     for i, lp in enumerate(params.dec):
-        h = h + attn_mod.attn_decode(
-            lp["self"], norm_apply(lp["norm1"], h), cfg,
-            cache_k=cache["self_k"][i], cache_v=cache["self_v"][i], pos=pos,
-            impl=impl)
-        h = h + attn_mod.attn_decode(
-            lp["cross"], norm_apply(lp["norm2"], h), cfg,
-            cache_k=cache["cross_k"][i], cache_v=cache["cross_v"][i],
-            pos=pos, cross=True, impl=impl)
-        h = h + mlp(lp["mlp"], norm_apply(lp["norm3"], h))
+        h = decode_layer_encdec(cfg, lp, h, cache, i, pos, impl)
     cache["pos"] = pos + 1
     return logits(cfg, params, norm_apply(params.dec_norm, h)), cache
+
+
+def decode_layer_encdec(cfg, lp, h: torch.Tensor, cache: Tree, i: int,
+                        pos: int, impl: Optional[str] = None
+                        ) -> torch.Tensor:
+    """Decoder layer ``i`` of one decode step: self-attention over (and
+    into) the self cache, cross-attention over the cross cache, the
+    MLP."""
+    _, norm_apply = make_norm(cfg)
+    h = h + attn_mod.attn_decode(
+        lp["self"], norm_apply(lp["norm1"], h), cfg,
+        cache_k=cache["self_k"][i], cache_v=cache["self_v"][i], pos=pos,
+        impl=impl)
+    h = h + attn_mod.attn_decode(
+        lp["cross"], norm_apply(lp["norm2"], h), cfg,
+        cache_k=cache["cross_k"][i], cache_v=cache["cross_v"][i],
+        pos=pos, cross=True, impl=impl)
+    return h + mlp(lp["mlp"], norm_apply(lp["norm3"], h))

@@ -222,15 +222,20 @@ def _embed_inputs(params: LM, tokens: Optional[torch.Tensor],
     return torch.cat([parts[0].to(parts[1].dtype), parts[1]], dim=1)
 
 
+def positions_of(x: torch.Tensor) -> torch.Tensor:
+    """(B, S) int32 positions 0..S-1 of a (B, S, D) activation."""
+    B, S = x.shape[:2]
+    return torch.arange(S, dtype=torch.int32,
+                        device=x.device)[None].expand(B, S)
+
+
 def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
             extra_embeds: Optional[torch.Tensor] = None,
             impl: Optional[str] = None) -> torch.Tensor:
     """Returns final hidden states (B, S, D). Differentiable: autograd
     records it where parameters require gradients (training)."""
     x = _embed_inputs(params, tokens, extra_embeds)
-    B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+    positions = positions_of(x)
     for _, _, _, layer in params.all_layers():
         x, _ = _apply_layer(cfg, layer, x, positions, impl)
     _, norm_apply = make_norm(cfg)
@@ -259,6 +264,13 @@ def lm_loss(cfg, params: LM, tokens: torch.Tensor,
     last whole chunk are dropped (511 of 1,023 at S 1,024)."""
     x = forward(cfg, params, tokens, extra_embeds, impl)
     offset = 0 if extra_embeds is None else extra_embeds.shape[1]
+    return chunked_ce(cfg, params, x, tokens, offset, chunk)
+
+
+def chunked_ce(cfg, params: LM, x: torch.Tensor, tokens: torch.Tensor,
+               offset: int = 0, chunk: int = 512) -> torch.Tensor:
+    """``lm_loss`` of the final hidden states ``x`` (B, S, D), whose text
+    starts at ``offset``."""
     xs = x[:, offset:offset + tokens.shape[1] - 1]            # predict text
     tgt = tokens[:, 1:].long()
     B, S, _ = xs.shape
@@ -272,6 +284,28 @@ def lm_loss(cfg, params: LM, tokens: torch.Tensor,
         tc = tgt[:, i * chunk:(i + 1) * chunk, None]
         total = total + (lse - lg.gather(-1, tc)[..., 0]).sum()
     return total / (B * n * chunk)
+
+
+def prefill_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
+                  positions: torch.Tensor, impl: Optional[str],
+                  c: Dict[str, torch.Tensor], rep: int, count: int,
+                  cache_dtype) -> torch.Tensor:
+    """One layer of ``prefill``: the layer's pass, then its cache entry
+    written into repetition ``rep`` of its body position's stacked cache
+    ``c`` (a mamba leaf is made at repetition 0, in the first state's
+    dtype)."""
+    x, kv = _apply_layer(cfg, layer, x, positions, impl, collect_kv=True)
+    S = x.shape[1]
+    if _is_attn(layer.spec):
+        c["k"][rep, :, :S] = kv[0].to(cache_dtype)
+        c["v"][rep, :, :S] = kv[1].to(cache_dtype)
+        return x
+    for k, t in kv.items():
+        t = t if t.dtype == torch.float32 else t.to(cache_dtype)
+        if rep == 0:
+            c[k] = t.new_empty((count,) + t.shape)
+        c[k][rep] = t
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -381,24 +415,15 @@ def prefill(cfg, params: LM, tokens: Optional[torch.Tensor],
     x = _embed_inputs(params, tokens, extra_embeds)
     B, S, _ = x.shape
     max_len = max_len or S
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+    positions = positions_of(x)
     schedule = build_schedule(cfg)
     cache = _new_cache(cfg, B, max_len, cache_dtype, x.device,
                        with_mamba=False)
     cache["pos"] = S
     for si, rep, bpos, layer in params.all_layers():
-        x, kv = _apply_layer(cfg, layer, x, positions, impl, collect_kv=True)
-        c = cache["segments"][si][bpos]
-        if _is_attn(layer.spec):
-            c["k"][rep, :, :S] = kv[0].to(cache_dtype)
-            c["v"][rep, :, :S] = kv[1].to(cache_dtype)
-            continue
-        for k, t in kv.items():
-            t = t if t.dtype == torch.float32 else t.to(cache_dtype)
-            if rep == 0:          # the leaf takes the first state's dtype
-                c[k] = t.new_empty((schedule[si].count,) + t.shape)
-            c[k][rep] = t
+        x = prefill_layer(cfg, layer, x, positions, impl,
+                          cache["segments"][si][bpos], rep,
+                          schedule[si].count, cache_dtype)
     _, norm_apply = make_norm(cfg)
     x = norm_apply(params.final_norm, x)
     return logits(cfg, params, x[:, -1]), cache

@@ -24,7 +24,10 @@ one on every device:
 
 The reference's expert-parallel path (``_moe_ep``, ``_dispatch_local``,
 ``_combine_local``, the ``shard_map`` branch of ``_expert_matmuls``) runs
-only on a multi-chip mesh and is not ported (ROADMAP A22).
+only on a multi-device mesh; the port runs on one card, where the
+resolver (``parallel/sharding.py``) places every expert on it, and that
+path is not ported yet (its torch form, an all-to-all over the model
+axis's process group, is ROADMAP A30).
 """
 from __future__ import annotations
 

@@ -5,8 +5,15 @@ device), ``loss`` (training), ``forward``, ``prefill``, ``decode_step`` and
 ``init_cache`` over every family (dense, vlm, MoE, ssm, hybrid through
 ``models/lm.py``; encdec through ``models/encdec.py``), and
 ``param_struct``, ``input_specs``, ``cache_struct`` and ``param_counts``,
-which give shapes and dtypes on the meta device (no allocation; the port
-has no sharding axes).
+which give shapes and dtypes on the meta device (no allocation), and
+``param_axes`` and ``cache_axes``, the logical axes that
+``parallel/sharding.py`` resolves against a mesh.
+
+The port holds one module per layer where the reference stacks a segment's
+layers on a leading ``"layers"`` axis, which no rule table shards: a
+parameter's axes here are the reference leaf's without that entry. The
+decode cache keeps the reference's stacked layout, and its axes keep the
+``"layers"`` entry.
 """
 from __future__ import annotations
 
@@ -21,6 +28,65 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 
 META = torch.device("meta")
+
+# Logical axes of a parameter by its block and its path inside the block,
+# as the reference's init functions assign them (layers.py, attention.py,
+# ssm.py, moe.py).
+_ATTN_AXES = {
+    "q.w": ("embed", "heads", "head_dim"),
+    "k.w": ("embed", "kv_heads", "head_dim"),
+    "v.w": ("embed", "kv_heads", "head_dim"),
+    "q.b": ("heads", "head_dim"),
+    "k.b": ("kv_heads", "head_dim"),
+    "v.b": ("kv_heads", "head_dim"),
+    "o.w": ("heads", "head_dim", "embed"),
+}
+_BLOCK_AXES = {
+    "attn": _ATTN_AXES, "self": _ATTN_AXES, "cross": _ATTN_AXES,
+    "mlp": {"gate.w": ("embed", "ff"), "up.w": ("embed", "ff"),
+            "down.w": ("ff", "embed")},
+    "moe": {"router": ("vocab_embed", "none"),
+            "gate": ("experts", "embed", "expert_ff"),
+            "up": ("experts", "embed", "expert_ff"),
+            "down": ("experts", "expert_ff", "embed")},
+    "mamba": {"z.w": ("embed", "ff"), "x.w": ("embed", "ff"),
+              "B.w": ("embed", "state"), "C.w": ("embed", "state"),
+              "dt.w": ("embed", "none"), "o.w": ("ff", "embed"),
+              "norm.scale": ("none",), "conv_x": ("conv", "ff"),
+              "conv_BC": ("conv", "none"), "A_log": ("none",),
+              "dt_bias": ("none",), "D_skip": ("none",)},
+}
+_TOP_AXES = {"embed.table": ("vocab", "vocab_embed"),
+             "head.w": ("vocab_embed", "vocab")}
+_KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+_MAMBA_CACHE_AXES = {"conv_x": ("layers", "batch", "conv", "ff"),
+                     "conv_BC": ("layers", "batch", "conv", "none"),
+                     "h": ("layers", "batch", "none", "cache_state", "none")}
+
+
+def param_axes_of(name: str) -> Tuple[str, ...]:
+    """The logical axes of the parameter called ``name``
+    (``named_parameters()``)."""
+    if name in _TOP_AXES:
+        return _TOP_AXES[name]
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if part in _BLOCK_AXES:
+            return _BLOCK_AXES[part][".".join(parts[i + 1:])]
+    if parts[-1] == "scale":                       # a norm's
+        return ("none",)
+    raise KeyError(f"no logical axes for parameter {name!r}")
+
+
+def cache_leaves(cache) -> Dict[str, torch.Tensor]:
+    """A decode cache's tensors, flat: ``segments.<i>.<position>.<leaf>``
+    for the LM families, the leaf names for encdec (``pos`` is a Python
+    int and carries no axes)."""
+    if "segments" not in cache:
+        return {k: t for k, t in cache.items() if k != "pos"}
+    return {f"segments.{i}.{j}.{k}": t
+            for i, seg in enumerate(cache["segments"])
+            for j, c in enumerate(seg) for k, t in c.items()}
 
 
 @dataclasses.dataclass
@@ -61,6 +127,27 @@ class Model:
             else:
                 active += n
         return total, active
+
+    def param_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """``{parameter name: logical axes}``, from the structure on the
+        meta device (nothing is allocated)."""
+        return {n: param_axes_of(n)
+                for n, _ in self.param_struct().named_parameters()}
+
+    def cache_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """The decode cache's logical axes, keyed as ``cache_leaves``."""
+        if self.encdec:
+            return {k: _KV_AXES for k in ("self_k", "self_v", "cross_k",
+                                          "cross_v")}
+        out = {}
+        for i, seg in enumerate(lm_mod.build_schedule(self.cfg)):
+            for j, spec in enumerate(seg.body):
+                leaves = ({"k": _KV_AXES, "v": _KV_AXES}
+                          if spec.mixer in ("attn", "attn_local")
+                          else _MAMBA_CACHE_AXES)
+                for k, ax in leaves.items():
+                    out[f"segments.{i}.{j}.{k}"] = ax
+        return out
 
     # -- steps ------------------------------------------------------------------
     def loss(self, params, batch: Dict[str, torch.Tensor],

@@ -1,0 +1,258 @@
+"""Logical-axis sharding resolver (MaxText-style logical axis rules), as the
+reference's ``parallel/sharding.py``.
+
+Every parameter and cache leaf carries a tuple of *logical* dim names
+(``Model.param_axes()``, ``Model.cache_axes()``). A rule table maps each
+logical name to an ordered list of mesh-axis candidates; the resolver
+assigns the first candidate whose size divides the dimension and whose mesh
+axes are not already used by another dim of the same tensor. This gives:
+
+  * automatic fallbacks (e.g. heads -> replicated attention when the head
+    count does not divide the model axis — minicpm's 36 heads on a 16-way
+    axis),
+  * per-experiment overrides (swap rule tables, not model code),
+  * safe behaviour on any mesh (axes absent from the mesh are skipped).
+
+A mesh is anything with ``axis_names`` and a ``shape`` mapping (the
+descriptions of ``launch/mesh.py``), or a ``torch.distributed`` DeviceMesh
+(its ``mesh_dim_names`` and ``size(i)``). ``shardings_for`` gives each
+parameter's DTensor placements, the counterpart of a ``NamedSharding``.
+The port runs on one card: ``constrain`` and ``constrain_act`` are
+identities on a mesh of one device and raise on a larger one, where the
+expert-parallel slice will give them a meaning.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+# A rule: logical name -> ordered candidates; each candidate is a tuple of
+# mesh axes used together on that dim (e.g. ("pod", "data") for global batch).
+LogicalRules = Dict[str, List[Tuple[str, ...]]]
+
+
+class PartitionSpec(tuple):
+    """One tensor's spec: per dim ``None``, a mesh axis name, or a tuple of
+    names. A tuple, so it compares equal to any sequence of the same
+    entries (the reference's ``jax.sharding.PartitionSpec`` among them)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a mesh description or a DeviceMesh."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None and hasattr(mesh, "size"):
+        return {n: int(mesh.size(i)) for i, n in enumerate(names)}
+    return {n: int(dict(mesh.shape)[n]) for n in mesh.axis_names}
+
+
+def mesh_size(mesh) -> int:
+    return math.prod(mesh_axes(mesh).values())
+
+
+def dp_heavy_rules() -> LogicalRules:
+    """Fully-sharded data parallelism (ZeRO-3 style) for archs whose head
+    counts do not divide the model axis (minicpm 36H, qwen 40H, llava 56H,
+    gemma3 4H): the batch spreads over data x model (with graceful fallback
+    when the per-step batch is smaller), weights shard over ('data','model')
+    on their embed dim and are all-gathered at use. Attention runs fully
+    batch-parallel — no replicated compute, no contraction-dim sums."""
+    return {
+        "batch": [("pod", "data", "model"), ("data", "model"),
+                  ("pod", "data"), ("data",)],
+        # sequence parallelism: when the batch cannot cover data x model
+        # (prefill B=32), activations shard their seq dim on the idle model
+        # axis instead of replicating 16x (K/V gathered per layer).
+        "seq": [("model",)],
+        "kv_seq": [("model",)],
+        "embed": [("data", "model"), ("data",)],
+        "vocab": [("model",)],
+        "heads": [],
+        "head_dim": [],
+        "kv_heads": [],
+        "ff": [],
+        "experts": [("model",)],
+        "expert_ff": [],
+        "state": [], "conv": [], "layers": [], "frames": [],
+        "capacity": [("data",)], "moe_tokens": [("data",)],
+        "vocab_embed": [],          # embed-table model dim: replicated
+        "loss_batch": [("data", "model"), ("data",)],
+        "cache_state": [("model",)],  # SSM decode state N dim
+        "none": [],
+    }
+
+
+def rules_for(cfg, mesh, fsdp: bool = True) -> LogicalRules:
+    """Pick the baseline rule table for an arch on this mesh.
+
+    * heads AND kv_heads divide the model axis -> full TP (default rules).
+    * only kv_heads indivisible (jamba/phi: Hq=64/32, Hkv=8 on a 16-way
+      axis) -> the GQA (Hkv, G) reshape cannot stay sharded, so attention
+      runs batch-parallel while MLP/MoE keep model-axis TP.
+    * heads indivisible (minicpm/qwen/llava/gemma3) -> fully-sharded DP.
+    """
+    model_size = mesh_axes(mesh).get("model", 1)
+    if cfg.n_heads and cfg.n_heads % model_size != 0:
+        return dp_heavy_rules()
+    if cfg.n_kv_heads and cfg.n_kv_heads % model_size != 0:
+        rules = default_rules(fsdp)
+        rules["heads"] = []
+        rules["kv_heads"] = []
+        rules["seq"] = [("model",)]   # sequence-parallel attention activations
+        return rules
+    return default_rules(fsdp)
+
+
+def batch_dp_degree(rules: LogicalRules, mesh, global_batch: int) -> int:
+    """Data-parallel degree the 'batch' rule will actually achieve for this
+    global batch (first candidate whose size divides it)."""
+    sizes = mesh_axes(mesh)
+    for cand in rules.get("batch", []):
+        cand = tuple(a for a in cand if a in sizes)
+        if not cand:
+            continue
+        size = math.prod(sizes[a] for a in cand)
+        if size and global_batch % size == 0:
+            return size
+    return 1
+
+
+def default_rules(fsdp: bool = True) -> LogicalRules:
+    """Baseline rule table: DP(+pod) on batch, TP on model, FSDP on embed."""
+    return {
+        "batch": [("pod", "data"), ("data",)],
+        "seq": [],
+        "kv_seq": [("model",)],          # decode caches: depth-shard fallback
+        "embed": [("data",)] if fsdp else [],
+        "vocab": [("model",)],
+        "heads": [("model",)],
+        # no head_dim fallback by default: contraction-dim TP would make
+        # every attention logits tile a cross-device sum. Heads-indivisible
+        # archs run attention batch-parallel with FSDP'd weights instead.
+        "head_dim": [],
+        "kv_heads": [("model",)],
+        "ff": [("model",)],
+        "experts": [("model",)],
+        "expert_ff": [],
+        "state": [],
+        "conv": [],
+        "layers": [],
+        "frames": [],
+        "capacity": [("data",)],   # MoE (E,C,D) buffers: C over data
+        "moe_tokens": [("data",)],
+        "vocab_embed": [],         # embed-table model dim: replicated (small)
+        "loss_batch": [("data",)], # CE logits: batch on data so vocab->model
+        "cache_state": [("model",)],  # SSM decode state N dim
+        "none": [],
+    }
+
+
+# Dims are assigned mesh axes in priority order, so e.g. `kv_heads` gets the
+# model axis before the `kv_seq` fallback competes for it.
+_PRIORITY = {
+    "batch": 0, "loss_batch": 0, "experts": 1, "vocab": 1, "ff": 1,
+    "heads": 1, "kv_heads": 1, "embed": 2, "head_dim": 3, "kv_seq": 4,
+    "moe_tokens": 4,
+}
+
+
+def spec_for(axes: Sequence[Optional[str]], shape: Sequence[int],
+             rules: LogicalRules, mesh) -> PartitionSpec:
+    """Resolve one tensor's PartitionSpec from its logical axes."""
+    assert len(axes) == len(shape), (axes, shape)
+    sizes = mesh_axes(mesh)
+    used: set = set()
+    out: List = [None] * len(axes)
+    order = sorted(range(len(axes)),
+                   key=lambda i: _PRIORITY.get(axes[i] or "none", 9))
+    for i in order:
+        name, dim = axes[i], shape[i]
+        for cand in rules.get(name or "none", []):
+            cand = tuple(a for a in cand if a in sizes)
+            if not cand or any(a in used for a in cand):
+                continue
+            size = math.prod(sizes[a] for a in cand)
+            if size > 0 and dim % size == 0:
+                out[i] = cand if len(cand) > 1 else cand[0]
+                used.update(cand)
+                break
+    return PartitionSpec(*out)
+
+
+def tree_specs(axes: Mapping[str, Tuple], params: Mapping[str, torch.Tensor],
+               rules: LogicalRules, mesh) -> Dict[str, PartitionSpec]:
+    """``{name: PartitionSpec}`` for flat ``{name: tensor}`` parameters (or
+    cache leaves) and an axes mapping with the same keys."""
+    if set(axes) != set(params):
+        raise KeyError(f"axes and tensors differ in "
+                       f"{sorted(set(axes) ^ set(params))[:4]}")
+    return {k: spec_for(axes[k], tuple(t.shape), rules, mesh)
+            for k, t in params.items()}
+
+
+def placements(spec: PartitionSpec, mesh) -> tuple:
+    """The DTensor placements of one spec: for each mesh dim, ``Shard(d)``
+    of the tensor dim it splits, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    by_axis = {}
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            by_axis[a] = d
+    return tuple(Shard(by_axis[a]) if a in by_axis else Replicate()
+                 for a in mesh_axes(mesh))
+
+
+def shardings_for(axes: Mapping[str, Tuple],
+                  params: Mapping[str, torch.Tensor], rules: LogicalRules,
+                  mesh) -> Dict[str, tuple]:
+    """``{name: DTensor placements}``: the torch counterpart of the
+    reference's tree of ``NamedSharding``."""
+    return {k: placements(s, mesh)
+            for k, s in tree_specs(axes, params, rules, mesh).items()}
+
+
+def _one_device(mesh) -> bool:
+    return mesh is None or mesh_size(mesh) == 1
+
+
+def constrain(x: torch.Tensor, axes: Sequence[Optional[str]],
+              rules: LogicalRules, mesh) -> torch.Tensor:
+    """Pin an activation's sharding by logical names: the identity on one
+    device; a larger mesh has no activation sharding in the port yet."""
+    if _one_device(mesh):
+        return x
+    raise NotImplementedError(
+        f"constrain: activation sharding over {mesh_axes(mesh)} is not "
+        f"ported; the port runs on one device")
+
+
+# ---------------------------------------------------------------------------
+# Activation-sharding context: model code calls constrain_act(x, axes) with
+# logical names; a launcher installs (rules, mesh) before running. Identity
+# when not installed or on one device.
+# ---------------------------------------------------------------------------
+
+_ACT = {"rules": None, "mesh": None}
+
+
+def set_activation_sharding(rules: Optional[LogicalRules], mesh) -> None:
+    if not _one_device(mesh):
+        raise NotImplementedError(
+            f"set_activation_sharding: a mesh of {mesh_size(mesh)} devices; "
+            f"the port runs on one device")
+    _ACT["rules"], _ACT["mesh"] = rules, mesh
+
+
+def constrain_act(x: torch.Tensor, axes: Sequence[Optional[str]]
+                  ) -> torch.Tensor:
+    rules, mesh = _ACT["rules"], _ACT["mesh"]
+    if rules is None or mesh is None or len(axes) != x.dim():
+        return x
+    return constrain(x, axes, rules, mesh)

@@ -1815,3 +1815,56 @@ def test_service_runtime_on_card_equals_cpu(cuda, monkeypatch):
     assert counts["dfa_regex"] == calls["t-id"] + calls["t-isg"]
     assert counts["keyed_hash"] == counts["arx_cipher"] == calls["t-isg"]
     assert card.ctrl.governor._kernel.device.type == "cuda"
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("name", ["olmo-1b", "mamba2-370m",
+                                  "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b",
+                                  "seamless-m4t-medium"])
+def test_dry_run_counts_equal_the_card(cuda, name, kind):
+    """The dry run's meta trace of a reduced config's step (f32, batch 4 x
+    64, accumulation 2 in training, a decode at pos 63 of a 64-deep
+    cache) against the same call on the card: the FLOPs outside the
+    kernels equal ``FlopCounterMode``'s count with ``==`` (the kernels
+    launch through ctypes, which no dispatch mode sees), and the kernel
+    launches equal the trace's."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.steps import make_train_step
+    cfg = get_arch(name).reduced().replace(microbatch=2)
+    shape = ShapeConfig(kind, 64, 4, kind)
+    meta = build(cfg, "meta")
+    fn, _, _ = dryrun.step_call(meta, shape, torch.float32,
+                                cache_dtype=torch.float32)
+    want = rl.trace(fn)
+    model = build(cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {k: (torch.randint(0, cfg.vocab, v.shape, generator=g,
+                               device=cuda, dtype=torch.int32)
+                 if k == "tokens" else
+                 torch.randn(v.shape, generator=g, device=cuda))
+             for k, v in meta.input_specs(shape, torch.float32).items()}
+    params = model.init(g, torch.float32)
+    if kind == "train":
+        params.requires_grad_(True)
+        step, opt_init = make_train_step(model, shape)
+        opt = opt_init(params)
+        call = lambda: step(params, opt, batch, 1)
+    elif kind == "prefill":
+        call = lambda: model.prefill(params, batch, max_len=64,
+                                     cache_dtype=torch.float32)
+    else:
+        cache = model.init_cache(4, 64, torch.float32)
+        cache["pos"] = 63
+        call = lambda: model.decode_step(params, cache, batch["tokens"])
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with FlopCounterMode(display=False) as fc:
+        call()
+    torch.cuda.synchronize()
+    assert fc.get_total_flops() == want["aten_flops"] > 0
+    assert {k: n for k, n in _build.launch_counts().items() if n} == {
+        k: v["launches"] for k, v in want["kernels"].items()}
