@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Thirteen paths, each driven with the launch counts set to 0 just before it
+Sixteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
@@ -148,6 +148,18 @@ and read just after:
    LEFTOVER_MAX allocated before the olmo-1b and mamba2-370m steps beyond
    their arguments; and an ``mfu`` line for every timed prefill, decode
    and training step.
+15. Expert parallelism (A30), after path 6: moonshot-v1-16b-a3b at full
+   width in bf16, its depth cut to the dense first layer and 2 MoE
+   layers, over two ranks spawned on the one card (gloo, a (1, 2) mesh
+   under ``dp_heavy_rules()``), each rank prefilling 2 of 4 x 1,024
+   prompts through ``_moe_ep`` (3 flash_attention launches a rank): at a
+   capacity factor where nothing drops, every layer held to the global
+   path on its input; at the config's 1.25, each rank's slots ``==`` and
+   its outputs within EP_EMUL_TOL of the one-process emulation of the
+   ranks; a run whose return all-to-all swaps the ranks' halves rejected.
+16. The five examples (A28) as child processes on the card: train_lm's
+   crash and resume, nic_apps' and quickstart's oracles, serve_tenants'
+   and serve_pipeline's output against the same scripts on the CPU.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -218,6 +230,8 @@ from repro_torch.models import build  # noqa: E402
 from repro_torch.models import lm, moe, ssm  # noqa: E402
 from repro_torch.obs import FIRING, PAGE, WARN, Obs, load_trace  # noqa: E402
 from repro_torch.optim import make_schedule  # noqa: E402
+from repro_torch.parallel import collectives as coll  # noqa: E402
+from repro_torch.parallel import sharding as sh  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.serving.engine import PipelineInstance  # noqa: E402
 from repro_torch.serving.planner import plan_serving  # noqa: E402
@@ -458,6 +472,31 @@ REDUCED_TRAIN_TOL = 1e-4  # f32 through 4 layers, as the CUDA tests hold it
 # entry within two bf16 ulps of the CPU's, so its grad norm is held to
 # 2**-7 relative (|‖a‖ − ‖b‖| ≤ ‖a − b‖; tests/test_torch_moe_train.py)
 REDUCED_TRAIN_BF16_GNORM_TOL = 2.0 ** -7
+
+# expert parallelism (A30): moonshot at full width, its depth cut to the
+# dense first layer and 2 MoE layers, over two ranks on the one card (gloo;
+# NCCL refuses two ranks on one device) on a (1, 2) mesh under
+# dp_heavy_rules(): the prefill's batch of 4 x 1,024 over data x model,
+# 2 x 1,024 on each rank, whose parameters are whole (3.3 GB bf16 each)
+EP_LAYERS = 3
+EP_MODEL = 2
+EP_BATCH = 4
+# gate (a): the first capacity factor of the ladder at which no expert
+# drops a token, globally or on a rank
+EP_CF_LADDER = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0)
+# gate (b): the ranks' MoE outputs against the one-process emulation of
+# the ranks (tests/_torch_ep_ranks.py) on the same inputs, of the
+# output's largest entry: the two compute the same products on the same
+# slot buffers, so they agree to within one bf16 rounding
+EP_EMUL_TOL = 2.0 ** -7
+EP_TIMEOUT_S = 600
+# the five examples (A28), each a child process on the card; the analytic
+# two (serve_tenants' table, serve_pipeline's plan) also on the CPU
+EXAMPLES = (("train_lm", ["--steps", "100"]), ("nic_apps", []),
+            ("quickstart", []), ("serve_tenants", ["--ticks", "12"]),
+            ("serve_pipeline", []))
+EXAMPLES_ON_CPU = ("serve_tenants", "serve_pipeline")
+EXAMPLE_TIMEOUT_S = 300
 
 # the control plane (CP2): measure_app on the card, the cost model, the
 # flow-state sync and Algorithm 2's placement of gemma3-1b's plan
@@ -3820,6 +3859,452 @@ def moe_phase():
     return rows, pd["launches"], eng["launches"]
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class _EpTimes:
+    """While installed, the host time of every all-to-all and every
+    expert product, each between two synchronisations of the card."""
+
+    def __init__(self):
+        self.ms = {"all_to_all": 0.0, "expert_products": 0.0}
+
+    def _timed(self, key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def __enter__(self):
+        self._a2a, self._prod = coll.all_to_all, moe._expert_products
+        coll.all_to_all = self._timed("all_to_all", self._a2a)
+        moe._expert_products = self._timed("expert_products", self._prod)
+        return self
+
+    def __exit__(self, *exc):
+        coll.all_to_all, moe._expert_products = self._a2a, self._prod
+
+
+class _EpCalls:
+    """While installed, every ``_moe_ep`` call's input block and output
+    block, and every ``_dispatch_local``'s slots, in call order."""
+
+    def __enter__(self):
+        self.calls, self.src = [], []
+        self._ep, self._disp = moe._moe_ep, moe._dispatch_local
+
+        def ep(p, x, cfg, mesh, rules):
+            y = self._ep(p, x, cfg, mesh, rules)
+            self.calls.append((x, y))
+            return y
+
+        def disp(xf, router, cfg):
+            out = self._disp(xf, router, cfg)
+            self.src.append(out[1])
+            return out
+        moe._moe_ep, moe._dispatch_local = ep, disp
+        return self
+
+    def __exit__(self, *exc):
+        moe._moe_ep, moe._dispatch_local = self._ep, self._disp
+
+
+class _SwapReturn:
+    """The fault of gate (c): the all-to-all that brings the experts'
+    outputs back (split over capacity, concatenated over experts) hands
+    each rank the other rank's half of the experts."""
+
+    def __enter__(self):
+        self._a2a = coll.all_to_all
+
+        def a2a(x, mesh, axis, split_dim, concat_dim):
+            y = self._a2a(x, mesh, axis, split_dim, concat_dim)
+            return y.roll(y.shape[0] // 2, 0) if split_dim == 1 else y
+        coll.all_to_all = a2a
+        return self
+
+    def __exit__(self, *exc):
+        coll.all_to_all = self._a2a
+
+
+def _ep_layers(cfg, params, x, positions):
+    """Every layer on the global path (no mesh installed), with the
+    kernels: each layer's input, output and ``_Routes(keep_inputs=True)``
+    record."""
+    ins, outs, recs = [], [], []
+    for *_, layer in params.all_layers():
+        with _Routes(keep_inputs=True) as r:
+            y, _ = lm._apply_layer(cfg, layer, x, positions, None)
+        ins.append(x)
+        outs.append(y)
+        recs.append(r)
+        x = y
+    return ins, outs, recs
+
+
+def _ep_capacity_factor(model, params, prompts, mine):
+    """Gate (a)'s capacity factor: the first of EP_CF_LADDER at which the
+    global prefill drops no token and no rank's tokens ask an expert for
+    more slots than the rank's capacity. Returns it, the factors tried and
+    the largest load of an expert on a rank at it."""
+    B, S = prompts.shape
+    for tried, cf in enumerate(EP_CF_LADDER, 1):
+        cfg = model.cfg.replace(capacity_factor=cf)
+        with torch.no_grad(), _Routes() as r:
+            model_cf = build(cfg, "cuda")
+            model_cf.prefill(params, {"tokens": prompts}, max_len=S)
+        C = moe._capacity(B * S, cfg.top_k, cfg.n_experts, cf)
+        C_l = moe._capacity(B * S // EP_MODEL, cfg.top_k, cfg.n_experts, cf)
+        dropped = sum(int((c["ids"] < 0).sum()) for c in r.calls)
+        load = 0
+        for c in r.calls:
+            for rows in mine:
+                ids = c["chosen"][rows].reshape(-1)
+                load = max(load, int(torch.bincount(
+                    ids, minlength=cfg.n_experts).max()))
+        if dropped == 0 and load <= C_l:
+            return cfg, {"capacity_factor": cf, "factors_tried": tried,
+                         "global_capacity": C, "rank_capacity": C_l,
+                         "largest_rank_load": load}
+    raise AssertionError(f"tokens drop at every capacity factor of "
+                         f"{EP_CF_LADDER}")
+
+
+def _ep_run(rank, mesh):
+    """One rank's part of ``ep_checks``: gates (a), (b) and (c), the timed
+    prefill and its launches."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_ep_ranks as epr      # the emulation of the ranks: no JAX
+    cfg = get_arch(MOE_ARCH).replace(n_layers=EP_LAYERS)
+    model = build(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        torch.bfloat16)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        2, cfg.vocab, size=(EP_BATCH, PROMPT_LEN))).cuda()
+    B, S = prompts.shape
+    rules = sh.dp_heavy_rules()
+    tokens = (B, S)
+    spec = sh.token_spec((B, S, cfg.d_model), rules, mesh)
+    if sh.entry_axes(spec[0]) != ("data", "model") or spec[1] is not None:
+        raise AssertionError(f"the prompts' layout {spec} is not the batch "
+                             f"over data x model")
+    Bl = B // sh.mesh_size(mesh)
+    # the flat token rows of each rank (the batch's blocks, rank order)
+    mine_of = [slice(r * Bl * S, (r + 1) * Bl * S)
+               for r in range(sh.mesh_size(mesh))]
+    me = sh.block_index(spec[0], mesh)[0]
+    report = {"rank": rank, "coords": sh.coordinates(mesh),
+              "layers": EP_LAYERS, "tokens": list(tokens),
+              "rank_tokens": [Bl, S]}
+
+    def on_mesh():
+        sh.set_activation_sharding(rules, mesh, tokens=tokens)
+
+    def off_mesh():
+        sh.set_activation_sharding(None, None)
+
+    # gate (a): capacity that does not bind; layer by layer against the
+    # global path, then the whole prefill's logits gathered
+    with torch.no_grad():
+        cfg_a, report["a"] = _ep_capacity_factor(model, params, prompts,
+                                                 mine_of)
+        x = lm.embed(params.embed, prompts)
+        g_in, g_out, g_rec = _ep_layers(cfg_a, params, x, lm.positions_of(x))
+        worst = dict.fromkeys((
+            "router_input_max_rel_err", "route_flips",
+            "capacity_only_changes", "routed_tokens", "max_layer_flip_share",
+            "max_layer_near_tie_share", "layer_output_max_rel_err",
+            "logit_max_abs_err", "logit_max_bound_share"), 0)
+        agree = torch.ones(Bl * S, dtype=torch.bool, device=prompts.device)
+        ep_drops = 0
+        on_mesh()
+        try:
+            for i, (*_, layer) in enumerate(params.all_layers()):
+                xl = sh.block(g_in[i], spec, mesh)
+                with _Routes(keep_inputs=True) as rk:
+                    out_k, _ = lm._apply_layer(cfg_a, layer, xl,
+                                               lm.positions_of(xl), None)
+                ep_drops += sum(int((c["ids"] < 0).sum()) for c in rk.calls)
+                rp = types.SimpleNamespace(calls=[
+                    {"x": c["x"][mine_of[me]], "ids": c["ids"][mine_of[me]],
+                     "router": c["router"]} for c in g_rec[i].calls])
+                agree &= _gate_layer(i, rk, rp, out_k,
+                                     sh.block(g_out[i], spec, mesh), cfg_a,
+                                     worst)
+        finally:
+            off_mesh()
+        if ep_drops:
+            raise AssertionError(f"rank {rank} dropped {ep_drops} slots at "
+                                 f"capacity factor {cfg_a.capacity_factor}")
+        _gate_logits(cfg_a, params, out_k, sh.block(g_out[-1], spec, mesh),
+                     agree, worst)
+        report["a"].update(worst, tokens_agreeing_in_every_layer=int(
+            agree.sum()))
+        # the whole prefill on the global path and over the ranks, the
+        # logits of the ranks gathered: held where every token of a
+        # sequence kept its experts in every layer (a flip at a near tie
+        # changes a token's later layers by O(1))
+        model_a = build(cfg_a, "cuda")
+        with _Routes() as rg:
+            want, _ = model_a.prefill(params, {"tokens": prompts}, max_len=S)
+        on_mesh()
+        try:
+            with _Routes() as rl:
+                lg, _ = model_a.prefill(params, {"tokens": sh.block(
+                    prompts, spec[:2], mesh)}, max_len=S)
+            lg = coll.gather_block(lg, sh.PartitionSpec(spec[0], None), mesh)
+            flipped = torch.zeros(Bl, dtype=torch.bool, device=lg.device)
+            for cl, cg in zip(rl.calls, rg.calls):
+                flipped |= (cl["ids"] != cg["ids"][mine_of[me]]).any(
+                    -1).reshape(Bl, S).any(-1)
+            flipped = coll.gather_block(flipped, sh.PartitionSpec(spec[0]),
+                                        mesh)
+        finally:
+            off_mesh()
+        if lg.shape != want.shape or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"gathered logits {tuple(lg.shape)}, "
+                                 f"finite {bool(torch.isfinite(lg).all())}")
+        d = (lg.float() - want.float()).abs()
+        scale = float(want.float().abs().max())
+        report["a"].update(
+            gathered_logit_max_rel_err=float(d.max()) / scale,
+            sequences_with_agreeing_routes=int((~flipped).sum()),
+            gathered_logit_max_rel_err_where_routes_agree=(
+                float(d[~flipped].max()) / scale if bool((~flipped).any())
+                else None))
+        err = report["a"]["gathered_logit_max_rel_err_where_routes_agree"]
+        if err is not None and err > MOE_LAYER_TOL:
+            raise AssertionError(
+                f"the ranks' gathered logits differ from the global "
+                f"prefill's by {err} of their largest entry on sequences "
+                f"whose routes agree (tolerance {MOE_LAYER_TOL})")
+        del g_in, g_out, g_rec, want, lg
+
+        # the timed prefill at the config's capacity factor, its launches
+        local = sh.block(prompts, spec[:2], mesh)
+        on_mesh()
+        try:
+            model.prefill(params, {"tokens": local}, max_len=S)  # warm-up
+            torch.cuda.synchronize()
+            coll.reset_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            model.prefill(params, {"tokens": local}, max_len=S)
+            torch.cuda.synchronize()
+            report["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            report["launches"] = _build.launch_counts()
+            report["collectives"] = coll.stats()
+            with _EpTimes() as times:
+                model.prefill(params, {"tokens": local}, max_len=S)
+            report["all_to_all_ms"] = times.ms["all_to_all"]
+            report["expert_products_ms"] = times.ms["expert_products"]
+
+            # gate (b): the config's capacity factor against the emulation
+            with _EpCalls() as calls, _Routes() as r:
+                model.prefill(params, {"tokens": local}, max_len=S)
+        finally:
+            off_mesh()
+        report["drops_per_layer"] = [int((c["ids"] < 0).sum())
+                                     for c in r.calls]
+        b = {"capacity_factor": cfg.capacity_factor,
+             "rank_capacity": moe._capacity(Bl * S, cfg.top_k,
+                                            cfg.n_experts,
+                                            cfg.capacity_factor),
+             "global_capacity": moe._capacity(B * S, cfg.top_k,
+                                              cfg.n_experts,
+                                              cfg.capacity_factor),
+             "output_max_rel_err": 0.0}
+        moe_layers = [layer for *_, layer in params.all_layers()
+                      if layer.spec.ffn == "moe"]
+        if len(calls.calls) != len(moe_layers):
+            raise AssertionError(f"{len(calls.calls)} expert-parallel calls "
+                                 f"for {len(moe_layers)} MoE layers")
+        emulated = []
+        for layer, (h, y), src in zip(moe_layers, calls.calls, calls.src):
+            h_all = coll.gather_block(h, spec, mesh)
+            want, src_e, drops = epr.emulate_ep(layer.moe, h_all, cfg, rules,
+                                                *sh.mesh_axes(mesh).values())
+            coord = tuple(sh.coordinates(mesh).values())
+            if not torch.equal(src, src_e[coord]):
+                raise AssertionError(f"rank {rank}: its slots differ from "
+                                     f"the emulation's")
+            if drops[coord] != report["drops_per_layer"][len(emulated)]:
+                raise AssertionError("the emulation drops otherwise")
+            want = sh.block(want, spec, mesh)
+            err = float((y.float() - want.float()).abs().max()
+                        / want.float().abs().max())
+            b["output_max_rel_err"] = max(b["output_max_rel_err"], err)
+            if err > EP_EMUL_TOL:
+                raise AssertionError(
+                    f"rank {rank}: expert-parallel outputs differ from the "
+                    f"emulation's by {err} of their largest entry "
+                    f"(tolerance {EP_EMUL_TOL})")
+            emulated.append((layer, h, want))
+        b.update(slots_equal=True, tolerance=EP_EMUL_TOL)
+        report["b"] = b
+
+        # gate (c): the faulted return all-to-all must fail gate (b)
+        layer, h, want = emulated[0]
+        on_mesh()
+        try:
+            with _SwapReturn():
+                y = moe.moe_ffn(layer.moe, h, cfg)
+        finally:
+            off_mesh()
+        err = float((y.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        report["c"] = {"fault": "return all-to-all swaps the ranks' halves",
+                       "output_max_rel_err": err,
+                       "rejected": err > EP_EMUL_TOL}
+        if not report["c"]["rejected"]:
+            raise AssertionError(f"rank {rank}: the faulted run passed gate "
+                                 f"(b) (error {err})")
+    return report
+
+
+def _ep_rank(rank, port, out_dir):
+    """A rank of ``ep_checks``, in a process of its own on card 0."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=EP_MODEL,
+        rank=rank, timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    try:
+        _build.load()                   # built by the parent: loaded only
+        report = _ep_run(rank, make_host_mesh(EP_MODEL, device_type="cuda"))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def ep_checks():
+    """Expert parallelism (A30) on the card: two ranks, spawned, each on
+    card 0 with its own CUDA context, joined within EP_TIMEOUT_S."""
+    out_dir = ROOT / "build" / "ep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.json"):
+        f.unlink()
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        _ep_rank, args=(_free_port(), str(out_dir)), nprocs=EP_MODEL,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + EP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the ranks ran past {EP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(EP_MODEL)]
+    for r in ranks:
+        if r["launches"]["flash_attention"] != EP_LAYERS:
+            raise AssertionError(
+                f"rank {r['rank']}'s prefill launched flash_attention "
+                f"{r['launches']['flash_attention']} times, not {EP_LAYERS}")
+    return {"arch": MOE_ARCH, "layers": EP_LAYERS, "mesh": [1, EP_MODEL],
+            "rules": "dp_heavy", "backend": "gloo, both ranks on card 0",
+            "all_to_all_note": "gloo through the host (a host copy each "
+                               "way) on one card: not a collective's speed",
+            "seconds": time.perf_counter() - t0, "ranks": ranks}
+
+
+def _example_cmd(name, args, device):
+    return [sys.executable, "-m", f"repro_torch.examples.{name}", *args,
+            "--device", device]
+
+
+def examples_checks():
+    """The five examples (A28), each a child process on the card, all at
+    once; serve_tenants and serve_pipeline also on the CPU, whose output
+    theirs must equal. Each child's seconds are from the common start to
+    its exit."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    out_dir = ROOT / "build" / "examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for name, args in EXAMPLES:
+        if name == "train_lm":
+            args = args + ["--ckpt", str(out_dir / "train_lm_ckpt")]
+        runs[name] = _example_cmd(name, args, "cuda")
+        if name in EXAMPLES_ON_CPU:
+            runs[name + " cpu"] = _example_cmd(name, args, "cpu")
+    t0 = time.perf_counter()
+    procs, logs, seconds = {}, {}, {}
+    try:
+        for k, cmd in runs.items():
+            logs[k] = open(out_dir / f"{k.replace(' ', '_')}.log", "w+")
+            procs[k] = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                        stdout=logs[k],
+                                        stderr=subprocess.STDOUT)
+        while len(seconds) < len(procs):
+            if time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S:
+                raise TimeoutError(f"examples {sorted(set(procs) - set(seconds))} "
+                                   f"ran past {EXAMPLE_TIMEOUT_S} s")
+            for k, p in procs.items():
+                if k not in seconds and p.poll() is not None:
+                    seconds[k] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        out = {}
+        for k, f in logs.items():
+            f.seek(0)
+            out[k] = f.read()
+            f.close()
+    for k, p in procs.items():
+        if p.returncode != 0:
+            raise AssertionError(f"example {k} exited {p.returncode}:\n"
+                                 f"{out[k][-3000:]}")
+    checks = {
+        "train_lm": ("[train] simulating crash at step 50" in out["train_lm"]
+                     and "[train] resumed from step 50" in out["train_lm"]),
+        "nic_apps": [ln.split()[-1] for ln in
+                     out["nic_apps"].splitlines()[1:] if ln.strip()]
+        == ["True"] * 6,
+        "quickstart": "parallel data plane == single-pipeline oracle: True"
+        in out["quickstart"],
+        "serve_tenants": (out["serve_tenants"] == out["serve_tenants cpu"]
+                          and "tenants alive: 6/6" in out["serve_tenants"]),
+        "serve_pipeline": (
+            _plan_lines(out["serve_pipeline"])
+            == _plan_lines(out["serve_pipeline cpu"])
+            and "12/12 requests" in out["serve_pipeline"]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"examples {failed} printed otherwise:\n" + "\n"
+                             .join(out[k][-2000:] for k in failed))
+    return {"seconds": seconds, "seconds_all": time.perf_counter() - t0,
+            "nic_apps": out["nic_apps"].splitlines(),
+            "serve_pipeline": out["serve_pipeline"].splitlines()[-1],
+            "checks": checks}
+
+
+def _plan_lines(out):
+    lines = out.splitlines()
+    start = lines.index("[serve] Meili plan:")
+    return lines[start:start + 5]
+
+
 def encdec_attention_rows(model, cache, launches):
     """B5 and B6 at seamless's shapes, as variant rows (random inputs from
     a seeded generator): B5 ``seamless encoder`` over f32 q, k, v (4,
@@ -4760,6 +5245,23 @@ def main() -> int:
         moe_pd["decode_attention"])
     by_name["decode_attention"]["launches_by_path"]["moonshot_engine"] = (
         moe_eng["decode_attention"])
+
+    # expert parallelism (A30): moonshot's MoE layers over two ranks
+    ep = ep_checks()
+    ep["card"] = smi
+    print(f"ep ({smi}): " + ", ".join(
+        f"rank {r['rank']} prefill {r['prefill_ms']:.2f} ms (all-to-all "
+        f"{r['all_to_all_ms']:.2f} ms, gloo through the host; expert "
+        f"products {r['expert_products_ms']:.2f} ms; drops "
+        f"{r['drops_per_layer']})" for r in ep["ranks"]))
+    print("ep " + json.dumps(ep))
+    by_name["flash_attention"]["launches_by_path"]["moonshot_ep"] = (
+        ep["ranks"][0]["launches"]["flash_attention"])
+
+    # the examples (A28), each as a user runs it
+    ex = examples_checks()
+    ex["card"] = smi
+    print("examples " + json.dumps(ex))
 
     # the MoE and hybrid families reduced, card against CPU
     for arch in REDUCED_MOE_ARCHS:

@@ -6,10 +6,11 @@ pod axis is pure data parallelism (parameters replicated across pods,
 gradients all-reduced; optionally int8-compressed,
 ``parallel/compression.py``).
 
-These are shapes only: no devices and no process group. The sharding
-resolver reads ``axis_names`` and ``shape`` from them (and takes a
-``torch.distributed`` DeviceMesh as well). ``make_host_mesh`` is the one
-card the port runs on.
+The production meshes are shapes only: no devices and no process group.
+The sharding resolver reads ``axis_names`` and ``shape`` from them (and
+takes a ``torch.distributed`` DeviceMesh as well). ``make_host_mesh`` is
+the mesh over whatever ranks exist: a DeviceMesh over the process group
+where one is initialised, else the (1, 1) description of the one card.
 """
 from __future__ import annotations
 
@@ -33,13 +34,20 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     return MeshShape(("data", "model"), (16, 16))
 
 
-def make_host_mesh(model: int = 1) -> MeshShape:
-    """The one card: a (1, 1) ("data", "model") mesh (``model`` above 1
-    would need more devices than the port drives)."""
-    if model != 1:
-        raise ValueError(f"make_host_mesh: the port runs on one device, "
-                         f"not a model axis of {model}")
-    return MeshShape(("data", "model"), (1, 1))
+def make_host_mesh(model: int = 1, device_type: str = "cuda"):
+    """Small mesh over whatever ranks exist, as the reference's over
+    whatever devices exist: with a ``torch.distributed`` group initialised,
+    a ("data", "model") DeviceMesh of ``device_type`` over its world, the
+    model axis ``min(model, world)``; without one, the (1, 1) description.
+    """
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return MeshShape(("data", "model"), (1, 1))
+    from torch.distributed.device_mesh import init_device_mesh
+    n = dist.get_world_size()
+    model = min(model, n)
+    return init_device_mesh(device_type, (n // model, model),
+                            mesh_dim_names=("data", "model"))
 
 
 def dp_degree(mesh) -> int:

@@ -35,6 +35,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        make_norm, mlp, mlp_init, pad_vocab,
                                        to_module)
+from repro_torch.parallel import sharding
 
 Tree = Dict
 
@@ -212,6 +213,7 @@ def _apply_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
 
 def _embed_inputs(params: LM, tokens: Optional[torch.Tensor],
                   extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    sharding.require_whole_sequences()     # positions and attention
     parts = []
     if extra_embeds is not None:
         parts.append(extra_embeds)

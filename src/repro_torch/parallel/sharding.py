@@ -17,9 +17,20 @@ A mesh is anything with ``axis_names`` and a ``shape`` mapping (the
 descriptions of ``launch/mesh.py``), or a ``torch.distributed`` DeviceMesh
 (its ``mesh_dim_names`` and ``size(i)``). ``shardings_for`` gives each
 parameter's DTensor placements, the counterpart of a ``NamedSharding``.
-The port runs on one card: ``constrain`` and ``constrain_act`` are
-identities on a mesh of one device and raise on a larger one, where the
-expert-parallel slice will give them a meaning.
+
+The port's model code is rank-local. Where a DeviceMesh over a live
+process group is installed (``launch/mesh.make_host_mesh`` with a group
+initialised), each rank holds its own block of every activation, the block
+that the activation's spec gives it (``block``), and ``constrain`` and
+``constrain_act`` are identities on it: the block already has the layout
+the spec names. Only the MoE FFN crosses ranks (``models/moe.py``, through
+``parallel/collectives.py``). The reference decides its MoE path on the
+*global* shape of the activations, which a rank does not see: the launcher
+installs the global (batch, seq) of the tokens with the rules
+(``set_activation_sharding(..., tokens=)``), and ``global_shape`` gives a
+rank's activation its global shape from it. A mesh description larger
+than one device has no process group and no rank: ``constrain`` and
+``set_activation_sharding`` raise on it.
 """
 from __future__ import annotations
 
@@ -218,36 +229,84 @@ def shardings_for(axes: Mapping[str, Tuple],
             for k, s in tree_specs(axes, params, rules, mesh).items()}
 
 
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry: ``None``, a name or a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def is_live(mesh) -> bool:
+    """A DeviceMesh over a process group (as against a description)."""
+    return hasattr(mesh, "get_group")
+
+
 def _one_device(mesh) -> bool:
     return mesh is None or mesh_size(mesh) == 1
+
+
+def coordinates(mesh) -> Dict[str, int]:
+    """``{axis name: this rank's index along it}`` on a live mesh."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def block_index(entry, mesh) -> Tuple[int, int]:
+    """(this rank's block, number of blocks) of a dim laid out by one spec
+    entry: a tuple of axes numbers the blocks row-major, its first axis
+    the slowest (as ``shard_map`` cuts them)."""
+    sizes, coords = mesh_axes(mesh), coordinates(mesh)
+    index, count = 0, 1
+    for a in entry_axes(entry):
+        index, count = index * sizes[a] + coords[a], count * sizes[a]
+    return index, count
+
+
+def block(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
+    """This rank's block of a whole tensor laid out by ``spec`` (a view):
+    what ``shard_map``'s ``in_specs`` hand the rank."""
+    for dim, entry in enumerate(spec):
+        index, count = block_index(entry, mesh)
+        if count > 1:
+            size = t.shape[dim] // count
+            t = t.narrow(dim, index * size, size)
+    return t
 
 
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]],
               rules: LogicalRules, mesh) -> torch.Tensor:
     """Pin an activation's sharding by logical names: the identity on one
-    device; a larger mesh has no activation sharding in the port yet."""
-    if _one_device(mesh):
+    device and on a live mesh, where x is already the rank's block; a
+    description larger than one device has no rank to hold a block."""
+    if _one_device(mesh) or is_live(mesh):
         return x
     raise NotImplementedError(
-        f"constrain: activation sharding over {mesh_axes(mesh)} is not "
-        f"ported; the port runs on one device")
+        f"constrain: activation sharding over the description "
+        f"{mesh_axes(mesh)} has no process group; install a DeviceMesh")
 
 
 # ---------------------------------------------------------------------------
 # Activation-sharding context: model code calls constrain_act(x, axes) with
-# logical names; a launcher installs (rules, mesh) before running. Identity
-# when not installed or on one device.
+# logical names; a launcher installs (rules, mesh) before running, and on a
+# live mesh the global (batch, seq) of the tokens. Identity when not
+# installed, on one device and on a live mesh.
 # ---------------------------------------------------------------------------
 
-_ACT = {"rules": None, "mesh": None}
+_ACT = {"rules": None, "mesh": None, "tokens": None}
 
 
-def set_activation_sharding(rules: Optional[LogicalRules], mesh) -> None:
-    if not _one_device(mesh):
+def set_activation_sharding(rules: Optional[LogicalRules], mesh,
+                            tokens: Optional[Tuple[int, int]] = None
+                            ) -> None:
+    """Install ``rules`` over ``mesh``; ``tokens`` is the global (batch,
+    seq) of the activations that the model code will see, each rank
+    holding its block of them."""
+    if not _one_device(mesh) and not is_live(mesh):
         raise NotImplementedError(
-            f"set_activation_sharding: a mesh of {mesh_size(mesh)} devices; "
-            f"the port runs on one device")
+            f"set_activation_sharding: the description {mesh_axes(mesh)} of "
+            f"{mesh_size(mesh)} devices has no process group; install a "
+            f"DeviceMesh")
     _ACT["rules"], _ACT["mesh"] = rules, mesh
+    _ACT["tokens"] = None if tokens is None else tuple(tokens)
 
 
 def constrain_act(x: torch.Tensor, axes: Sequence[Optional[str]]
@@ -256,3 +315,45 @@ def constrain_act(x: torch.Tensor, axes: Sequence[Optional[str]]
     if rules is None or mesh is None or len(axes) != x.dim():
         return x
     return constrain(x, axes, rules, mesh)
+
+
+def token_spec(shape: Sequence[int], rules: LogicalRules,
+               mesh) -> PartitionSpec:
+    """The spec of activations of global shape (B, S, D), as the reference
+    resolves it in ``moe_ffn``."""
+    return spec_for(("batch", "seq", None), tuple(shape), rules, mesh)
+
+
+def global_shape(x: torch.Tensor) -> Tuple[int, int, int]:
+    """The global (B, S, D) of a rank's block x (B_l, S_l, D) on the
+    installed live mesh, from the installed tokens; raises where x is not
+    the block those tokens give the rank (a decode step's activations
+    under a prefill's tokens, say: the launcher installs each call's)."""
+    rules, mesh, tokens = _ACT["rules"], _ACT["mesh"], _ACT["tokens"]
+    if tokens is None:
+        raise ValueError(
+            "a live mesh is installed without the global (batch, seq) of "
+            "the tokens: pass tokens= to set_activation_sharding")
+    shape = (tokens[0], tokens[1], x.shape[-1])
+    spec, sizes = token_spec(shape, rules, mesh), mesh_axes(mesh)
+    local = tuple(n // math.prod(sizes[a] for a in entry_axes(e))
+                  for n, e in zip(shape, spec))
+    if local != tuple(x.shape):
+        raise ValueError(
+            f"activations of shape {tuple(x.shape)} are not a rank's block "
+            f"{local} of the installed tokens {tokens} (spec {spec})")
+    return shape
+
+
+def require_whole_sequences() -> None:
+    """The port's attention runs on whole sequences: raise where the
+    installed tokens split the sequence over ranks (sequence-parallel
+    attention is not ported; the MoE FFN alone takes such a layout)."""
+    rules, mesh, tokens = _ACT["rules"], _ACT["mesh"], _ACT["tokens"]
+    if mesh is None or rules is None or tokens is None or _one_device(mesh):
+        return
+    spec = token_spec((tokens[0], tokens[1], 1), rules, mesh)
+    if entry_axes(spec[1]):
+        raise NotImplementedError(
+            f"tokens {tokens} split the sequence over {spec[1]!r}: the "
+            f"port's attention needs whole sequences on a rank")

@@ -1868,3 +1868,39 @@ def test_dry_run_counts_equal_the_card(cuda, name, kind):
     assert fc.get_total_flops() == want["aten_flops"] > 0
     assert {k: n for k, n in _build.launch_counts().items() if n} == {
         k: v["launches"] for k, v in want["kernels"].items()}
+
+
+def test_expert_parallel_moe_over_two_ranks_on_card_equals_cpu(cuda,
+                                                              tmp_path):
+    """Two ranks on one card (gloo: NCCL refuses two ranks on one device;
+    the collectives go through the host) over a (1, 2) mesh: the reduced
+    MoE FFN's expert-parallel path (dp_heavy_rules, the batch over data x
+    model) and the global dispatch's expert-block branch (default_rules),
+    each rank's block equal to the same two ranks on the CPU (f32: the
+    products sum in another order, F32_TOL), the same paths taken."""
+    import _torch_ep_ranks as ranks
+    rng = np.random.default_rng(11)
+    D, Fd, E = 64, 128, 8
+    p = {"router": rng.standard_normal((D, E)).astype(np.float32) / 8,
+         "gate": rng.standard_normal((E, D, Fd)).astype(np.float32) / 8,
+         "up": rng.standard_normal((E, D, Fd)).astype(np.float32) / 8,
+         "down": rng.standard_normal((E, Fd, D)).astype(np.float32) / 11}
+    x = rng.standard_normal((2, 64, D)).astype(np.float32)
+    cases = [{"name": name, "cfg": {"n_experts": E, "top_k": 2},
+              "rules": name, "dtype": "float32", "params": p, "x": x}
+             for name in ("dp_heavy", "default")]
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    card = ranks.run_world("moe", 2, 2, cases, str(tmp_path / "card"),
+                           device="cuda")
+    host = ranks.run_world("moe", 2, 2, cases, str(tmp_path / "cpu"))
+    for got, want in zip(card, host):
+        assert got["coords"] == want["coords"]
+        for name in ("dp_heavy", "default"):
+            assert got[name]["ep"] == want[name]["ep"] == (
+                1 if name == "dp_heavy" else 0)
+            assert got[name]["products"] == want[name]["products"]
+            assert got[name]["collectives"]["host_copy_bytes"] > 0
+            assert "host_copy_bytes" not in want[name]["collectives"]
+            torch.testing.assert_close(got[name]["y"], want[name]["y"],
+                                       **F32_TOL)

@@ -177,6 +177,42 @@ def test_device_mesh_resolves_as_a_description():
         dist.destroy_process_group()
 
 
+def test_host_mesh_takes_min_of_model_and_world_as_reference():
+    """Without a process group the port's world is the one card: any
+    ``model`` resolves to min(model, 1), as the reference's does over this
+    process's one CPU device, and no model size raises."""
+    for model in (1, 2, 16):
+        got = tmesh.make_host_mesh(model)
+        want = jmesh.make_host_mesh(model)
+        assert got.axis_names == tuple(want.axis_names) == ("data", "model")
+        assert got.shape == dict(want.shape) == {"data": 1, "model": 1}
+
+
+def test_host_mesh_with_a_group_is_a_device_mesh_over_the_world():
+    """With a group initialised, ``make_host_mesh`` is a live DeviceMesh
+    over the world (one gloo rank here; the expert-parallel tests build
+    (2, 2), (1, 4) and (1, 2) worlds), which the activation context takes
+    and on which ``constrain`` is the identity: each rank holds its block."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        dm = tmesh.make_host_mesh(4, device_type="cpu")
+        assert tsh.is_live(dm) and dm.device_type == "cpu"
+        assert tsh.mesh_axes(dm) == {"data": 1, "model": 1}
+        assert tsh.coordinates(dm) == {"data": 0, "model": 0}
+        x = torch.ones(2, 3, 8)
+        tsh.set_activation_sharding(tsh.dp_heavy_rules(), dm, tokens=(2, 3))
+        try:
+            assert tsh.constrain_act(x, ("batch", "seq", None)) is x
+            spec = PartitionSpec(("data", "model"), None, None)
+            assert tsh.block(x, spec, dm).equal(x)
+        finally:
+            tsh.set_activation_sharding(None, None)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_constrain_is_identity_on_one_device_and_raises_on_more():
     x = torch.ones(4, 8)
     host = tmesh.make_host_mesh()
