@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-Sixteen paths, each driven with the launch counts set to 0 just before it
-and read just after:
+Seventeen paths, each driven with the launch counts set to 0 just before
+it and read just after:
 
 1. The data plane — ``ParallelDataPlane.process`` with the flow cache on —
    through the IPsec Gateway (all four NIC kernels: flow_lookup, dfa_regex,
@@ -160,6 +160,21 @@ and read just after:
 16. The five examples (A28) as child processes on the card: train_lm's
    crash and resume, nic_apps' and quickstart's oracles, serve_tenants'
    and serve_pipeline's output against the same scripts on the CPU.
+17. The partitioned steps (A31), after path 16: olmo-1b at full width,
+   its depth cut to 4 layers, then mamba2-370m at full width cut to 8,
+   over a (2, 2) ("data", "model") world of four ranks spawned on the one
+   card (gloo, the functional collectives through the host:
+   ``collectives.stage_through_host``), under ``rules_for``: every
+   parameter, AdamW moment, batch and cache leaf a DTensor placed by the
+   resolver. Each rank runs one ``make_train_step`` step at 8 x 1,024 in
+   2 microbatches, a 4 x 1,024 prefill and 8 decode steps, launching B5,
+   B5's backward and B6 (olmo) or B7 and its backward (mamba) on its
+   local heads under ``local_map``, exactly as many times as its layers
+   and microbatches ask; the world's results are held against the same
+   calls on one device with the kernels, from the same parameters, and a
+   world whose first model-axis reduction is dropped must fail that gate.
+   The dry run's sample (path 14) adds the partitioned cells of olmo-1b
+   and mamba2-370m on the fake (16, 16) and (2, 16, 16) meshes.
 
 Each kernel is then checked against its plain version at the shapes its
 path gave it and timed.
@@ -490,6 +505,27 @@ EP_CF_LADDER = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0)
 # slot buffers, so they agree to within one bf16 rounding
 EP_EMUL_TOL = 2.0 ** -7
 EP_TIMEOUT_S = 600
+# the partitioned steps (A31): four ranks of a (2, 2) world on the one card,
+# each arch at full width with its depth cut, one train step (2 microbatches
+# of 4 x 1,024), a 4 x 1,024 prefill and 8 decode steps
+PART_WORLD = (2, 2)
+PART_ARCHS = (("olmo-1b", 4), ("mamba2-370m", 8))
+PART_BATCH = 8
+PART_SEQ = 1024
+PART_MICROBATCH = 2
+PART_PROMPTS = 4
+PART_DECODE_STEPS = 8
+PART_LR1 = 1e-2                 # lr(1) of the rank helper's schedule
+PART_TIMEOUT_S = 900
+# the world against one device, both with the kernels: the same products
+# over other blocks, so f32 sums in other orders (cuBLAS picks its
+# algorithms by shape; B5 splits keys by the heads a launch holds). Loss
+# and grad norm as path 5's loss, logits as path 4's, the moments at
+# 1e-2 of themselves (entries far below 1e-6 cancel), the parameters as
+# path 5's: all within 2 lr(1), all but 1e-3 of them within 1e-3 lr(1)
+PART_TOL = {"loss": (0.0, 1e-4), "logits": (2e-3, 0.0),
+            "moments": (1e-6, 1e-2), "param_bound": 2 * PART_LR1,
+            "param_tol": (1e-3 * PART_LR1, 0.0), "param_share": 1e-3}
 # the five examples (A28), each a child process on the card; the analytic
 # two (serve_tenants' table, serve_pipeline's plan) also on the CPU
 EXAMPLES = (("train_lm", ["--steps", "100"]), ("nic_apps", []),
@@ -547,6 +583,10 @@ DRYRUN_FAMILIES = {"dense": "olmo-1b", "moe": "phi3.5-moe-42b-a6.6b",
                    "hybrid": "jamba-1.5-large-398b",
                    "encdec": "seamless-m4t-medium"}
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# the partitioned cells (A31) of the dense and ssm families' samples, on
+# the fake production meshes
+DRYRUN_PARTITIONED = tuple((a, s, m) for a in ("olmo-1b", "mamba2-370m")
+                           for s in DRYRUN_SHAPES for m in ("single", "multi"))
 DRYRUN_WORKERS = 7              # the host's 8 cores less this process's
 DRYRUN_SKIPS = 7
 PEAK_MEM_TOL = 0.10             # the step's peak against the card's
@@ -4223,6 +4263,196 @@ def ep_checks():
             "seconds": time.perf_counter() - t0, "ranks": ranks}
 
 
+def _part_inputs(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"train": rng.integers(2, cfg.vocab, (PART_BATCH, PART_SEQ)),
+            "prefill": rng.integers(2, cfg.vocab, (PART_PROMPTS, PART_SEQ)),
+            "decode": rng.integers(2, cfg.vocab,
+                                   (PART_DECODE_STEPS, PART_PROMPTS)),
+            "max_len": PART_SEQ + PART_DECODE_STEPS}
+
+
+def _part_params(cfg):
+    return lambda device: build(cfg, device).init(
+        torch.Generator(device=device).manual_seed(0), torch.float32)
+
+
+class _HeadTap:
+    """While installed, records the heads of every B5, B6 and B7 launch's
+    input (the rank's local heads)."""
+
+    def __enter__(self):
+        self.heads = {"flash_attention": set(), "decode_attention": set(),
+                      "ssd_scan": set()}
+        self.real = (fa.flash_attention_cuda, da.decode_attention_cuda,
+                     ss.ssd_scan_cuda)
+
+        def tap(name, fn, dim):
+            def wrapped(*a, **k):
+                self.heads[name].add(int(a[0].shape[dim]))
+                return fn(*a, **k)
+            return wrapped
+        fa.flash_attention_cuda = tap("flash_attention", self.real[0], 2)
+        da.decode_attention_cuda = tap("decode_attention", self.real[1], 1)
+        ss.ssd_scan_cuda = tap("ssd_scan", self.real[2], 2)
+        return self
+
+    def __exit__(self, *exc):
+        (fa.flash_attention_cuda, da.decode_attention_cuda,
+         ss.ssd_scan_cuda) = self.real
+
+
+def _part_expected(cfg):
+    """The launches a rank makes in each phase, and its local heads."""
+    L, accum, m = cfg.n_layers, PART_MICROBATCH, PART_WORLD[1]
+    if cfg.family == "ssm":
+        return ({"train": {"ssd_scan": L * accum, "ssd_scan_bwd": L * accum},
+                 "prefill": {"ssd_scan": L}, "decode": {}},
+                {"ssd_scan": {cfg.ssm_heads // m}})
+    return ({"train": {"flash_attention": L * accum,
+                       "flash_attention_bwd": L * accum},
+             "prefill": {"flash_attention": L},
+             "decode": {"decode_attention": L * PART_DECODE_STEPS}},
+            {"flash_attention": {cfg.n_heads // m},
+             "decode_attention": {cfg.n_heads // m}})
+
+
+def _part_gate(arch, pr, r, fault, cfg, params, inp):
+    """This rank's world results ``r`` (and the faulted world's) held to
+    the same calls on one device, on the rank's blocks."""
+    one = pr.blocks_of(pr.run_steps(cfg, params, inp, None, None, "cuda"),
+                       r)
+    out = {"one_device": {"ms": {k: 1e3 * v
+                                 for k, v in one["seconds"].items()},
+                          "launches": one["launches"], "loss": one["loss"],
+                          "grad_norm": one["grad_norm"]},
+           "logit_max_abs_err": float(np.abs(r["logits"]
+                                             - one["logits"]).max()),
+           "param_max_abs_err": max(float(np.abs(r["params"][k] - w).max())
+                                    for k, w in one["params"].items()),
+           "gate": pr.compare(r, one, PART_TOL)}
+    if out["gate"]:
+        raise AssertionError(f"{arch} over {PART_WORLD}: {out['gate'][:8]}")
+    if fault is not None:
+        out["fault_gate"] = pr.compare(fault, one, PART_TOL,
+                                       keys=("loss", "grad_norm"))
+        if not out["fault_gate"]:
+            raise AssertionError(f"{arch}: the world with a model-axis "
+                                 f"reduction dropped passed the gate")
+    return out
+
+
+def _part_run(rank, mesh):
+    """One rank's part of ``partition_checks``: each arch's steps over the
+    world and the faulted world's train step (olmo), then the same calls
+    on one device and the gates, each rank holding its own blocks of the
+    parameters and moments to the one-device run's (no gather)."""
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_partition_ranks as pr   # the steps and the gate: no JAX
+    out = {"rank": rank, "coords": sh.coordinates(mesh), "archs": {}}
+    for arch, layers in PART_ARCHS:
+        cfg = get_arch(arch).replace(n_layers=layers,
+                                     microbatch=PART_MICROBATCH)
+        rules, inp, params = sh.rules_for(cfg, mesh), _part_inputs(cfg), \
+            _part_params(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        coll.reset_stats()
+        with _HeadTap() as tap:
+            r = pr.run_steps(cfg, params, inp, mesh, rules, "cuda",
+                             whole=False)
+        rec = {"layers": layers, "rules": "rules_for",
+               "ms": {k: 1e3 * v for k, v in r["seconds"].items()},
+               "decode_ms_per_step": 1e3 * r["seconds"]["decode"]
+               / PART_DECODE_STEPS,
+               "launches": r["launches"],
+               "heads": {k: sorted(v) for k, v in tap.heads.items() if v},
+               "collectives_train": r["collectives_train"],
+               "collectives_serve": r["collectives_serve"],
+               "staged": coll.stats(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "loss": r["loss"], "grad_norm": r["grad_norm"]}
+        want_launches, want_heads = _part_expected(cfg)
+        if r["launches"] != want_launches or \
+                {k: set(v) for k, v in rec["heads"].items()} != want_heads:
+            raise AssertionError(f"rank {rank} {arch}: launches "
+                                 f"{r['launches']} (want {want_launches}), "
+                                 f"heads {rec['heads']} (want {want_heads})")
+        fault = None
+        if arch == PART_ARCHS[0][0]:
+            with pr.drop_model_reduction() as dropped:
+                fault = pr.run_steps(cfg, params, dict(inp, decode=[]), mesh,
+                                     rules, "cuda", counted=False,
+                                     whole=False)
+            if dropped["dropped"] != 1:
+                raise AssertionError(f"{arch}: the faulted world dropped "
+                                     f"{dropped['dropped']} reductions")
+        # the one-device run, a rank at a time (its time is then its own)
+        for turn in range(dist.get_world_size()):
+            dist.barrier()
+            if turn == rank:
+                rec.update(_part_gate(arch, pr, r, fault, cfg, params, inp))
+        del r, fault
+        dist.barrier()
+        out["archs"][arch] = rec
+    return out
+
+
+def _part_rank(rank, port, out_dir):
+    """A rank of ``partition_checks``, in a process of its own on card
+    0."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = PART_WORLD[0] * PART_WORLD[1]
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=PART_TIMEOUT_S))
+    try:
+        _build.load()                   # built by the parent: loaded only
+        coll.stage_through_host("cuda")
+        report = _part_run(rank, make_host_mesh(PART_WORLD[1],
+                                                device_type="cuda"))
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def partition_checks():
+    """The partitioned steps (A31) on the card: four ranks, spawned, each
+    on card 0 with its own CUDA context, joined within PART_TIMEOUT_S."""
+    out_dir = ROOT / "build" / "partition"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("rank*.json"):
+        f.unlink()
+    world = PART_WORLD[0] * PART_WORLD[1]
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        _part_rank, args=(_free_port(), str(out_dir)), nprocs=world,
+        join=False, start_method="spawn")
+    deadline = time.monotonic() + PART_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the ranks ran past {PART_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    return {"world": list(PART_WORLD), "archs": [a for a, _ in PART_ARCHS],
+            "backend": "gloo, the functional collectives staged through the "
+                       "host, four ranks on card 0",
+            "collective_note": "host copies over gloo on one card: not "
+                               "NVLink's speed",
+            "seconds": time.perf_counter() - t0, "ranks": ranks}
+
+
 def _example_cmd(name, args, device):
     return [sys.executable, "-m", f"repro_torch.examples.{name}", *args,
             "--device", device]
@@ -4744,8 +4974,9 @@ class _DryrunSample:
         self.out.mkdir(parents=True, exist_ok=True)
         for f in self.out.glob("*.json"):
             f.unlink()
-        self.todo = [(a, sh) for sh in DRYRUN_SHAPES
+        self.todo = [(a, sh, "card") for sh in DRYRUN_SHAPES
                      for a in DRYRUN_FAMILIES.values()]
+        self.todo += list(DRYRUN_PARTITIONED)
         self.env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                         CUDA_VISIBLE_DEVICES="")
         self.running = []
@@ -4754,12 +4985,12 @@ class _DryrunSample:
 
     def _fill(self):
         while self.todo and len(self.running) < DRYRUN_WORKERS:
-            arch, shape = self.todo.pop(0)
-            log = open(DRYRUN_DIR / f"{arch}__{shape}.log", "w")
+            arch, shape, mesh = self.todo.pop(0)
+            log = open(DRYRUN_DIR / f"{arch}__{shape}__{mesh}.log", "w")
             self.running.append((arch, shape, log, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", shape, "--device", "cpu",
-                 "--out", str(self.out)],
+                 "--mesh", mesh, "--out", str(self.out)],
                 stdout=log, stderr=subprocess.STDOUT, env=self.env,
                 cwd=ROOT)))
 
@@ -4950,10 +5181,35 @@ def dryrun_checks(sample, gemma_pd, olmo_tr, peak_runs, smi):
     recs, out["sample_s"] = sample.wait()
     out["sample_wait_s"] = time.perf_counter() - t1
     want = {(a, sh, "card") for a in DRYRUN_FAMILIES.values()
-            for sh in DRYRUN_SHAPES}
+            for sh in DRYRUN_SHAPES} | set(DRYRUN_PARTITIONED)
     if set(recs) != want:
         raise AssertionError(f"dry run cells: {sorted(recs)}, want "
                              f"{sorted(want)}")
+    out["partitioned"] = {}
+    for (a, sh, mk), r in sorted(recs.items()):
+        if mk == "card":
+            continue
+        mem, roof, coll_ = r["memory"], r["roofline"], r.get(
+            "collectives_full_step", {})
+        if r["status"] != "ok" or r.get("analytic") or \
+                not r["step"]["flops"] or (sh != "decode_32k"
+                                           and not coll_.get("total")):
+            raise AssertionError(f"dry run {a} x {sh} x {mk}: "
+                                 f"{json.dumps(r)[:2000]}")
+        out["partitioned"][f"{a} {sh} {mk}"] = {
+            "flops_per_device": r["step"]["flops"],
+            "bytes_per_device": r["step"]["bytes"],
+            "peak_bytes_per_device": mem["peak_bytes"], "fits": mem["fits"],
+            "collectives": coll_, "t_collective": roof["t_collective"],
+            "dominant": roof["dominant"], "trace_s": r["compile_s"]}
+        print(f"dryrun {a} x {sh} x {mk} (partitioned, a device of "
+              f"{r['chips']}): {r['step']['flops']} FLOPs, "
+              f"{r['step']['bytes']} B, peak {mem['peak_bytes']} B (fits "
+              f"{mem['fits']}), collectives {coll_.get('total')} B "
+              f"{json.dumps(coll_.get('by_axis'))}, {roof['dominant']}, "
+              f"t_collective {roof['t_collective']:.6f} s, trace "
+              f"{r['compile_s']:.2f} s")
+    recs = {k: v for k, v in recs.items() if k[2] == "card"}
     for (a, sh, _), r in sorted(recs.items()):
         mem, roof = r["memory"], r["roofline"]
         launches = {k: v["launches"] for k, v in r["step"]["kernels"].items()}
@@ -5257,6 +5513,40 @@ def main() -> int:
     print("ep " + json.dumps(ep))
     by_name["flash_attention"]["launches_by_path"]["moonshot_ep"] = (
         ep["ranks"][0]["launches"]["flash_attention"])
+
+    # the partitioned steps (A31): olmo-1b and mamba2-370m over four ranks
+    part = partition_checks()
+    part["card"] = smi
+    for arch in part["archs"]:
+        r0 = part["ranks"][0]["archs"][arch]
+        for r in part["ranks"]:
+            a = r["archs"][arch]
+            print(f"partition {arch} rank {r['rank']} {json.dumps(r['coords'])}"
+                  f" ({smi}): train step {a['ms']['train']:.1f} ms, prefill "
+                  f"{a['ms']['prefill']:.1f} ms, decode "
+                  f"{a['decode_ms_per_step']:.2f} ms a step; collectives "
+                  f"train {a['collectives_train']['count']} calls "
+                  f"{a['collectives_train']['total']} B "
+                  f"{json.dumps(a['collectives_train']['by_axis'])}, serve "
+                  f"{a['collectives_serve']['count']} calls "
+                  f"{a['collectives_serve']['total']} B; host copies "
+                  f"{a['staged'].get('host_copy_bytes', 0)} B; peak "
+                  f"{a['peak_bytes']} B")
+        print(f"partition {arch}: one device train step "
+              f"{r0['one_device']['ms']['train']:.1f} ms, prefill "
+              f"{r0['one_device']['ms']['prefill']:.1f} ms; world against "
+              f"one device: loss {r0['loss']} vs {r0['one_device']['loss']}, "
+              f"logits within {r0['logit_max_abs_err']}, parameters within "
+              f"{r0['param_max_abs_err']}" + (
+                  f"; faulted world rejected ({r0['fault_gate'][:2]})"
+                  if "fault_gate" in r0 else ""))
+    print("partition " + json.dumps(part))
+    for arch in part["archs"]:
+        for phase, counts in part["ranks"][0]["archs"][arch][
+                "launches"].items():
+            for name, n in counts.items():
+                by_name[name]["launches_by_path"][
+                    f"{arch} partitioned {phase} (rank 0)"] = n
 
     # the examples (A28), each as a user runs it
     ex = examples_checks()

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 import weakref
 from typing import Callable, Dict, Tuple
@@ -125,6 +126,45 @@ def _moves_no_data(func, args, out) -> bool:
 _MISS = object()
 
 
+def _has_dtensor(types) -> bool:
+    return any(t is not torch.Tensor and _is_dtensor_type(t) for t in types)
+
+
+@functools.lru_cache(maxsize=None)
+def _is_dtensor_type(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return issubclass(t, DTensor)
+
+
+# DTensor works out an op's global output shape by running the op on
+# global-shaped stand-ins (``ShardingPropagator._propagate_tensor_meta_
+# non_cached``); a counter sees those ops too, and they are not a rank's
+# work. While one runs, the count is > 0 and the counters skip.
+_PROPAGATING = [0]
+
+
+def _skip_dtensor_propagation() -> None:
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    f = ShardingPropagator._propagate_tensor_meta_non_cached
+    if getattr(f, "skipped_by_counters", False):
+        return
+
+    def propagate(self, op_schema):
+        _PROPAGATING[0] += 1
+        try:
+            return f(self, op_schema)
+        finally:
+            _PROPAGATING[0] -= 1
+    propagate.skipped_by_counters = True
+    ShardingPropagator._propagate_tensor_meta_non_cached = propagate
+
+
+def propagating() -> bool:
+    """Whether DTensor is working out an op's output shape (no rank's
+    work: counters skip it)."""
+    return _PROPAGATING[0] > 0
+
+
 def _tensors(tree):
     """The tensors of an op's (possibly nested) list, tuple or dict
     arguments."""
@@ -210,6 +250,7 @@ class _CostMode(TorchDispatchMode):
         self._memo_funcs: Dict = {}
 
     def __enter__(self):
+        _skip_dtensor_propagation()
         _build._SINKS.append(self)
         return super().__enter__()
 
@@ -225,7 +266,7 @@ class _CostMode(TorchDispatchMode):
 
     def hold(self, tensors) -> None:
         for t in _tensors(tensors):
-            self._book(t)
+            self._book(getattr(t, "_local_tensor", t))   # a DTensor's block
 
     def _book(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -242,7 +283,14 @@ class _CostMode(TorchDispatchMode):
         self.live_bytes -= self._live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _has_dtensor(types):
+            # a DTensor op: DTensor issues the rank's local ops (and its
+            # collectives), which come back here and are what one device
+            # does
+            return NotImplemented
         kwargs = kwargs or {}
+        if propagating():
+            return func(*args, **kwargs)
         key = _meta_key(func, args, kwargs) if self._memo_ok(func) else None
         got = self._memo.get(key, _MISS) if key is not None else _MISS
         if got is not _MISS and got is not None:

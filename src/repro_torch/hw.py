@@ -42,6 +42,28 @@ PEAK_TF32_TENSOR_FLOPS = 495e12
 # TFLOP/s, not the CUDA cores' 67.
 PEAK_F32_TENSOR_FLOPS = PEAK_TF32_TENSOR_FLOPS / 3
 
+# --- Links between H100s (the partitioned steps' collective term) -----------
+# NVLink 4 within an 8-GPU HGX H100 node: 900 GB/s a GPU in all, 450 GB/s
+# a direction (H100 SXM data sheet). Between nodes, each GPU has its own
+# ConnectX-7 NIC at 400 Gb/s, 50 GB/s a direction (DGX H100 data sheet:
+# 8x single-port ConnectX-7 400 Gb/s InfiniBand/Ethernet).
+GPUS_PER_NODE = 8
+NVLINK_BW = 450e9              # bytes/s a direction, within a node
+NODE_NET_BW = 50e9             # bytes/s a direction a GPU, between nodes
+
+
+def axis_link_bw(axes) -> dict:
+    """``{mesh axis: link rate}`` for a row-major mesh ``{axis: size}``
+    laid over 8-GPU nodes in rank order: an axis whose groups stay inside
+    one node (stride x size <= 8) runs over NVLink, any other over the
+    nodes' network, its slowest link."""
+    out, stride = {}, 1
+    for name, size in reversed(list(axes.items())):
+        out[name] = NVLINK_BW if stride * size <= GPUS_PER_NODE \
+            else NODE_NET_BW
+        stride *= size
+    return {name: out[name] for name in axes}
+
 # --- Meili paper cluster calibration (§8 methodology, Figs 2/9/15) -----------
 NIC_LINK_GBPS = 100.0
 TO_CORE_GBPS_1500B = 100.0

@@ -23,6 +23,15 @@ nothing to fit. The pieces' FLOPs sum to the whole step's exactly, and
 so do their bytes: what joins two pieces is a piece of its own (the
 first encoder layer, whose input needs no gradient; the sum autograd
 makes of the decoder layers' gradients of the encoder's output).
+
+Over a partitioned mesh (``mesh.fake_mesh``; the dense and ssm families)
+each piece's inputs are DTensors placed as the step places them (the
+parameters, gradients and moments by the resolver, activations by their
+logical axes: ("batch", "seq", None)), each piece runs under the step's
+context (``steps.on_mesh``) and its collectives are counted
+(``roofline.collective_bytes``, ``coll`` in each piece); its figures are
+one device's. A piece starts from activations in their pinned layout,
+so the redistributions that join two pieces land in the later one.
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ import torch
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.steps import (accumulate, choose_microbatch,
-                                      finish_grads, grad_buffers)
+                                      finish_grads, grad_buffers, on_mesh,
+                                      partitioned, place_batch, place_cache)
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import embed, make_norm
@@ -46,8 +56,37 @@ META = torch.device("meta")
 _SCHEDULE = (3e-4, 100, 10000)
 
 
-def _empty(shape, dtype, grad: bool = False) -> torch.Tensor:
-    return torch.empty(shape, dtype=dtype, device=META, requires_grad=grad)
+# the partitioned mesh and rules of the cell being decomposed, if any
+_ON = {"mesh": None, "rules": None}
+
+
+def _empty(shape, dtype, grad: bool = False, axes=None) -> torch.Tensor:
+    """A meta tensor; over a partitioned mesh a DTensor placed by the spec
+    of ``axes`` (replicated without)."""
+    mesh = _ON["mesh"]
+    if mesh is None:
+        return torch.empty(shape, dtype=dtype, device=META,
+                           requires_grad=grad)
+    from repro_torch.parallel import sharding as sh
+    t = sh.dzeros(shape, axes or (None,) * len(shape), _ON["rules"], mesh,
+                  dtype, META)
+    return t.requires_grad_(grad)
+
+
+_ACT = ("batch", "seq", None)
+
+
+def _like(t: torch.Tensor) -> torch.Tensor:
+    """A meta tensor shaped and placed as ``t``."""
+    return torch.empty_like(t) if _ON["mesh"] is not None else \
+        _empty(t.shape, t.dtype)
+
+
+def _params(model: Model, dtype):
+    params = model.param_struct(dtype)
+    if _ON["mesh"] is not None:
+        model.distribute(params, _ON["mesh"], _ON["rules"])
+    return params
 
 
 def _zero() -> Dict:
@@ -69,7 +108,14 @@ class _Pieces:
         self.totals, self.pieces = _zero(), {}
 
     def add(self, name: str, fn: Callable, mult: int) -> None:
-        c = rl.trace(fn)
+        mesh = _ON["mesh"]
+        if mesh is None:
+            c = rl.trace(fn)
+        else:
+            with on_mesh(mesh, _ON["rules"]), \
+                    rl.collective_bytes(mesh) as coll:
+                c = rl.trace(fn)
+            c["coll"] = coll.result
         c.pop("seconds")
         self.pieces[name] = {**c, "mult": mult}
         _acc(self.totals, c, mult)
@@ -83,7 +129,7 @@ def _train_tail(p: _Pieces, cfg, named: Dict[str, torch.Tensor],
                 accum: int) -> None:
     """The gradient sums and AdamW, as ``make_train_step`` runs them."""
     grad_dtype = torch.bfloat16 if cfg.bf16_optimizer_state else torch.float32
-    grads = {k: _empty(t.shape, t.dtype) for k, t in named.items()}
+    grads = {k: _like(t) for k, t in named.items()}
     g_acc = grad_buffers(named, grad_dtype)
     loss = _empty((), torch.float32)
     p.add("grad_init", lambda: finish_grads(grad_buffers(named, grad_dtype),
@@ -100,17 +146,21 @@ def _train_tail(p: _Pieces, cfg, named: Dict[str, torch.Tensor],
 
 def _lm_train(model: Model, shape: ShapeConfig, dtype, p: _Pieces) -> None:
     cfg = model.cfg
-    accum = choose_microbatch(cfg, shape.global_batch)
+    accum = choose_microbatch(cfg, shape.global_batch, _ON["mesh"],
+                              _ON["rules"])
     B, S, D = shape.global_batch // accum, shape.seq_len, cfg.d_model
-    params = model.param_struct(dtype).requires_grad_(True)
+    params = _params(model, dtype).requires_grad_(True)
     named = dict(params.named_parameters())
-    mb = model.input_specs(ShapeConfig(shape.name, S, B, "train"), dtype)
+    mb_shape = ShapeConfig(shape.name, S, B, "train")
+    mb = place_batch(model, model.input_specs(mb_shape, dtype), mb_shape,
+                     _ON["mesh"], _ON["rules"])
     _, norm_apply = make_norm(cfg)
 
     for si, seg in enumerate(lm_mod.build_schedule(cfg)):
         layers = params.layers(si, 0)
-        x = _empty((B, S, D), dtype, grad=True)
-        pos, hbar = lm_mod.positions_of(x), _empty((B, S, D), dtype)
+        x = _empty((B, S, D), dtype, grad=True, axes=_ACT)
+        pos, hbar = lm_mod.positions_of(x), _empty((B, S, D), dtype,
+                                                   axes=_ACT)
         ps = [t for layer in layers for t in layer.parameters()]
 
         def body(layers=layers, x=x, pos=pos, hbar=hbar, ps=ps):
@@ -120,8 +170,8 @@ def _lm_train(model: Model, shape: ShapeConfig, dtype, p: _Pieces) -> None:
             _grad(h, ps + [x], hbar)
         p.add(f"segment{si}", body, seg.count * accum)
 
-    x_last = _empty((B, S, D), dtype, grad=True)
-    dx0 = _empty((B, S, D), dtype)
+    x_last = _empty((B, S, D), dtype, grad=True, axes=_ACT)
+    dx0 = _empty((B, S, D), dtype, axes=_ACT)
     outer = [t for k, t in named.items() if not k.startswith("segments.")]
 
     def embed_loss():
@@ -141,20 +191,25 @@ def _lm_prefill(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
                 cache_dtype) -> None:
     cfg = model.cfg
     B, S, D = shape.global_batch, shape.seq_len, cfg.d_model
-    params = model.param_struct(dtype)
-    inp = model.input_specs(shape, dtype)
+    params = _params(model, dtype)
+    inp = place_batch(model, model.input_specs(shape, dtype), shape,
+                      _ON["mesh"], _ON["rules"])
     _, norm_apply = make_norm(cfg)
+    mesh = _ON["mesh"]
 
     def embed_cache():
         x = lm_mod._embed_inputs(params, inp["tokens"], inp.get("patches"))
         lm_mod.positions_of(x)
-        lm_mod._new_cache(cfg, B, S, cache_dtype, META, with_mamba=False)
+        lm_mod._new_cache(cfg, B, S, cache_dtype, META, with_mamba=False,
+                          mesh=mesh)
     p.add("embed", embed_cache, 1)
 
-    cache = lm_mod._new_cache(cfg, B, S, cache_dtype, META, with_mamba=False)
+    with on_mesh(mesh, _ON["rules"]):
+        cache = lm_mod._new_cache(cfg, B, S, cache_dtype, META,
+                                  with_mamba=False, mesh=mesh)
     for si, seg in enumerate(lm_mod.build_schedule(cfg)):
         layers = params.layers(si, 0)
-        x = _empty((B, S, D), dtype)
+        x = _empty((B, S, D), dtype, axes=_ACT)
         pos = lm_mod.positions_of(x)
 
         def body(si=si, seg=seg, layers=layers, x=x, pos=pos):
@@ -165,7 +220,7 @@ def _lm_prefill(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
                                          seg.count, cache_dtype)
         p.add(f"segment{si}", body, seg.count)
 
-    x = _empty((B, S, D), dtype)
+    x = _empty((B, S, D), dtype, axes=_ACT)
     p.add("head", lambda: lm_mod.logits(
         cfg, params, norm_apply(params.final_norm, x)[:, -1]), 1)
 
@@ -175,9 +230,10 @@ def _lm_decode(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
                cache_dtype) -> None:
     cfg = model.cfg
     B, S, D = shape.global_batch, shape.seq_len, cfg.d_model
-    params = model.param_struct(dtype)
-    cache = model.cache_struct(shape, cache_dtype)
-    tokens = _empty((B,), torch.int32)
+    params = _params(model, dtype)
+    cache = place_cache(model, model.cache_struct(shape, cache_dtype),
+                        _ON["mesh"], _ON["rules"])
+    tokens = _empty((B,), torch.int32, axes=("batch",))
     _, norm_apply = make_norm(cfg)
     pos = S - 1
 
@@ -195,7 +251,7 @@ def _lm_decode(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
                 lm_mod._promote_tails(c, dtype)
                 for c, s in zip(seg_c, seg.body) if not lm_mod._is_attn(s)],
                 1)
-        x = _empty((B, D), dtype)
+        x = _empty((B, D), dtype, axes=("batch", None))
 
         def body(layers=layers, seg_c=seg_c, x=x):
             h = x
@@ -297,28 +353,44 @@ def _encdec(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
 # ---------------------------------------------------------------------------
 
 def decompose_cell(model: Model, shape: ShapeConfig, mesh=None,
-                   dtype=torch.bfloat16, cache_dtype=torch.bfloat16) -> Dict:
-    """Per-piece and total FLOPs and bytes of one (arch × shape) step on
-    one card (``mesh`` must be a one-device mesh or None), and its
-    roofline: ``{"totals", "pieces", "roofline"}``."""
-    if mesh is not None:
-        from repro_torch.parallel.sharding import mesh_size
-        if mesh_size(mesh) != 1:
-            raise ValueError("decompose_cell counts the step of one card")
+                   rules=None, dtype=torch.bfloat16,
+                   cache_dtype=torch.bfloat16) -> Dict:
+    """Per-piece and total FLOPs and bytes of one (arch × shape) step, a
+    device's, and its roofline: ``{"totals", "pieces", "roofline"}``. On
+    one card (``mesh`` None or of one device), or over a partitioned
+    DeviceMesh under ``rules`` (default ``rules_for``), whose totals also
+    carry the pieces' collectives (``coll``)."""
     cfg = model.cfg
     p = _Pieces()
-    if cfg.family == "encdec":
-        _encdec(model, shape, dtype, p, cache_dtype)
-    elif shape.kind == "train":
-        _lm_train(model, shape, dtype, p)
-    elif shape.kind == "prefill":
-        _lm_prefill(model, shape, dtype, p, cache_dtype)
-    else:
-        _lm_decode(model, shape, dtype, p, cache_dtype)
+    if partitioned(mesh):
+        from repro_torch.parallel.sharding import rules_for
+        _ON.update(mesh=mesh, rules=rules or rules_for(cfg, mesh))
+    try:
+        if cfg.family == "encdec":
+            _encdec(model, shape, dtype, p, cache_dtype)
+        elif shape.kind == "train":
+            _lm_train(model, shape, dtype, p)
+        elif shape.kind == "prefill":
+            _lm_prefill(model, shape, dtype, p, cache_dtype)
+        else:
+            _lm_decode(model, shape, dtype, p, cache_dtype)
+    finally:
+        on = dict(_ON)
+        _ON.update(mesh=None, rules=None)
+    coll = None
+    if on["mesh"] is not None:
+        coll = {"total": 0, "by_axis": {}}
+        for piece in p.pieces.values():
+            coll["total"] += piece["coll"]["total"] * piece["mult"]
+            for a, n in piece["coll"]["by_axis"].items():
+                coll["by_axis"][a] = coll["by_axis"].get(a, 0) + \
+                    n * piece["mult"]
+        p.totals["coll"] = coll
     total, active = model.param_counts()
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                    else 1)
     mflops = rl.model_flops(total, active, shape.kind, tokens)
-    roof = rl.build(p.totals["flops"], p.totals["bytes"], mflops, dtype)
+    roof = rl.build(p.totals["flops"], p.totals["bytes"], mflops, dtype,
+                    mesh=on["mesh"], coll=coll)
     return {"totals": p.totals, "pieces": p.pieces,
             "roofline": roof.to_dict()}

@@ -10,8 +10,19 @@ Mesh kinds:
     carries the per-piece view (``decompose.py``), whose totals equal the
     whole step's.
   * ``single`` / ``multi``: the reference's (16, 16) and (2, 16, 16)
-    descriptions. Only what the resolver's specs give per device is
-    recorded (``"analytic": true``): nothing partitions the port's trace.
+    meshes of H100s. A cell whose layout the port partitions (the dense
+    and ssm families, where the rules keep whole sequences on a rank:
+    ``partition_reason``) is traced as the partitioned step over a fake
+    process group of 256 or 512 ranks (``mesh.fake_mesh``): DTensors on
+    the meta device, placed by the resolver, the counter seeing rank 0's
+    local ops. Its record holds that device's FLOPs and bytes, its
+    predicted peak memory against the card's, the collectives the step
+    issues (``collectives_full_step``: ``roofline.collective_bytes`` by
+    kind and by mesh axis) and the roofline with its collective term
+    (each axis's bytes over its link rate, ``hw.axis_link_bw``). The
+    other cells stay ``"analytic": true``, with a ``reason`` naming what
+    they wait for: only what the resolver's specs give per device is
+    recorded.
 
 Every kind records the parameter counts, tokens per step, the
 accumulation count and the per-device bytes of the step's arguments
@@ -34,6 +45,7 @@ cells run, their skips are recorded):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -48,16 +60,27 @@ from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.base import SHAPES, ShapeConfig, cells, skipped_cells
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.decompose import decompose_cell
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
-from repro_torch.launch.steps import choose_microbatch, make_train_step
-from repro_torch.models.registry import Model, build, cache_leaves
-from repro_torch.parallel.sharding import (batch_dp_degree, mesh_axes,
-                                           mesh_size, rules_for, spec_for,
-                                           tree_specs)
+from repro_torch.launch.mesh import (fake_mesh, make_host_mesh,
+                                     make_production_mesh)
+from repro_torch.launch.steps import (choose_microbatch, make_prefill_step,
+                                      make_serve_step, make_train_step,
+                                      partitioned, place_batch, place_cache)
+from repro_torch.models import lm as lm_mod
+from repro_torch.models.registry import (PARTITIONED_FAMILIES, Model, build,
+                                         cache_leaves)
+from repro_torch.parallel.sharding import (entry_axes, mesh_axes, mesh_size,
+                                           rules_for, spec_for, tree_specs)
 
 MESH_KINDS = ("card", "single", "multi")
-_INPUT_AXES = {"tokens": ("batch", "seq"), "patches": ("batch", "seq", None),
-               "frames": ("batch", "seq", None)}
+# what a family's partitioned step waits for
+_FAMILY_WAITS = {
+    "moe": "the MoE FFN's backward across ranks (expert parallelism "
+           "through autograd) and experts placed per rank",
+    "hybrid": "the MoE FFN's partitioned step (jamba's MoE layers)",
+    "encdec": "the encoder-decoder's partitioned step (cross-attention "
+              "and its cache)",
+    "vlm": "the vlm family's partitioned step (its patch embeddings)",
+}
 
 
 def mesh_for(kind: str):
@@ -76,32 +99,76 @@ def all_cells():
 
 def step_call(model: Model, shape: ShapeConfig, dtype=torch.bfloat16,
               cache_dtype=torch.bfloat16, tokens_dtype=torch.int32,
-              max_len: Optional[int] = None, **train_kw):
+              max_len: Optional[int] = None, mesh=None, rules=None,
+              **train_kw):
     """(fn, hold, extra): the step of ``shape`` on meta tensors, as a
     caller runs it, and the tensors that exist before it (its arguments).
     Training: ``make_train_step``'s step from AdamW's initial state (step
-    1); prefill: ``model.prefill`` into a ``max_len`` cache (default S);
-    decode: ``model.decode_step`` at pos = S - 1 of an S-deep cache."""
+    1); prefill: ``make_prefill_step``'s, into a ``max_len`` cache
+    (default S); decode: ``make_serve_step``'s at pos = S - 1 of an
+    S-deep cache. With a partitioned ``mesh`` (``fake_mesh``) the
+    parameters, state, batch and cache are DTensors placed by ``rules``."""
     meta = torch.device("meta")
+    mesh = mesh if partitioned(mesh) else None
     batch = {k: torch.empty(v.shape, dtype=tokens_dtype if k == "tokens"
                             else v.dtype, device=meta)
              for k, v in model.input_specs(shape, dtype).items()}
+    batch = place_batch(model, batch, shape, mesh, rules)
+    params = model.param_struct(dtype)
+    if mesh is not None:
+        model.distribute(params, mesh, rules)
     if shape.kind == "train":
-        params = model.param_struct(dtype).requires_grad_(True)
-        step_fn, opt_init = make_train_step(model, shape, **train_kw)
+        params.requires_grad_(True)
+        step_fn, opt_init = make_train_step(model, shape, mesh, rules,
+                                            **train_kw)
         opt = opt_init(params)
         hold = (list(params.parameters()), opt.mu, opt.nu, opt.count, batch)
         return (lambda: step_fn(params, opt, batch, 1)), hold, \
             {"accum": step_fn.accum}
-    params = model.param_struct(dtype)
     if shape.kind == "prefill":
-        return (lambda: model.prefill(
-            params, batch, max_len=max_len or shape.seq_len,
-            cache_dtype=cache_dtype)), (list(params.parameters()), batch), {}
-    cache = model.cache_struct(shape, cache_dtype)
+        prefill = make_prefill_step(model, max_len or shape.seq_len, mesh,
+                                    rules, cache_dtype=cache_dtype)
+        return (lambda: prefill(params, batch)), \
+            (list(params.parameters()), batch), {}
+    cache = place_cache(model, model.cache_struct(shape, cache_dtype), mesh,
+                        rules)
     cache["pos"] = shape.seq_len - 1
-    return (lambda: model.decode_step(params, cache, batch["tokens"])), \
+    serve = make_serve_step(model, mesh, rules)
+    return (lambda: serve(params, cache, batch["tokens"])), \
         (list(params.parameters()), cache_leaves(cache), batch), {}
+
+
+def partition_reason(model: Model, shape: ShapeConfig, mesh, rules
+                     ) -> Optional[str]:
+    """Why the port cannot trace the partitioned step of this cell, or
+    None where it can: a family whose partitioned step is not ported, or
+    a layout whose rules split a sequence (attention's, or a decode
+    cache's) over a mesh axis."""
+    cfg = model.cfg
+    if cfg.family not in PARTITIONED_FAMILIES:
+        return (f"the {cfg.family} family is not partitioned yet: it waits "
+                f"for {_FAMILY_WAITS.get(cfg.family, 'its step')}")
+    attn = any(s.mixer != "mamba" for seg in lm_mod.build_schedule(cfg)
+               for s in seg.body)
+    if shape.kind == "decode":
+        if not attn:
+            return None
+        kv = spec_for(lm_mod.KV_CACHE_AXES,
+                      (1, shape.global_batch, shape.seq_len, cfg.n_kv_heads,
+                       cfg.head_dim), rules, mesh)
+        if entry_axes(kv[2]):
+            return (f"decode over a sequence-sharded cache (kv_seq over "
+                    f"{kv[2]!r}) is not ported")
+        return None
+    B = shape.global_batch
+    if shape.kind == "train":
+        B //= choose_microbatch(cfg, B, mesh, rules)
+    act = spec_for(("batch", "seq", None), (B, shape.seq_len, cfg.d_model),
+                   rules, mesh)
+    if entry_axes(act[1]):
+        return (f"sequence-parallel attention (seq over {act[1]!r}) is not "
+                f"ported")
+    return None
 
 
 def _bytes(t: torch.Tensor, spec, sizes: Dict[str, int],
@@ -129,9 +196,9 @@ def argument_bytes(model: Model, shape: ShapeConfig, mesh, rules,
             torch.float32
         out["optimizer"] = 2 * sum(_bytes(t, specs[k], sizes, st)
                                    for k, t in params.items())
-    batch = model.input_specs(shape, dtype)
-    out["batch"] = sum(_bytes(t, spec_for(_INPUT_AXES[k][:t.dim()], t.shape,
-                                          rules, mesh), sizes)
+    batch, axes = model.input_specs(shape, dtype), model.input_axes(shape)
+    out["batch"] = sum(_bytes(t, spec_for(axes[k], t.shape, rules, mesh),
+                              sizes)
                        for k, t in batch.items())
     if shape.kind == "decode":
         cache = cache_leaves(model.cache_struct(shape, dtype))
@@ -148,42 +215,59 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "card",
     """One cell's record; ``device`` names where the card's spec comes
     from (``"cpu"``: the data sheet). The card kind with ``"cuda"`` on a
     machine without a card raises, as every entry point does. With
-    ``decompose`` the card kind also records the step's pieces
-    (``decompose_cell``)."""
+    ``decompose`` a traced cell also records the step's pieces
+    (``decompose_cell``, over the same mesh)."""
     cfg = get_arch(arch)
     shape = SHAPES[shape_name]
     model = build(cfg, "meta")
-    mesh = mesh_for(mesh_kind)
-    chips = mesh_size(mesh)
-    rules = rules_for(cfg, mesh)
+    desc = mesh_for(mesh_kind)
+    chips = mesh_size(desc)
+    rules = rules_for(cfg, desc)
     total, active = model.param_counts()
     tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
                                    else 1)
-    dp = batch_dp_degree(rules, mesh, shape.global_batch)
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "chips": chips, "status": "ok", "params_total": total,
            "params_active": active, "tokens_per_step": tokens,
            "model_flops": rl.model_flops(total, active, shape.kind, tokens)}
     if shape.kind == "train":
-        rec["accum"] = choose_microbatch(cfg, shape.global_batch, dp)
+        rec["accum"] = choose_microbatch(cfg, shape.global_batch, desc, rules)
     t0 = time.perf_counter()
-    args = argument_bytes(model, shape, mesh, rules)
+    args = argument_bytes(model, shape, desc, rules)
     rec["memory"] = {"argument_size_bytes": args["total"],
                      "arguments": args}
-    if mesh_kind != "card":
+    reason = None if mesh_kind == "card" else \
+        partition_reason(model, shape, desc, rules)
+    if reason is not None:
         rec["analytic"] = True
+        rec["reason"] = reason
         rec["compile_s"] = time.perf_counter() - t0
         if verbose:
-            print(f"[dryrun] {arch} × {shape_name} × {mesh_kind}: analytic, "
-                  f"{args['total'] / 1e9:.2f} GB of arguments per device")
+            print(f"[dryrun] {arch} × {shape_name} × {mesh_kind}: analytic "
+                  f"({reason}), {args['total'] / 1e9:.2f} GB of arguments "
+                  f"per device")
         return rec
-    if hw.resolve_device(device).type == "cuda":
+    if mesh_kind == "card" and hw.resolve_device(device).type == "cuda":
         spec = hw.device_spec(0)
-    else:
+    else:                 # the production meshes are of H100s: the sheet
         spec = hw.DeviceSpec("H100 SXM (data sheet)", hw.NUM_SMS,
                              hw.HBM_BYTES, hw.L2_BYTES)
-    fn, hold, extra = step_call(model, shape)
-    step = rl.trace(fn, hold=hold, memory=True)
+    coll = None
+    with (fake_mesh(desc) if mesh_kind != "card"
+          else contextlib.nullcontext()) as mesh:
+        fn, hold, extra = step_call(model, shape, mesh=mesh, rules=rules)
+        with (rl.collective_bytes(mesh) if mesh is not None
+              else contextlib.nullcontext()) as meter:
+            step = rl.trace(fn, hold=hold, memory=True)
+        coll = meter.result if mesh is not None else None
+        del fn, hold
+        if decompose:
+            t1 = time.perf_counter()
+            dec = decompose_cell(model, shape, mesh, rules)
+            rec["decompose_s"] = time.perf_counter() - t1
+            rec["pieces"] = {k: {kk: vv for kk, vv in v.items()
+                                 if kk != "bytes_by_op"}
+                             for k, v in dec["pieces"].items()}
     t_trace = step.pop("seconds")
     peak = step.pop("peak_bytes")
     rec.update(extra)
@@ -195,22 +279,20 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "card",
     rec["compile_s"] = t_trace
     step.pop("bytes_by_op")
     rec["step"] = step
-    rec["roofline"] = rl.build(step["flops"], step["bytes"],
-                               rec["model_flops"]).to_dict()
-    if decompose:
-        t1 = time.perf_counter()
-        dec = decompose_cell(model, shape)
-        rec["decompose_s"] = time.perf_counter() - t1
-        rec["pieces"] = {k: {kk: vv for kk, vv in v.items()
-                             if kk != "bytes_by_op"}
-                         for k, v in dec["pieces"].items()}
+    if coll is not None:
+        rec["collectives_full_step"] = coll
+    rec["roofline"] = rl.build(
+        step["flops"], step["bytes"], rec["model_flops"],
+        mesh=None if coll is None else desc, coll=coll).to_dict()
     if verbose:
         roof = rec["roofline"]
-        print(f"[dryrun] {arch} × {shape_name} × card: OK (trace "
+        print(f"[dryrun] {arch} × {shape_name} × {mesh_kind}: OK (trace "
               f"{t_trace:.1f}s, dominant={roof['dominant']}, "
               f"roofline={roof['roofline_fraction']:.3f}, "
               f"useful={roof['useful_flops_ratio']:.3f}, peak "
-              f"{peak / 1e9:.2f} GB, fits {rec['memory']['fits']})")
+              f"{peak / 1e9:.2f} GB a device, fits {rec['memory']['fits']}"
+              + ("" if coll is None else
+                 f", collectives {coll['total'] / 1e9:.2f} GB") + ")")
     return rec
 
 

@@ -11,11 +11,17 @@ The sharding resolver reads ``axis_names`` and ``shape`` from them (and
 takes a ``torch.distributed`` DeviceMesh as well). ``make_host_mesh`` is
 the mesh over whatever ranks exist: a DeviceMesh over the process group
 where one is initialised, else the (1, 1) description of the one card.
+``fake_mesh`` turns a description into a DeviceMesh over a fake process
+group of as many ranks, this process its rank 0: DTensors on the meta
+device trace a partitioned step through it without devices and move no
+data (the counterpart of the reference's 256 and 512 fake CPU devices).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Tuple
+import math
+from typing import Dict, Iterator, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +38,27 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     if multi_pod:
         return MeshShape(("pod", "data", "model"), (2, 16, 16))
     return MeshShape(("data", "model"), (16, 16))
+
+
+@contextlib.contextmanager
+def fake_mesh(desc: MeshShape) -> Iterator:
+    """``with fake_mesh(make_production_mesh()) as mesh:`` a DeviceMesh of
+    ``desc``'s axes over a fake process group made for the block and
+    destroyed after it, so no later code sees it. Refuses to replace a
+    process group that is already initialised."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(desc.sizes))
+    try:
+        yield init_device_mesh("cpu", desc.sizes,
+                               mesh_dim_names=desc.axis_names)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model: int = 1, device_type: str = "cuda"):

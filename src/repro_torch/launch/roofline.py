@@ -5,28 +5,37 @@ compute term    = FLOPs / peak(dtype)   [``hw.peak_flops``: 989 TFLOP/s for
                                          bf16 products, 165 TFLOP/s for the
                                          3xTF32 f32 path the kernels use]
 memory term     = bytes / HBM bandwidth [``hw.HBM_BW``]
-collective term = 0 on one card
+collective term = Σ_axis collective bytes(axis) / link rate(axis)
+                                        [``hw.axis_link_bw``: NVLink 4 for
+                                         an axis inside an 8-GPU node, the
+                                         nodes' network otherwise; 0 on one
+                                         card]
 
 ``count(fn, *args)`` gives (FLOPs, bytes) of one eager call through the
 port's one counter, ``core/profiler.py``'s ``_CostMode``: aten ops by
 ``torch.utils.flop_counter``'s formulas and their tensors' bytes, and on
 traced (meta or fake) tensors each hand-written kernel by its formula
-(``_build.trace_launch``). The reference reads XLA's ``cost_analysis`` of
-a compiled step and parses collective bytes out of its optimized HLO
-(``collective_bytes``); the port compiles nothing and runs no collective
-on one card, so that parser has no counterpart.
+(``_build.trace_launch``). Over a DeviceMesh (a partitioned step) the
+counter sees each rank's local ops, so its figures are per device. The
+reference reads XLA's ``cost_analysis`` of a compiled step and parses
+collective bytes out of its optimized HLO; ``collective_bytes`` here is
+a dispatch mode over the functional collectives the step issues, with the
+reference's keys and conventions.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import hw
 from repro_torch.core import profiler
 from repro_torch.kernels import _build
+from repro_torch.parallel.sharding import mesh_axes
 
 
 @dataclasses.dataclass
@@ -37,6 +46,10 @@ class Roofline:
     chips: int
     model_flops: float                 # 6·N·D (train) or 2·N_active·tokens
     peak_flops: float = hw.PEAK_BF16_TENSOR_FLOPS
+    # per mesh axis: collective bytes a device, and the axis's link rate
+    coll_bytes_by_axis: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    link_bw: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def t_compute(self) -> float:
@@ -48,8 +61,10 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        """No collective runs on one card."""
-        return 0.0
+        """Each axis's collective bytes over its link rate, summed (the
+        axes' collectives are issued one after another)."""
+        return sum(b / self.link_bw[a]
+                   for a, b in self.coll_bytes_by_axis.items() if b)
 
     @property
     def dominant(self) -> str:
@@ -88,6 +103,8 @@ class Roofline:
             "peak_flops": self.peak_flops,
             "t_compute": self.t_compute,
             "t_memory": self.t_memory,
+            "coll_bytes_by_axis": dict(self.coll_bytes_by_axis),
+            "link_bw": dict(self.link_bw),
             "t_collective": self.t_collective,
             "dominant": self.dominant,
             "useful_flops_ratio": self.useful_flops_ratio,
@@ -145,10 +162,95 @@ def trace(fn: Callable, *args, hold=(), memory: bool = False) -> Dict:
 
 
 def build(flops: float, nbytes: float, mflops: float,
-          dtype: torch.dtype = torch.bfloat16) -> Roofline:
-    """The one-card roofline of a step of ``flops`` and ``nbytes`` whose
-    products take operands of ``dtype``."""
+          dtype: torch.dtype = torch.bfloat16, mesh=None,
+          coll: Optional[Dict] = None) -> Roofline:
+    """The roofline of a step of ``flops`` and ``nbytes`` a device whose
+    products take operands of ``dtype``: on one card, or over ``mesh``
+    with the collectives ``coll`` (``collective_bytes``' result)."""
+    axes = {} if mesh is None else mesh_axes(mesh)
+    coll = coll or {}
     return Roofline(flops_per_device=float(flops),
-                    bytes_per_device=float(nbytes), coll_bytes_per_device=0.0,
-                    chips=1, model_flops=float(mflops),
-                    peak_flops=hw.peak_flops(dtype))
+                    bytes_per_device=float(nbytes),
+                    coll_bytes_per_device=float(coll.get("total", 0)),
+                    chips=max(1, math.prod(axes.values())),
+                    model_flops=float(mflops),
+                    peak_flops=hw.peak_flops(dtype),
+                    coll_bytes_by_axis={a: float(b) for a, b in
+                                        coll.get("by_axis", {}).items()},
+                    link_bw=hw.axis_link_bw(axes))
+
+
+# ---------------------------------------------------------------------------
+# Collective bytes
+# ---------------------------------------------------------------------------
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# functional collective -> (kind, which tensor's bytes count): an
+# all-reduce or all-to-all counts its input, an all-gather its gathered
+# output, a reduce-scatter its scattered output (the reference's HLO
+# result shapes). DTensor issues no permute: that key stays 0.
+_FUNCOLS = {
+    "all_reduce": ("all-reduce", "in"), "all_reduce_": ("all-reduce", "in"),
+    "all_reduce_coalesced": ("all-reduce", "in"),
+    "all_gather_into_tensor": ("all-gather", "out"),
+    "all_gather_into_tensor_out": ("all-gather", "out"),
+    "all_gather_into_tensor_coalesced": ("all-gather", "out"),
+    "reduce_scatter_tensor": ("reduce-scatter", "out"),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", "out"),
+    "all_to_all_single": ("all-to-all", "in"),
+}
+_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(t) for t in x)
+    return 0
+
+
+class collective_bytes(TorchDispatchMode):
+    """``with collective_bytes(mesh) as c: step()``, then ``c.result``: the
+    bytes a device moves in each kind of collective (the reference's
+    ``collective_bytes`` keys, with ``count`` and ``total``) and
+    ``by_axis``, the bytes on each mesh axis (a group over several axes
+    is named by them joined with "+"). Sees the functional collectives a
+    DTensor program issues on its local tensors, on a live group or a
+    fake one (meta tensors: nothing moves, the sizes are the same)."""
+
+    def __init__(self, mesh=None):
+        super().__init__()
+        self.groups = {}
+        if mesh is not None:
+            names = mesh.mesh_dim_names
+            for i, n in enumerate(names):
+                self.groups[mesh.get_group(i).group_name] = n
+        self.result = {c: 0 for c in COLLECTIVES}
+        self.result.update(count=0, total=0, by_axis={})
+
+    def _axis(self, group) -> str:
+        name = getattr(group, "group_name", group)
+        return self.groups.get(name, str(name))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if profiler._has_dtensor(types):
+            return NotImplemented      # let DTensor issue its local ops
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        op = func.overloadpacket
+        if op.__module__.endswith(_NAMESPACES) or \
+                getattr(func, "namespace", "") in _NAMESPACES:
+            hit = _FUNCOLS.get(op.__name__)
+            if hit is not None:
+                kind, which = hit
+                group = kwargs.get("group_name", args[-1])
+                n = _nbytes(args[0] if which == "in" else out)
+                r = self.result
+                r[kind] += n
+                r["count"] += 1
+                r["total"] += n
+                axis = self._axis(group)
+                r["by_axis"][axis] = r["by_axis"].get(axis, 0) + n
+        return out

@@ -14,7 +14,9 @@ from typing import Mapping, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, weight
+from repro_torch.parallel.sharding import (constrain_act, is_dtensor,
+                                           local_product, whole_dims)
 
 Tree = dict
 
@@ -34,8 +36,31 @@ def attn_init(gen: torch.Generator, cfg, dtype, device) -> Tree:
     return p
 
 
+def _into_heads(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., D) by a (D, H, dh) weight: ``einsum(eq)``; on DTensors the
+    product with the (D, H·dh) view, through which DTensor keeps the
+    heads' split (einsum's own reshapes flatten a split dim behind
+    another, which DTensor replicates or refuses)."""
+    if is_dtensor(w):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        return local_product(
+            lambda x, w: (x @ w.flatten(1)).unflatten(-1, tuple(w.shape[1:])),
+            x, [w], Replicate(), Shard(x.dim() - 1), Partial())
+    return torch.einsum(eq, x, w)
+
+
+def _from_heads(eq: str, o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """o (..., H, dh) by an (H, dh, D) weight, as ``_into_heads``."""
+    if is_dtensor(w):
+        from torch.distributed.tensor import Partial, Shard
+        return local_product(lambda o, w: o.flatten(-2) @ w.flatten(0, 1),
+                             o, [w], Shard(o.dim() - 2), Partial(),
+                             Shard(o.dim() - 2))
+    return torch.einsum(eq, o, w)
+
+
 def _proj(p: Mapping, x: torch.Tensor) -> torch.Tensor:
-    y = torch.einsum("bsd,dhe->bshe", x, p["w"])
+    y = _into_heads("bsd,dhe->bshe", x, weight(p))
     if "b" in p:
         y = y + p["b"]
     return y
@@ -50,14 +75,17 @@ def attn_apply(p: Mapping, x: torch.Tensor, cfg, *, positions: torch.Tensor,
     are projected from ``kv_x`` and, as in the reference, neither side gets
     RoPE."""
     src = x if kv_x is None else kv_x
-    q = _proj(p["q"], x)
-    k = _proj(p["k"], src)
-    v = _proj(p["v"], src)
+    q = constrain_act(_proj(p["q"], x), ("batch", "seq", "heads", "head_dim"))
+    k = constrain_act(_proj(p["k"], src),
+                      ("batch", "seq", "kv_heads", "head_dim"))
+    v = constrain_act(_proj(p["v"], src),
+                      ("batch", "seq", "kv_heads", "head_dim"))
     if kv_x is None:                       # self-attention: RoPE both sides
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal, window=window, impl=impl)
-    y = torch.einsum("bshe,hed->bsd", out, p["o"]["w"])
+    y = constrain_act(_from_heads("bshe,hed->bsd", out, weight(p["o"])),
+                      ("batch", "seq", None))
     if return_kv:
         return y, (k, v)
     return y
@@ -76,14 +104,15 @@ def attn_decode(p: Mapping, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
     (B, D)."""
     B = x.shape[0]
     S = cache_k.shape[1]
-    q = torch.einsum("bd,dhe->bhe", x, p["q"]["w"])
+    whole_dims(cache_k, (1,), "decode over a sequence-sharded cache")
+    q = _into_heads("bd,dhe->bhe", x, weight(p["q"]))
     if "b" in p["q"]:
         q = q + p["q"]["b"]
     if cross:
         kv_len = torch.full((B,), S, dtype=torch.int32, device=x.device)
     else:
-        k_new = torch.einsum("bd,dhe->bhe", x, p["k"]["w"])
-        v_new = torch.einsum("bd,dhe->bhe", x, p["v"]["w"])
+        k_new = _into_heads("bd,dhe->bhe", x, weight(p["k"]))
+        v_new = _into_heads("bd,dhe->bhe", x, weight(p["v"]))
         if "b" in p["k"]:
             k_new = k_new + p["k"]["b"]
             v_new = v_new + p["v"]["b"]
@@ -100,7 +129,7 @@ def attn_decode(p: Mapping, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
         out = _window_decode(q, cache_k, cache_v, lo, kv_len)
     else:
         out = ops.decode_attention(q, cache_k, cache_v, kv_len, impl=impl)
-    return torch.einsum("bhe,hed->bd", out, p["o"]["w"])
+    return _from_heads("bhe,hed->bd", out, weight(p["o"]))
 
 
 def _window_decode(q: torch.Tensor, cache_k: torch.Tensor,

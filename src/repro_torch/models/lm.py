@@ -203,11 +203,12 @@ def _apply_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
         out = ssm_mod.mamba_apply(layer.mamba, h, cfg, impl=impl,
                                   return_state=collect_kv)
     y, kv = out if collect_kv else (out, None)
-    x = x + y
+    x = sharding.constrain_act(x + y, ("batch", "seq", None))
     if spec.ffn != "none":
         h = norm_apply(layer.norm2, x)
-        x = x + (moe_mod.moe_ffn(layer.moe, h, cfg) if spec.ffn == "moe"
-                 else mlp(layer.mlp, h))
+        y = (moe_mod.moe_ffn(layer.moe, h, cfg) if spec.ffn == "moe"
+             else mlp(layer.mlp, h))
+        x = sharding.constrain_act(x + y, ("batch", "seq", None))
     return x, kv
 
 
@@ -218,7 +219,9 @@ def _embed_inputs(params: LM, tokens: Optional[torch.Tensor],
     if extra_embeds is not None:
         parts.append(extra_embeds)
     if tokens is not None:
-        parts.append(embed(params.embed, tokens))
+        # pinned: a vocab-parallel lookup leaves a partial sum
+        parts.append(sharding.constrain_act(embed(params.embed, tokens),
+                                            ("batch", "seq", None)))
     if len(parts) == 1:
         return parts[0]
     return torch.cat([parts[0].to(parts[1].dtype), parts[1]], dim=1)
@@ -284,8 +287,18 @@ def chunked_ce(cfg, params: LM, x: torch.Tensor, tokens: torch.Tensor,
         lg = (xs[:, i * chunk:(i + 1) * chunk] @ w).float()  # (B, c, V)
         lse = torch.logsumexp(lg, dim=-1)
         tc = tgt[:, i * chunk:(i + 1) * chunk, None]
-        total = total + (lse - lg.gather(-1, tc)[..., 0]).sum()
+        total = total + (lse - _target_logits(lg, tc)).sum()
     return total / (B * n * chunk)
+
+
+def _target_logits(lg: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+    """lg's entry at each target tc (..., 1): a gather, or over logits
+    split by vocab (a DTensor) the sum of the entries the target picks,
+    which is the same value: every other term is an exact zero."""
+    if not sharding.is_dtensor(lg):
+        return lg.gather(-1, tc)[..., 0]
+    ids = torch.arange(lg.shape[-1], device=tc.device)
+    return torch.where(ids == tc, lg, 0.0).sum(-1)
 
 
 def prefill_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
@@ -304,7 +317,10 @@ def prefill_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
         return x
     for k, t in kv.items():
         t = t if t.dtype == torch.float32 else t.to(cache_dtype)
-        if rep == 0:
+        if rep == 0 and sharding.is_dtensor(t):
+            c[k] = _cache_zeros(t.device, t.device_mesh)(
+                (count,) + tuple(t.shape), MAMBA_CACHE_AXES[k], t.dtype)
+        elif rep == 0:
             c[k] = t.new_empty((count,) + t.shape)
         c[k][rep] = t
     return x
@@ -314,30 +330,53 @@ def prefill_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
 # Decode + cache
 # ---------------------------------------------------------------------------
 
+# Logical axes of the stacked cache leaves (``parallel/sharding.py``).
+KV_CACHE_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+MAMBA_CACHE_AXES = {"conv_x": ("layers", "batch", "conv", "ff"),
+                    "conv_BC": ("layers", "batch", "conv", "none"),
+                    "h": ("layers", "batch", "none", "cache_state", "none")}
+
+
+def _cache_zeros(dev, mesh=None):
+    """zeros(shape, axes, dtype): a plain tensor on ``dev``, or with a live
+    ``mesh`` a DTensor placed by the installed rules (each rank allocates
+    its block)."""
+    if mesh is None:
+        return lambda shape, axes, dtype: torch.zeros(shape, dtype=dtype,
+                                                      device=dev)
+    rules = sharding.installed()[0]
+    return lambda shape, axes, dtype: sharding.dzeros(shape, axes, rules,
+                                                      mesh, dtype, dev)
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
-               device="cuda") -> Tree:
+               device="cuda", mesh=None) -> Tree:
     """Stacked per-segment caches, zeros, ``pos`` 0. A mamba layer's SSM
-    state is f32 whatever ``dtype`` is, as in the reference."""
+    state is f32 whatever ``dtype`` is, as in the reference. With a live
+    ``mesh``, DTensors placed by the installed rules."""
     return _new_cache(cfg, batch, max_len, dtype, resolve_device(device),
-                      with_mamba=True)
+                      with_mamba=True, mesh=mesh)
 
 
 def _new_cache(cfg, batch: int, max_len: int, dtype, dev,
-               with_mamba: bool) -> Tree:
+               with_mamba: bool, mesh=None) -> Tree:
     """``init_cache``'s caches; without ``with_mamba`` a mamba position is
     an empty dict, for ``prefill`` to fill with the states it computes."""
     cache: Tree = {"pos": 0, "segments": []}
+    zeros = _cache_zeros(dev, mesh)
     for seg in build_schedule(cfg):
         seg_c = []
         for spec in seg.body:
             if _is_attn(spec):
                 kshape = (seg.count, batch, max_len, cfg.n_kv_heads,
                           cfg.head_dim)
-                c = {"k": torch.zeros(kshape, dtype=dtype, device=dev),
-                     "v": torch.zeros(kshape, dtype=dtype, device=dev)}
+                c = {"k": zeros(kshape, KV_CACHE_AXES, dtype),
+                     "v": zeros(kshape, KV_CACHE_AXES, dtype)}
             elif with_mamba:
-                c0 = ssm_mod.mamba_cache_init(cfg, batch, dtype, dev)
-                c = {k: t[None].repeat((seg.count,) + (1,) * t.dim())
+                c0 = ssm_mod.mamba_cache_init(cfg, batch, dtype,
+                                              torch.device("meta"))
+                c = {k: zeros((seg.count,) + tuple(t.shape),
+                              MAMBA_CACHE_AXES[k], t.dtype)
                      for k, t in c0.items()}
             else:
                 c = {}
@@ -393,7 +432,8 @@ def decode_step(cfg, params: LM, cache: Tree, tokens: torch.Tensor,
     (or conv tails and SSM states) into ``cache`` in place, advances
     ``cache["pos"]`` and returns (logits (B, V), cache)."""
     _, norm_apply = make_norm(cfg)
-    x = embed(params.embed, tokens)                          # (B, D)
+    x = sharding.constrain_act(embed(params.embed, tokens),
+                               ("batch", None))              # (B, D)
     pos = int(cache["pos"])
     for si, rep, bpos, layer in params.all_layers():
         c = cache["segments"][si][bpos]
@@ -420,7 +460,8 @@ def prefill(cfg, params: LM, tokens: Optional[torch.Tensor],
     positions = positions_of(x)
     schedule = build_schedule(cfg)
     cache = _new_cache(cfg, B, max_len, cache_dtype, x.device,
-                       with_mamba=False)
+                       with_mamba=False, mesh=x.device_mesh
+                       if sharding.is_dtensor(x) else None)
     cache["pos"] = S
     for si, rep, bpos, layer in params.all_layers():
         x = prefill_layer(cfg, layer, x, positions, impl,

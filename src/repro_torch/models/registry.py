@@ -26,6 +26,11 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.hw import resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.parallel import sharding
+
+# The families whose steps run partitioned over a DeviceMesh
+# (``launch/steps.py`` with a mesh).
+PARTITIONED_FAMILIES = ("dense", "ssm")
 
 META = torch.device("meta")
 
@@ -58,10 +63,8 @@ _BLOCK_AXES = {
 }
 _TOP_AXES = {"embed.table": ("vocab", "vocab_embed"),
              "head.w": ("vocab_embed", "vocab")}
-_KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
-_MAMBA_CACHE_AXES = {"conv_x": ("layers", "batch", "conv", "ff"),
-                     "conv_BC": ("layers", "batch", "conv", "none"),
-                     "h": ("layers", "batch", "none", "cache_state", "none")}
+_KV_AXES = lm_mod.KV_CACHE_AXES
+_MAMBA_CACHE_AXES = lm_mod.MAMBA_CACHE_AXES
 
 
 def param_axes_of(name: str) -> Tuple[str, ...]:
@@ -216,6 +219,42 @@ class Model:
                                           device=META)}
         # decode: one new token against a seq_len cache
         return {"tokens": torch.empty((B,), dtype=torch.int32, device=META)}
+
+    def input_axes(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        """The logical axes of every input of ``shape``, as the reference's
+        ``input_specs`` gives them."""
+        if shape.kind == "decode":
+            return {"tokens": ("batch",)}
+        out = {"tokens": ("batch", "seq")}
+        if self.encdec:
+            out["frames"] = ("batch", "seq", "embed_act")
+        elif self.cfg.family == "vlm":
+            out["patches"] = ("batch", "seq", "embed_act")
+        return out
+
+    def distribute(self, params, mesh, rules) -> "lm_mod.LM":
+        """``params`` (an ``LM`` whose tensors are whole and the same on
+        every rank: from ``init`` with one seed, or the JAX package's
+        through ``convert.lm_params_from_jax``) with every parameter
+        replaced, in place, by a DTensor on the live ``mesh`` placed by
+        the resolver (``sharding.distribute``; each rank keeps its block,
+        no collective). Gradients stay switched as they were. The dense
+        and ssm families only: the partitioned MoE (its backward across
+        ranks), hybrid, encdec and vlm steps are not ported."""
+        if self.cfg.family not in PARTITIONED_FAMILIES:
+            raise NotImplementedError(
+                f"the partitioned step of the {self.cfg.family} family is "
+                f"not ported (only {PARTITIONED_FAMILIES})")
+        named = dict(params.named_parameters())
+        placed = sharding.distribute({k: p.detach() for k, p in
+                                      named.items()},
+                                     self.param_axes(), rules, mesh)
+        for k, d in placed.items():
+            path, _, leaf = k.rpartition(".")
+            mod = params.get_submodule(path)
+            mod.register_parameter(leaf, torch.nn.Parameter(
+                d, requires_grad=named[k].requires_grad))
+        return params
 
     def cache_struct(self, shape: ShapeConfig, dtype=torch.bfloat16):
         """The decode cache of ``shape`` (batch, seq_len deep) on the meta

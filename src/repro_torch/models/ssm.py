@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _normal, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (_normal, dense_init, project_in,
+                                       project_out, rmsnorm, rmsnorm_init)
+from repro_torch.parallel.sharding import constrain_act, is_dtensor, whole_dims
 
 Tree = Dict
 
@@ -50,7 +52,11 @@ def mamba_init(gen: torch.Generator, cfg, dtype, device) -> Tree:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B, S, Ch), w: (K, Ch); f32 sums in the
-    reference's order, cast back to x's dtype."""
+    reference's order, cast back to x's dtype. A DTensor x is convolved on
+    each rank's block: its batch and channels as x lays them out (w's
+    channels alike), its sequence whole."""
+    if is_dtensor(x):
+        return _conv_partitioned(x, w)
     K, S = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
@@ -59,12 +65,30 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _conv_partitioned(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``_causal_conv`` under ``local_map``. w's gradient on a rank is
+    its block's share of the batch: partial over the batch's axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    whole_dims(x, (1,), "a causal conv over a sequence split across ranks")
+    x_pl = tuple(q if isinstance(q, Shard) else Replicate()
+                 for q in x.placements)
+    w_pl = tuple(Shard(1) if q == Shard(2) else Replicate() for q in x_pl)
+    w_grad = tuple(Partial() if q == Shard(0) else p
+                   for q, p in zip(x_pl, w_pl))
+    return local_map(_causal_conv, out_placements=list(x_pl),
+                     in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_pl, w_grad),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
+
+
 def _gates(p: Mapping, xw: torch.Tensor) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
     """dt = softplus(x W_dt + dt_bias) and a = exp(-exp(A_log) dt), f32,
     (..., H). torch's softplus returns its input above 20, where JAX's
     ``logaddexp(x, 0)`` differs from it by under 2e-9."""
-    dt = F.softplus((xw @ p["dt"]["w"]).float() + p["dt_bias"])
+    dt = F.softplus(project_in(xw, p["dt"]).float() + p["dt_bias"])
     a = torch.exp(-torch.exp(p["A_log"]) * dt)
     return dt, a
 
@@ -77,10 +101,11 @@ def ssd_inputs(p: Mapping, xw: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
     broadcast over H as a view."""
     B, S, _ = xw.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z = xw @ p["z"]["w"]
-    xi_pre = xw @ p["x"]["w"]
+    z = constrain_act(project_in(xw, p["z"]), ("batch", "seq", "ff"))
+    xi_pre = constrain_act(project_in(xw, p["x"]), ("batch", "seq", "ff"))
     xi = F.silu(_causal_conv(xi_pre, p["conv_x"]))
-    bc_pre = torch.cat([xw @ p["B"]["w"], xw @ p["C"]["w"]], dim=-1)
+    bc_pre = torch.cat([project_in(xw, p["B"]), project_in(xw, p["C"])],
+                       dim=-1)
     bc = F.silu(_causal_conv(bc_pre, p["conv_BC"]))
     Bm, Cm = bc.split(N, dim=-1)
     dt, a = _gates(p, xw)
@@ -103,7 +128,8 @@ def mamba_apply(p: Mapping, xw: torch.Tensor, cfg, impl: Optional[str] = None,
     y = y + p["D_skip"][None, None, :, None] * xh
     y = y.reshape(B, S, H * P)
     y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z)
-    out = (y.to(xw.dtype) @ p["o"]["w"]).to(xw.dtype)
+    out = constrain_act(project_out(y.to(xw.dtype), p["o"]).to(xw.dtype),
+                        ("batch", "seq", None))
     if return_state:
         K = cfg.conv_kernel
         return out, {"conv_x": xi_pre[:, S - (K - 1):],
@@ -143,9 +169,10 @@ def mamba_decode(p: Mapping, xw: torch.Tensor, cache: Mapping,
     as the reference's concatenation promotes them. Returns (B, D)."""
     B, _ = xw.shape
     H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    z = xw @ p["z"]["w"]
-    xi_new = xw @ p["x"]["w"]
-    bc_new = torch.cat([xw @ p["B"]["w"], xw @ p["C"]["w"]], dim=-1)
+    z = project_in(xw, p["z"])
+    xi_new = project_in(xw, p["x"])
+    bc_new = torch.cat([project_in(xw, p["B"]), project_in(xw, p["C"])],
+                       dim=-1)
     xi = F.silu(_conv_step(cache["conv_x"], xi_new, p["conv_x"]))
     bc = F.silu(_conv_step(cache["conv_BC"], bc_new, p["conv_BC"]))
     Bm, Cm = bc.split(N, dim=-1)
@@ -158,4 +185,4 @@ def mamba_decode(p: Mapping, xw: torch.Tensor, cache: Mapping,
     y = y + p["D_skip"][None, :, None] * xh
     y = y.reshape(B, H * P).to(xw.dtype)
     y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z)
-    return y @ p["o"]["w"]
+    return project_out(y, p["o"])

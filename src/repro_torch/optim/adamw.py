@@ -5,7 +5,11 @@ Parameters, gradients and the moments are flat mappings from a parameter's
 name (``LM.named_parameters()``) to its tensor. Where the reference returns
 new trees, ``adamw_update`` writes the parameters and moments in place: at
 full width a second copy of each would cost as much device memory as the
-first, and the step owns them.
+first, and the step owns them. On DTensor parameters (a partitioned
+step) the moments are placed as their parameters, the update runs on each
+rank's blocks, and the clipping norm is the global one: the sum of
+squares of a sharded gradient is partial over its mesh axes and is
+reduced before the square root.
 """
 from __future__ import annotations
 
@@ -24,9 +28,16 @@ class AdamWState:
     count: torch.Tensor          # int32 scalar
 
 
+def _zeros(p: torch.Tensor, dtype) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dtype)
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
 def adamw_init(params: Mapping[str, torch.Tensor],
                state_dtype=torch.float32) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+    zeros = lambda p: _zeros(p, state_dtype)
     dev = next(iter(params.values())).device
     return AdamWState(mu={k: zeros(p) for k, p in params.items()},
                       nu={k: zeros(p) for k, p in params.items()},

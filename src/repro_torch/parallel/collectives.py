@@ -22,6 +22,18 @@ before the collective and the result back after it, explicitly, and the
 bytes of both copies are counted (``stats()["host_copy_bytes"]``). The
 collectives only move bytes, so the result is bit for bit the same either
 way. No computation moves to the host.
+
+A partitioned step's collectives are DTensor's, issued as the functional
+collectives (``torch.ops._c10d_functional``); gloo's own path for CUDA
+tensors is not one to trust (a rank died in it on an H100, torch 2.11).
+``stage_through_host(device_type)`` registers, for that device's
+tensors, kernels of those ops that move the bytes through the host
+explicitly, over the same group, with gloo's host collectives that only
+move data: an all-gather is one, an all-to-all is one, and the two
+reductions are an all-gather (all-reduce) or an all-to-all
+(reduce-scatter) followed by the sum on the card, over the blocks in rank
+order (so every rank's sum is the same, bit for bit). Their bytes are
+counted as the collectives above count theirs.
 """
 from __future__ import annotations
 
@@ -65,6 +77,99 @@ def _run(op: str, collective, out: torch.Tensor, x: torch.Tensor,
     else:
         collective(out, x, group=group)
     return out
+
+
+# -- the functional collectives through the host --------------------------------
+
+_STAGED = set()
+_LIBS = []
+
+
+def _group(name):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    return name if isinstance(name, dist.ProcessGroup) else \
+        _resolve_process_group(name)
+
+
+def _host_all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(n * x.shape[0], ...) on x's device: every rank's x, rank order."""
+    n = dist.get_world_size(group)
+    host_x = x.contiguous().cpu()
+    host_out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                           dtype=x.dtype)
+    dist.all_gather_into_tensor(host_out, host_x, group=group)
+    _count("host_copy_bytes", (host_x.numel() + host_out.numel())
+           * x.element_size())
+    return host_out.to(x.device)
+
+
+def _host_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """x's dim-0 blocks exchanged: block j to rank j, received blocks
+    in rank order, on x's device."""
+    host_x = x.contiguous().cpu()
+    host_out = torch.empty_like(host_x)
+    dist.all_to_all_single(host_out, host_x, group=group)
+    _count("host_copy_bytes", 2 * host_x.numel() * x.element_size())
+    return host_out.to(x.device)
+
+
+def _sum_blocks(t: torch.Tensor, n: int, op: str) -> torch.Tensor:
+    if op.lower() not in ("sum", "avg"):
+        raise NotImplementedError(f"staged reduction {op!r}")
+    out = t.unflatten(0, (n, -1)).sum(0)
+    return out / n if op.lower() == "avg" else out
+
+
+def _staged_all_gather(x, group_size, group_name):
+    _count("all_gather_calls", 1)
+    _count("all_gather_bytes", x.numel() * x.element_size())
+    return _host_all_gather(x, _group(group_name))
+
+
+def _staged_all_reduce(x, reduce_op, group_name):
+    g = _group(group_name)
+    n = dist.get_world_size(g)
+    _count("all_reduce_calls", 1)
+    _count("all_reduce_bytes", x.numel() * x.element_size())
+    flat = x.reshape((1,) + tuple(x.shape)) if x.dim() == 0 else x
+    out = _sum_blocks(_host_all_gather(flat, g), n, reduce_op)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _staged_reduce_scatter(x, reduce_op, group_size, group_name):
+    g = _group(group_name)
+    n = dist.get_world_size(g)
+    _count("reduce_scatter_calls", 1)
+    _count("reduce_scatter_bytes", x.numel() * x.element_size())
+    return _sum_blocks(_host_all_to_all(x, g), n, reduce_op).to(x.dtype)
+
+
+def _staged_all_to_all(x, output_split_sizes, input_split_sizes,
+                       group_name):
+    g = _group(group_name)
+    n = dist.get_world_size(g)
+    if any(s != x.shape[0] // n for s in
+           list(output_split_sizes) + list(input_split_sizes)):
+        raise NotImplementedError("staged all_to_all: uneven splits")
+    _count("all_to_all_calls", 1)
+    _count("all_to_all_bytes", x.numel() * x.element_size())
+    return _host_all_to_all(x, g)
+
+
+def stage_through_host(device_type: str = "cuda") -> None:
+    """Run this process's functional collectives on ``device_type``
+    tensors through the host, over gloo (module docstring). Once per
+    process; the kernels stay registered for its life."""
+    if device_type in _STAGED:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    key = device_type.upper()
+    lib.impl("all_gather_into_tensor", _staged_all_gather, key)
+    lib.impl("all_reduce", _staged_all_reduce, key)
+    lib.impl("reduce_scatter_tensor", _staged_reduce_scatter, key)
+    lib.impl("all_to_all_single", _staged_all_to_all, key)
+    _LIBS.append(lib)
+    _STAGED.add(device_type)
 
 
 def axis_size(mesh, axis: str) -> int:

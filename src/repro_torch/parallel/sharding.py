@@ -31,6 +31,15 @@ installs the global (batch, seq) of the tokens with the rules
 rank's activation its global shape from it. A mesh description larger
 than one device has no process group and no rank: ``constrain`` and
 ``set_activation_sharding`` raise on it.
+
+The partitioned steps (``launch/steps.py`` with a mesh) hold every
+parameter, optimizer moment, batch leaf and cache leaf as a ``DTensor``
+placed by the resolver (``distribute``, ``dzeros``): the counterpart of
+``device_put`` with a ``NamedSharding``. On a DTensor, ``constrain``
+redistributes to the placements of the spec, the counterpart of
+``with_sharding_constraint``, and DTensor's sharding propagation inserts
+the collectives between two pins, as GSPMD does. The hand-written kernels
+run on each rank's local block (``kernels/ops.py`` under ``local_map``).
 """
 from __future__ import annotations
 
@@ -220,6 +229,15 @@ def placements(spec: PartitionSpec, mesh) -> tuple:
                  for a in mesh_axes(mesh))
 
 
+def live_placements(spec: PartitionSpec, mesh) -> tuple:
+    """``placements`` as the DTensors of a step hold them: on an axis of
+    one rank a shard is the whole dim, and is held as ``Replicate()``
+    (DTensor refuses to reshape a dim sharded over one rank)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if n == 1 else q for q, n in
+                 zip(placements(spec, mesh), mesh_axes(mesh).values()))
+
+
 def shardings_for(axes: Mapping[str, Tuple],
                   params: Mapping[str, torch.Tensor], rules: LogicalRules,
                   mesh) -> Dict[str, tuple]:
@@ -272,11 +290,133 @@ def block(t: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     return t
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _from_block(local: torch.Tensor, spec: PartitionSpec, mesh):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, live_placements(spec, mesh),
+                              run_check=False)
+
+
+def distribute(tensors: Mapping[str, torch.Tensor],
+               axes: Mapping[str, Tuple], rules: LogicalRules, mesh
+               ) -> Dict[str, torch.Tensor]:
+    """Whole tensors as DTensors on a live ``mesh``, each placed by the spec
+    of its logical axes: the counterpart of ``device_put`` with a
+    ``NamedSharding``. Every rank passes the same whole tensors and keeps
+    its block of each (``block``; no collective)."""
+    specs = tree_specs(axes, tensors, rules, mesh)
+    return {k: _from_block(block(t, specs[k], mesh).contiguous(), specs[k],
+                           mesh)
+            for k, t in tensors.items()}
+
+
+def dzeros(shape: Sequence[int], axes: Sequence[Optional[str]],
+           rules: LogicalRules, mesh, dtype, device) -> torch.Tensor:
+    """A DTensor of zeros of global ``shape`` placed by the spec of
+    ``axes``; each rank allocates its block only."""
+    spec = spec_for(axes, tuple(shape), rules, mesh)
+    local = list(shape)
+    sizes = mesh_axes(mesh)
+    for d, entry in enumerate(spec):
+        for a in entry_axes(entry):
+            local[d] //= sizes[a]
+    return _from_block(torch.zeros(local, dtype=dtype, device=device), spec,
+                       mesh)
+
+
+def whole_dims(x: torch.Tensor, dims: Sequence[int], what: str) -> None:
+    """Raise where a DTensor ``x`` splits one of ``dims`` over a mesh axis:
+    ``what`` (sequence-parallel attention, say) is not ported, and
+    gathering the dim silently would hide that."""
+    if not is_dtensor(x):
+        return
+    from torch.distributed.tensor import Shard
+    split = [d for d in dims for p in x.placements
+             if isinstance(p, Shard) and p.dim % x.dim() == d % x.dim()]
+    if split:
+        raise NotImplementedError(
+            f"{what} is not ported: a tensor of shape {tuple(x.shape)} is "
+            f"split over a mesh axis on dim {split[0]} ({x.placements})")
+
+
+def at_use(w: torch.Tensor) -> torch.Tensor:
+    """A layer's weight where a product uses it: a DTensor weight is
+    gathered over the mesh axes that the installed rules give the batch
+    (FSDP: data and pod; under ``dp_heavy_rules`` the model axis too),
+    keeping its model-parallel split, so each rank multiplies its batch
+    block by the weights of its own heads or features (otherwise DTensor
+    may choose to repeat a product on several ranks). Else ``w``."""
+    rules = installed()[0]
+    if not is_dtensor(w) or rules is None:
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    fsdp = {a for cand in rules.get("batch", []) for a in cand}
+    names = w.device_mesh.mesh_dim_names
+    target = tuple(Replicate() if names[i] in fsdp and isinstance(q, Shard)
+                   else q for i, q in enumerate(w.placements))
+    if target == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, target)
+
+
+def local_product(fn, x: torch.Tensor, weights: Sequence[torch.Tensor],
+                  x_on_model, out_on_model, x_grad_on_model) -> torch.Tensor:
+    """``fn(x, *weights)`` on each rank's blocks (Megatron's tensor
+    parallelism), for weights already gathered at use (``at_use``). A
+    mesh axis that splits the first weight is a model-parallel axis: each
+    weight keeps its split there, x is laid out as ``x_on_model``, the
+    output as ``out_on_model`` (a ``Partial`` where fn sums over the split
+    features) and x's gradient as ``x_grad_on_model``. On any other axis
+    x keeps its split (the batch), and so do the output and x's gradient;
+    the weights are whole there and their gradients partial over it where
+    x is split. DTensor's own rules for the products inside fn may repeat
+    some of them, the backward's most, on every rank of the model axis."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x_pl, out_pl, xg_pl = [], [], []
+    w_pl = [[] for _ in weights]
+    wg_pl = [[] for _ in weights]
+    for i, q in enumerate(x.placements):
+        if isinstance(weights[0].placements[i], Shard):
+            x_pl.append(x_on_model)
+            out_pl.append(out_on_model)
+            xg_pl.append(x_grad_on_model)
+            for w, a, g in zip(weights, w_pl, wg_pl):
+                a.append(w.placements[i])
+                g.append(w.placements[i])
+            continue
+        q = q if isinstance(q, Shard) else Replicate()
+        x_pl.append(q)
+        out_pl.append(q)
+        xg_pl.append(q)
+        for a, g in zip(w_pl, wg_pl):
+            a.append(Replicate())
+            g.append(Partial() if isinstance(q, Shard) else Replicate())
+    return local_map(fn, out_placements=out_pl,
+                     in_placements=(tuple(x_pl),) + tuple(map(tuple, w_pl)),
+                     in_grad_placements=(tuple(xg_pl),)
+                     + tuple(map(tuple, wg_pl)),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(
+        x, *weights)
+
+
 def constrain(x: torch.Tensor, axes: Sequence[Optional[str]],
               rules: LogicalRules, mesh) -> torch.Tensor:
-    """Pin an activation's sharding by logical names: the identity on one
-    device and on a live mesh, where x is already the rank's block; a
-    description larger than one device has no rank to hold a block."""
+    """Pin an activation's sharding by logical names. A DTensor is
+    redistributed to the placements of its spec (a no-op where it has
+    them). A plain tensor: the identity on one device and on a live mesh,
+    where x is already the rank's block; a description larger than one
+    device has no rank to hold a block."""
+    if is_dtensor(x):
+        target = live_placements(spec_for(axes, tuple(x.shape), rules,
+                                          x.device_mesh), x.device_mesh)
+        if tuple(x.placements) != target:
+            x = x.redistribute(x.device_mesh, target)
+        return x
     if _one_device(mesh) or is_live(mesh):
         return x
     raise NotImplementedError(
@@ -307,6 +447,27 @@ def set_activation_sharding(rules: Optional[LogicalRules], mesh,
             f"DeviceMesh")
     _ACT["rules"], _ACT["mesh"] = rules, mesh
     _ACT["tokens"] = None if tokens is None else tuple(tokens)
+
+
+def installed() -> Tuple[Optional[LogicalRules], object]:
+    """The installed (rules, mesh)."""
+    return _ACT["rules"], _ACT["mesh"]
+
+
+class activation_sharding:
+    """``with activation_sharding(rules, mesh):`` installs them (and
+    ``tokens``) for the block and puts back what was installed before."""
+
+    def __init__(self, rules, mesh, tokens=None):
+        self.args = (rules, mesh, tokens)
+
+    def __enter__(self):
+        self.saved = dict(_ACT)
+        set_activation_sharding(*self.args)
+        return self
+
+    def __exit__(self, *exc):
+        _ACT.update(self.saved)
 
 
 def constrain_act(x: torch.Tensor, axes: Sequence[Optional[str]]

@@ -51,16 +51,23 @@ def cfg_of(overrides: Dict[str, Any]):
 
 
 def run_world(case: str, world: int, model: int, inputs: Any, workdir: str,
-              timeout: float = 120.0, device: str = "cpu") -> List[Any]:
-    """Each rank's result of ``CASES[case]`` over a gloo world of ``world``
-    ranks on a (world // model, model) mesh."""
+              timeout: float = 120.0, device: str = "cpu",
+              module: str = __name__) -> List[Any]:
+    """Each rank's result of ``CASES[case]`` of ``module`` (this one by
+    default) over a gloo world of ``world`` ranks on a (world // model,
+    model) mesh."""
     in_path = os.path.join(workdir, f"{case}.{world}x{model}.in.pkl")
+    for r in range(world):                 # no result of an earlier run
+        for end in ("err", "out"):
+            if os.path.exists(f"{in_path}.rank{r}.{end}"):
+                os.remove(f"{in_path}.rank{r}.{end}")
     with open(in_path, "wb") as f:
         pickle.dump(inputs, f)
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, model, port, case, in_path, device))
+                         args=(r, world, model, port, case, in_path, device,
+                               module))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -91,7 +98,9 @@ def run_world(case: str, world: int, model: int, inputs: Any, workdir: str,
     return out
 
 
-def _rank_main(rank, world, model, port, case, in_path, device):
+def _rank_main(rank, world, model, port, case, in_path, device,
+               module=__name__):
+    import importlib
     import traceback
     try:
         torch.set_num_threads(1)
@@ -103,7 +112,8 @@ def _rank_main(rank, world, model, port, case, in_path, device):
         mesh = make_host_mesh(model, device_type=device)
         with open(in_path, "rb") as f:
             inputs = pickle.load(f)
-        result = CASES[case](mesh, inputs, device)
+        result = importlib.import_module(module).CASES[case](mesh, inputs,
+                                                             device)
         with open(f"{in_path}.rank{rank}.out", "wb") as f:
             pickle.dump(result, f)
     except BaseException:

@@ -284,7 +284,17 @@ def test_param_counts_and_model_flops_equal_reference(family,
         assert rec["tokens_per_step"] == tokens
         assert rec["model_flops"] == jrl.model_flops(total, active, s.kind,
                                                      tokens)
-        assert rec["analytic"] and "roofline" not in rec
+        # the dense and ssm families' steps are traced partitioned on the
+        # fake (16, 16) mesh, but where the rules split a sequence (the
+        # reduced dense config's decode cache: kv_seq over model); the
+        # other cells stay analytic and say why
+        traced = family in ("dense", "ssm") and not (
+            family == "dense" and shape == "decode_32k")
+        if traced:
+            assert "analytic" not in rec and rec["roofline"]["chips"] == 256
+        else:
+            assert rec["analytic"] and "roofline" not in rec
+            assert rec["reason"]
 
 
 @pytest.mark.parametrize("mk", ["single", "multi"])
@@ -369,7 +379,7 @@ def test_card_kind_reads_the_card_or_refuses():
         dryrun.run_cell("mamba2-370m", "long_500k", verbose=False)
     rec = dryrun.run_cell("mamba2-370m", "long_500k", "single",
                           verbose=False)
-    assert rec["analytic"]
+    assert rec["status"] == "ok" and rec["chips"] == 256
 
 
 def test_cell_list_equals_reference():
