@@ -160,19 +160,27 @@ it and read just after:
 16. The five examples (A28) as child processes on the card: train_lm's
    crash and resume, nic_apps' and quickstart's oracles, serve_tenants'
    and serve_pipeline's output against the same scripts on the CPU.
-17. The partitioned steps (A31), after path 16: olmo-1b at full width,
-   its depth cut to 4 layers, then mamba2-370m at full width cut to 8,
-   over a (2, 2) ("data", "model") world of four ranks spawned on the one
-   card (gloo, the functional collectives through the host:
-   ``collectives.stage_through_host``), under ``rules_for``: every
+17. The partitioned steps (A31, A32), after path 16: olmo-1b at full
+   width, its depth cut to 2 layers, and mamba2-370m at full width cut
+   to 4, under ``rules_for``; moonshot-v1-16b-a3b at full width cut to 3
+   layers (the dense first and 2 MoE layers) under ``dp_heavy_rules()``,
+   its MoE layers through expert parallelism with the experts placed per
+   rank; reduced jamba under ``rules_for`` (the global dispatch's expert
+   block, B7 and its backward), over a (2, 2) ("data", "model") world of
+   four ranks spawned on the one card (gloo, the functional collectives
+   through the host: ``collectives.stage_through_host``): every
    parameter, AdamW moment, batch and cache leaf a DTensor placed by the
    resolver. Each rank runs one ``make_train_step`` step at 8 x 1,024 in
    2 microbatches, a 4 x 1,024 prefill and 8 decode steps, launching B5,
-   B5's backward and B6 (olmo) or B7 and its backward (mamba) on its
-   local heads under ``local_map``, exactly as many times as its layers
-   and microbatches ask; the world's results are held against the same
-   calls on one device with the kernels, from the same parameters, and a
-   world whose first model-axis reduction is dropped must fail that gate.
+   B5's backward and B6, B7 and its backward on its local heads under
+   ``local_map``, exactly as many times as its layers and microbatches
+   ask; the world's results are held against the same calls on one
+   device with the kernels, from the same parameters (moonshot at the
+   first capacity factor of EP_CF_LADDER where neither a rank nor one
+   device drops a token; a route may flip only at a near tie), and
+   worlds with a fault (olmo: the first model-axis reduction dropped;
+   moonshot: the all-to-all's backward with its dims unswapped, the
+   experts' weight-gradient reduce-scatter dropped) must fail that gate.
    The dry run's sample (path 14) adds the partitioned cells of olmo-1b
    and mamba2-370m on the fake (16, 16) and (2, 16, 16) meshes.
 
@@ -195,6 +203,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import math
 import os
 import random
 import re
@@ -497,19 +506,35 @@ EP_LAYERS = 3
 EP_MODEL = 2
 EP_BATCH = 4
 # gate (a): the first capacity factor of the ladder at which no expert
-# drops a token, globally or on a rank
-EP_CF_LADDER = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0)
+# drops a token, globally or on a rank (the partitioned moonshot step's
+# seeded f32 routes put up to 773 of a rank's 1,024 tokens on one expert:
+# 10.0, whose per-rank capacity is 1,024 slots)
+EP_CF_LADDER = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0)
 # gate (b): the ranks' MoE outputs against the one-process emulation of
 # the ranks (tests/_torch_ep_ranks.py) on the same inputs, of the
 # output's largest entry: the two compute the same products on the same
 # slot buffers, so they agree to within one bf16 rounding
 EP_EMUL_TOL = 2.0 ** -7
 EP_TIMEOUT_S = 600
-# the partitioned steps (A31): four ranks of a (2, 2) world on the one card,
-# each arch at full width with its depth cut, one train step (2 microbatches
-# of 4 x 1,024), a 4 x 1,024 prefill and 8 decode steps
+# the partitioned steps (A31, A32): four ranks of a (2, 2) world on the one
+# card, one train step (2 microbatches of 4 x 1,024), a 4 x 1,024 prefill and
+# 8 decode steps each of (arch, layers (0: the reduced config), rules):
+# olmo-1b and mamba2-370m at full width, their depth cut to 2 and 4 layers
+# (the script keeps inside its time limit beside the moonshot world's
+# ~200 s); moonshot at full
+# width cut to the dense first layer and 2 MoE layers under dp_heavy_rules()
+# (expert parallelism, the four-chip cell's path; 1.50 B parameters, 24.0 GB
+# with gradients and both moments over the four ranks, each rank's 32
+# experts gathered at use, 1.1 GB a layer); reduced jamba under rules_for
+# (the global dispatch's expert block, B7 and its backward; one MoE layer of
+# its full width has 9.66 B parameters, 19.3 GB in bf16 before moments: not
+# on one card)
 PART_WORLD = (2, 2)
-PART_ARCHS = (("olmo-1b", 4), ("mamba2-370m", 8))
+PART_CASES = (("olmo-1b", 2, "auto"), ("mamba2-370m", 4, "auto"),
+              (MOE_ARCH, 3, "dp_heavy"), ("jamba-1.5-large-398b", 0, "auto"))
+# the faulted worlds each arch's train step must fail the gate with
+PART_FAULTS = {"olmo-1b": ("model_reduction",),
+               MOE_ARCH: ("unswapped_all_to_all", "dropped_reduce_scatter")}
 PART_BATCH = 8
 PART_SEQ = 1024
 PART_MICROBATCH = 2
@@ -526,6 +551,16 @@ PART_TIMEOUT_S = 900
 PART_TOL = {"loss": (0.0, 1e-4), "logits": (2e-3, 0.0),
             "moments": (1e-6, 1e-2), "param_bound": 2 * PART_LR1,
             "param_tol": (1e-3 * PART_LR1, 0.0), "param_share": 1e-3}
+# jamba's bf16 gradient sums and moments (tests/test_torch_partition_moe.py):
+# bit-equal but for a share under 1e-2, every entry within 2**-6 of the
+# moment's largest
+PART_TOL_BF16_STATE = dict(PART_TOL, moments=(2.0 ** -6, 0.0),
+                           moments_of_max=True, moment_share=1e-2)
+# a route that flips against one device must sit at a near tie: one
+# device's log-probability gap between the token's k-th and (k+1)-th
+# experts under 2**-10 (the world's router inputs part from one device's by
+# f32 sums in other orders, ~1e-5 of their scale)
+PART_ROUTE_TIE = 2.0 ** -10
 # the five examples (A28), each a child process on the card; the analytic
 # two (serve_tenants' table, serve_pipeline's plan) also on the CPU
 EXAMPLES = (("train_lm", ["--steps", "100"]), ("nic_apps", []),
@@ -4302,67 +4337,258 @@ class _HeadTap:
          ss.ssd_scan_cuda) = self.real
 
 
-def _part_expected(cfg):
-    """The launches a rank makes in each phase, and its local heads."""
-    L, accum, m = cfg.n_layers, PART_MICROBATCH, PART_WORLD[1]
-    if cfg.family == "ssm":
-        return ({"train": {"ssd_scan": L * accum, "ssd_scan_bwd": L * accum},
-                 "prefill": {"ssd_scan": L}, "decode": {}},
-                {"ssd_scan": {cfg.ssm_heads // m}})
-    return ({"train": {"flash_attention": L * accum,
-                       "flash_attention_bwd": L * accum},
-             "prefill": {"flash_attention": L},
-             "decode": {"decode_attention": L * PART_DECODE_STEPS}},
-            {"flash_attention": {cfg.n_heads // m},
-             "decode_attention": {cfg.n_heads // m}})
+def _part_cfg(arch, layers, cfs=None):
+    """A partition case's config: full width with ``layers`` layers (0:
+    the reduced config), microbatch PART_MICROBATCH, and the capacity
+    factor ``cfs`` picked for the arch, if any."""
+    cfg = get_arch(arch)
+    cfg = cfg.replace(n_layers=layers) if layers else cfg.reduced()
+    cfg = cfg.replace(microbatch=PART_MICROBATCH)
+    if cfs and arch in cfs:
+        cfg = cfg.replace(capacity_factor=cfs[arch])
+    return cfg
 
 
-def _part_gate(arch, pr, r, fault, cfg, params, inp):
-    """This rank's world results ``r`` (and the faulted world's) held to
-    the same calls on one device, on the rank's blocks."""
-    one = pr.blocks_of(pr.run_steps(cfg, params, inp, None, None, "cuda"),
-                       r)
+def _part_capacity(arch, layers, rules_name):
+    """The first capacity factor of EP_CF_LADDER at which neither one
+    device (the global capacity of a microbatch's or the prefill's
+    tokens) nor a rank of the (2, 2) world (the per-rank capacity of its
+    tokens under expert parallelism) drops a token, from one device's
+    routes of the train step's microbatches and of the prefill (a decode
+    step's 4 tokens never fill an expert's 128 slots). Run in the parent
+    before the ranks start, on the card, then freed."""
+    cfg = _part_cfg(arch, layers)
+    inp = _part_inputs(cfg)
+    model = build(cfg, "cuda")
+    params = _part_params(cfg)("cuda")
+    world = PART_WORLD[0] * PART_WORLD[1]
+    mb = PART_BATCH // PART_MICROBATCH
+    calls = [inp["train"][i * mb:(i + 1) * mb]
+             for i in range(PART_MICROBATCH)] + [inp["prefill"]]
+    loads = []                          # (global load, largest rank load)
+    with torch.no_grad():
+        for tokens in calls:
+            with _Routes() as r:
+                model.forward(params, {"tokens": torch.from_numpy(
+                    tokens).cuda()})
+            rows = tokens.shape[0] // world
+            for c in r.calls:
+                ids = c["chosen"].reshape(world, -1)
+                per = [int(torch.bincount(i, minlength=cfg.n_experts).max())
+                       for i in ids]
+                loads.append((tokens.shape[0] * tokens.shape[1], rows
+                              * tokens.shape[1], max(per), int(
+                                  torch.bincount(ids.reshape(-1)).max())))
+    del model, params
+    torch.cuda.empty_cache()
+    ep = rules_name == "dp_heavy"
+    for tried, cf in enumerate(EP_CF_LADDER, 1):
+        ok = all(g_load <= moe._capacity(T, cfg.top_k, cfg.n_experts, cf)
+                 and (not ep or r_load <= moe._capacity(
+                     T_l, cfg.top_k, cfg.n_experts, cf))
+                 for T, T_l, r_load, g_load in loads)
+        if ok:
+            return cf, {"capacity_factor": cf, "factors_tried": tried,
+                        "largest_rank_load": max(x[2] for x in loads),
+                        "largest_global_load": max(x[3] for x in loads)}
+    raise AssertionError(f"{arch}: tokens drop at every capacity factor of "
+                         f"{EP_CF_LADDER}: (tokens, a rank's tokens, largest "
+                         f"load on a rank, largest load) of each call {loads}")
+
+
+def _part_expected(cfg, rules, mesh):
+    """The launches a rank makes in each phase, and its local heads: B5
+    and its backward on each attention layer (B6 a decode step), B7 and
+    its backward on each mamba layer, on the heads the rules leave a
+    rank."""
+    accum, steps = PART_MICROBATCH, PART_DECODE_STEPS
+    body = [s for seg in lm.build_schedule(cfg) for _ in range(seg.count)
+            for s in seg.body]
+    n_attn = sum(s.mixer != "mamba" for s in body)
+    n_ssm = len(body) - n_attn
+    split = lambda axes, n: n // math.prod(
+        sh.mesh_axes(mesh)[a] for a in sh.entry_axes(
+            sh.spec_for((axes,), (n,), rules, mesh)[0]))
+    want = {"train": {}, "prefill": {}, "decode": {}}
+    heads = {}
+    if n_attn:
+        want["train"].update(flash_attention=n_attn * accum,
+                             flash_attention_bwd=n_attn * accum)
+        want["prefill"]["flash_attention"] = n_attn
+        want["decode"]["decode_attention"] = n_attn * steps
+        heads["flash_attention"] = heads["decode_attention"] = {
+            split("heads", cfg.n_heads)}
+    if n_ssm:
+        want["train"].update(ssd_scan=n_ssm * accum,
+                             ssd_scan_bwd=n_ssm * accum)
+        want["prefill"]["ssd_scan"] = n_ssm
+        heads["ssd_scan"] = {split("ff", cfg.ssm_heads)}
+    return want, heads
+
+
+def _part_fault_case(cfg, inp):
+    """A faulted world's config and inputs: the train batch's first
+    microbatch, in one microbatch (so the world and one device split it
+    alike)."""
+    return cfg.replace(microbatch=1), dict(
+        inp, train=inp["train"][:PART_BATCH // PART_MICROBATCH])
+
+
+def _trim():
+    """Return the host heap's free pages (the staged collectives' buffers)
+    to the system: four ranks share the host's memory."""
+    import ctypes
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def _part_token_block(cfg, rules, mesh):
+    """(whether the MoE layers take expert parallelism, this rank's block
+    of the tokens along the batch): an EP rank routes its own rows, the
+    global dispatch every token on every rank."""
+    x_spec = sh.token_spec((PART_BATCH // PART_MICROBATCH, PART_SEQ,
+                            cfg.d_model), rules, mesh)
+    return ({"data", "model"} <= set(sh.entry_axes(x_spec[0])),
+            sh.block_index(x_spec[0], mesh)[0])
+
+
+def _part_replay(cfg, rules, mesh, world_routes):
+    """The routes one device replays: every rank's ({token block:
+    routes}), its blocks of the tokens in order under expert
+    parallelism; one rank's where every rank routes every token."""
+    if not cfg.n_experts:
+        return None
+    ep, me = _part_token_block(cfg, rules, mesh)
+    blocks = sorted(world_routes) if ep else [me]
+    return [np.concatenate([world_routes[b][i][0] for b in blocks])
+            for i in range(len(world_routes[me]))]
+
+
+def _part_one_device(pr, rank, cfg, params, inp, mesh, rules, world_routes,
+                     fault_calls, indices):
+    """The world's calls on one device, run once, by rank 0, while the
+    other ranks hold nothing on the card (a MoE arch replaying the
+    world's routes, as the MoE training phase replays the kernel run's),
+    and for a case with faults the faulted worlds' train step; every rank
+    gets the results with the parameters and moments cut to its blocks
+    (``indices``: each rank's), sent flat over the group."""
+    import torch.distributed as dist
+    order = [(m, k) for m in ("params", "mu", "nu")
+             for k in sorted(indices[rank])]
+    meta = [None]
+    if rank == 0:
+        replay = _part_replay(cfg, rules, mesh, world_routes)
+        with pr.moe_paths(replay) as paths:
+            one = pr.run_steps(cfg, params, inp, None, None, "cuda")
+        one["routes"], one["drops"] = paths.routes, paths.drops
+        if fault_calls is not None:
+            cfg_f, inp_f = _part_fault_case(cfg, inp)
+            with pr.moe_paths(replay[:fault_calls] if replay else None):
+                f = pr.run_steps(cfg_f, params, inp_f, None, None, "cuda",
+                                 serve=False, state=False)
+            one["fault_reference"] = {"loss": f["loss"],
+                                      "grad_norm": f["grad_norm"]}
+        whole = {m: one.pop(m) for m in ("params", "mu", "nu")}
+        meta = [one]
+    dist.broadcast_object_list(meta, src=0)
+    one = dict(meta[0])
+    cut = lambda a, ix: a[tuple(slice(o, o + n) for o, n in ix)]
+    flat = None
+    for j in range(dist.get_world_size()):
+        if rank == 0:
+            blocks = np.concatenate([cut(whole[m][k], indices[j][k]).ravel()
+                                     for m, k in order])
+            if j == 0:
+                flat = blocks
+            else:
+                dist.send(torch.from_numpy(blocks), dst=j)
+        elif rank == j:
+            buf = torch.empty(sum(math.prod(n for _, n in indices[j][k])
+                                  for _, k in order), dtype=torch.float32)
+            dist.recv(buf, src=0)
+            flat = buf.numpy()
+    at = 0
+    for m, k in order:
+        shape = tuple(n for _, n in indices[rank][k])
+        size = math.prod(shape)
+        one.setdefault(m, {})[k] = flat[at:at + size].reshape(shape)
+        at += size
+    return one
+
+
+def _part_gate(arch, pr, r, faults, cfg, one, mesh, rules):
+    """This rank's world results ``r`` (and the faulted worlds') held to
+    the same calls on one device (``_part_one_device``), on the rank's
+    blocks; a MoE arch's one-device choices held to the world's: a flip
+    only at a near tie."""
+    tol = PART_TOL_BF16_STATE if cfg.bf16_optimizer_state else PART_TOL
     out = {"one_device": {"ms": {k: 1e3 * v
                                  for k, v in one["seconds"].items()},
                           "launches": one["launches"], "loss": one["loss"],
-                          "grad_norm": one["grad_norm"]},
+                          "grad_norm": one["grad_norm"],
+                          "drops": sum(one["drops"])},
            "logit_max_abs_err": float(np.abs(r["logits"]
                                              - one["logits"]).max()),
            "param_max_abs_err": max(float(np.abs(r["params"][k] - w).max())
                                     for k, w in one["params"].items()),
-           "gate": pr.compare(r, one, PART_TOL)}
+           "gate": pr.compare(r, one, tol)}
+    if cfg.n_experts:
+        ep, me = _part_token_block(cfg, rules, mesh)
+
+        def rows(i, n_rank, n_one):
+            return slice(me * n_rank, (me + 1) * n_rank) if ep else \
+                slice(0, n_one)
+        out["routes"] = pr.route_flips(r["routes"], one["routes"], rows)
+        out["routes"]["replayed"] = True
     if out["gate"]:
-        raise AssertionError(f"{arch} over {PART_WORLD}: {out['gate'][:8]}")
-    if fault is not None:
-        out["fault_gate"] = pr.compare(fault, one, PART_TOL,
-                                       keys=("loss", "grad_norm"))
-        if not out["fault_gate"]:
-            raise AssertionError(f"{arch}: the world with a model-axis "
-                                 f"reduction dropped passed the gate")
+        raise AssertionError(f"{arch} over {PART_WORLD}: {out['gate'][:8]}; "
+                             f"routes {out.get('routes')}")
+    if cfg.n_experts:
+        if sum(one["drops"]) or sum(r["drops"]):
+            raise AssertionError(f"{arch}: {sum(one['drops'])} drops on one "
+                                 f"device, {sum(r['drops'])} on the rank")
+        if out["routes"]["max_flip_gap"] > PART_ROUTE_TIE:
+            raise AssertionError(f"{arch}: a token changed experts at a "
+                                 f"gap {out['routes']['max_flip_gap']} past "
+                                 f"a near tie ({PART_ROUTE_TIE})")
+    out["faults"] = {}
+    for name, f in faults.items():
+        bad = pr.compare(f, one["fault_reference"], tol,
+                         keys=("loss", "grad_norm"))
+        out["faults"][name] = bad
+        if not bad:
+            raise AssertionError(f"{arch}: the world with the fault {name} "
+                                 f"passed the gate")
     return out
 
 
-def _part_run(rank, mesh):
-    """One rank's part of ``partition_checks``: each arch's steps over the
-    world and the faulted world's train step (olmo), then the same calls
-    on one device and the gates, each rank holding its own blocks of the
-    parameters and moments to the one-device run's (no gather)."""
+def _part_run(rank, mesh, cfs):
+    """One rank's part of ``partition_checks``: each case's steps over the
+    world and its faulted worlds' train steps; then, with every rank's
+    memory released, the same calls on one device (rank 0's), and the
+    gates, each rank holding its own blocks of the parameters and
+    moments to the one-device run's."""
+    import gc
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "tests"))
     import _torch_partition_ranks as pr   # the steps and the gate: no JAX
     out = {"rank": rank, "coords": sh.coordinates(mesh), "archs": {}}
-    for arch, layers in PART_ARCHS:
-        cfg = get_arch(arch).replace(n_layers=layers,
-                                     microbatch=PART_MICROBATCH)
-        rules, inp, params = sh.rules_for(cfg, mesh), _part_inputs(cfg), \
-            _part_params(cfg)
+    world = dist.get_world_size()
+    for arch, layers, rules_name in PART_CASES:
+        cfg = _part_cfg(arch, layers, cfs)
+        rules = pr.rules_of(rules_name, cfg, mesh)
+        inp, params = _part_inputs(cfg), _part_params(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         coll.reset_stats()
-        with _HeadTap() as tap:
+        with _HeadTap() as tap, pr.moe_paths() as paths:
             r = pr.run_steps(cfg, params, inp, mesh, rules, "cuda",
                              whole=False)
-        rec = {"layers": layers, "rules": "rules_for",
+        r["routes"], r["drops"] = paths.routes, paths.drops
+        _trim()
+        rec = {"layers": cfg.n_layers, "reduced": not layers,
+               "rules": "rules_for" if rules_name == "auto" else
+               "dp_heavy_rules", "capacity_factor": cfg.capacity_factor,
+               "moe_paths": paths.calls,
                "ms": {k: 1e3 * v for k, v in r["seconds"].items()},
                "decode_ms_per_step": 1e3 * r["seconds"]["decode"]
                / PART_DECODE_STEPS,
@@ -4373,39 +4599,58 @@ def _part_run(rank, mesh):
                "staged": coll.stats(),
                "peak_bytes": torch.cuda.max_memory_allocated(),
                "loss": r["loss"], "grad_norm": r["grad_norm"]}
-        want_launches, want_heads = _part_expected(cfg)
+        want_launches, want_heads = _part_expected(cfg, rules, mesh)
         if r["launches"] != want_launches or \
                 {k: set(v) for k, v in rec["heads"].items()} != want_heads:
             raise AssertionError(f"rank {rank} {arch}: launches "
                                  f"{r['launches']} (want {want_launches}), "
                                  f"heads {rec['heads']} (want {want_heads})")
-        fault = None
-        if arch == PART_ARCHS[0][0]:
-            with pr.drop_model_reduction() as dropped:
-                fault = pr.run_steps(cfg, params, dict(inp, decode=[]), mesh,
-                                     rules, "cuda", counted=False,
-                                     whole=False)
-            if dropped["dropped"] != 1:
+        faults, fault_calls = {}, None
+        for name in PART_FAULTS.get(arch, ()):
+            cfg_f, inp_f = _part_fault_case(cfg, inp)
+            fault = pr.drop_model_reduction() if name == "model_reduction" \
+                else pr.FAULTS[name]()
+            with fault as dropped, pr.moe_paths() as fp:
+                faults[name] = pr.run_steps(
+                    cfg_f, params, inp_f, mesh, rules, "cuda",
+                    counted=False, whole=False, serve=False, state=False)
+            fault_calls = len(fp.routes)
+            _trim()
+            if name == "model_reduction" and dropped["dropped"] != 1:
                 raise AssertionError(f"{arch}: the faulted world dropped "
                                      f"{dropped['dropped']} reductions")
-        # the one-device run, a rank at a time (its time is then its own)
-        for turn in range(dist.get_world_size()):
-            dist.barrier()
-            if turn == rank:
-                rec.update(_part_gate(arch, pr, r, fault, cfg, params, inp))
-        del r, fault
+        # every rank's routes and blocks, for the one-device run to replay
+        # and cut; it runs while no rank holds memory on the card
+        shared = [None] * world
+        dist.all_gather_object(shared, (
+            _part_token_block(cfg, rules, mesh)[1], r["routes"], r["index"]))
+        world_routes = {b: routes for b, routes, _ in shared}
+        indices = [ix for _, _, ix in shared]
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["reserved_before_one_device"] = torch.cuda.memory_reserved()
+        dist.barrier()
+        one = _part_one_device(pr, rank, cfg, params, inp, mesh, rules,
+                               world_routes, fault_calls, indices)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec.update(_part_gate(arch, pr, r, faults, cfg, one, mesh, rules))
+        del r, faults, world_routes, one, shared
+        _trim()
         dist.barrier()
         out["archs"][arch] = rec
     return out
 
 
-def _part_rank(rank, port, out_dir):
+def _part_rank(rank, port, out_dir, cfs):
     """A rank of ``partition_checks``, in a process of its own on card
     0."""
     import datetime
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     torch.cuda.set_device(0)
+    # four ranks share the card: cached blocks of one size serve others
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     torch.backends.cuda.matmul.allow_tf32 = False
     world = PART_WORLD[0] * PART_WORLD[1]
     dist.init_process_group(
@@ -4415,24 +4660,39 @@ def _part_rank(rank, port, out_dir):
         _build.load()                   # built by the parent: loaded only
         coll.stage_through_host("cuda")
         report = _part_run(rank, make_host_mesh(PART_WORLD[1],
-                                                device_type="cuda"))
+                                                device_type="cuda"), cfs)
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
     finally:
         dist.destroy_process_group()
 
 
 def partition_checks():
-    """The partitioned steps (A31) on the card: four ranks, spawned, each
-    on card 0 with its own CUDA context, joined within PART_TIMEOUT_S."""
+    """The partitioned steps (A31, A32) on the card: the MoE cases'
+    capacity factors picked here, then four ranks, spawned, each on card 0
+    with its own CUDA context, joined within PART_TIMEOUT_S."""
     out_dir = ROOT / "build" / "partition"
     out_dir.mkdir(parents=True, exist_ok=True)
     for f in out_dir.glob("rank*.json"):
         f.unlink()
     world = PART_WORLD[0] * PART_WORLD[1]
     t0 = time.perf_counter()
-    ctx = torch.multiprocessing.start_processes(
-        _part_rank, args=(_free_port(), str(out_dir)), nprocs=world,
-        join=False, start_method="spawn")
+    cfs, capacity = {}, {}
+    for arch, layers, rules_name in PART_CASES:
+        if get_arch(arch).n_experts:
+            cfs[arch], capacity[arch] = _part_capacity(arch, layers,
+                                                       rules_name)
+    # the ranks' host heaps: few arenas, so freed staging buffers go back
+    arenas = os.environ.get("MALLOC_ARENA_MAX")
+    os.environ["MALLOC_ARENA_MAX"] = "2"
+    try:
+        ctx = torch.multiprocessing.start_processes(
+            _part_rank, args=(_free_port(), str(out_dir), cfs),
+            nprocs=world, join=False, start_method="spawn")
+    finally:
+        if arenas is None:
+            del os.environ["MALLOC_ARENA_MAX"]
+        else:
+            os.environ["MALLOC_ARENA_MAX"] = arenas
     deadline = time.monotonic() + PART_TIMEOUT_S
     try:
         while not ctx.join(timeout=5):
@@ -4445,7 +4705,8 @@ def partition_checks():
                 p.join(10)
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(world)]
-    return {"world": list(PART_WORLD), "archs": [a for a, _ in PART_ARCHS],
+    return {"world": list(PART_WORLD), "archs": [a for a, *_ in PART_CASES],
+            "capacity": capacity,
             "backend": "gloo, the functional collectives staged through the "
                        "host, four ranks on card 0",
             "collective_note": "host copies over gloo on one card: not "
@@ -5514,32 +5775,43 @@ def main() -> int:
     by_name["flash_attention"]["launches_by_path"]["moonshot_ep"] = (
         ep["ranks"][0]["launches"]["flash_attention"])
 
-    # the partitioned steps (A31): olmo-1b and mamba2-370m over four ranks
+    # the partitioned steps (A31, A32): olmo-1b, mamba2-370m, moonshot
+    # (expert parallelism) and reduced jamba over four ranks
     part = partition_checks()
     part["card"] = smi
     for arch in part["archs"]:
         r0 = part["ranks"][0]["archs"][arch]
         for r in part["ranks"]:
             a = r["archs"][arch]
+            ct = a["collectives_train"]
+            kinds = ", ".join(f"{k} {ct[k]} B" for k in rl.COLLECTIVES
+                              if ct[k])
             print(f"partition {arch} rank {r['rank']} {json.dumps(r['coords'])}"
-                  f" ({smi}): train step {a['ms']['train']:.1f} ms, prefill "
+                  f" ({smi}): {a['layers']} layers"
+                  f"{' (reduced)' if a['reduced'] else ''}, {a['rules']}; "
+                  f"train step {a['ms']['train']:.1f} ms, prefill "
                   f"{a['ms']['prefill']:.1f} ms, decode "
                   f"{a['decode_ms_per_step']:.2f} ms a step; collectives "
-                  f"train {a['collectives_train']['count']} calls "
-                  f"{a['collectives_train']['total']} B "
-                  f"{json.dumps(a['collectives_train']['by_axis'])}, serve "
+                  f"train {ct['count']} calls {ct['total']} B ({kinds}) "
+                  f"by axis {json.dumps(ct['by_axis'])}, serve "
                   f"{a['collectives_serve']['count']} calls "
                   f"{a['collectives_serve']['total']} B; host copies "
                   f"{a['staged'].get('host_copy_bytes', 0)} B; peak "
-                  f"{a['peak_bytes']} B")
-        print(f"partition {arch}: one device train step "
+                  f"{a['peak_bytes']} B; reserved before the one-device "
+                  f"run {a['reserved_before_one_device']} B")
+        print(f"partition {arch} ({smi}): one device train step "
               f"{r0['one_device']['ms']['train']:.1f} ms, prefill "
               f"{r0['one_device']['ms']['prefill']:.1f} ms; world against "
               f"one device: loss {r0['loss']} vs {r0['one_device']['loss']}, "
               f"logits within {r0['logit_max_abs_err']}, parameters within "
-              f"{r0['param_max_abs_err']}" + (
-                  f"; faulted world rejected ({r0['fault_gate'][:2]})"
-                  if "fault_gate" in r0 else ""))
+              f"{r0['param_max_abs_err']}"
+              + (f"; MoE paths {json.dumps(r0['moe_paths'])}, capacity "
+                 f"factor {r0['capacity_factor']}, route flips "
+                 + ", ".join(f"rank {r['rank']} {r['archs'][arch]['routes']}"
+                             for r in part["ranks"])
+                 if "routes" in r0 else "")
+              + "".join(f"; faulted world ({k}) rejected ({v[:2]})"
+                        for k, v in r0["faults"].items()))
     print("partition " + json.dumps(part))
     for arch in part["archs"]:
         for phase, counts in part["ranks"][0]["archs"][arch][

@@ -24,11 +24,12 @@ so do their bytes: what joins two pieces is a piece of its own (the
 first encoder layer, whose input needs no gradient; the sum autograd
 makes of the decoder layers' gradients of the encoder's output).
 
-Over a partitioned mesh (``mesh.fake_mesh``; the dense and ssm families)
-each piece's inputs are DTensors placed as the step places them (the
-parameters, gradients and moments by the resolver, activations by their
-logical axes: ("batch", "seq", None)), each piece runs under the step's
-context (``steps.on_mesh``) and its collectives are counted
+Over a partitioned mesh (``mesh.fake_mesh``; the dense, ssm, MoE and
+hybrid families) each piece's inputs are DTensors placed as the step
+places them (the parameters, gradients and moments by the resolver,
+activations by their logical axes: ("batch", "seq", None)), each piece
+runs under the step's context (``steps.on_mesh``) and its collectives
+are counted
 (``roofline.collective_bytes``, ``coll`` in each piece); its figures are
 one device's. A piece starts from activations in their pinned layout,
 so the redistributions that join two pieces land in the later one.

@@ -10,8 +10,9 @@ Mesh kinds:
     carries the per-piece view (``decompose.py``), whose totals equal the
     whole step's.
   * ``single`` / ``multi``: the reference's (16, 16) and (2, 16, 16)
-    meshes of H100s. A cell whose layout the port partitions (the dense
-    and ssm families, where the rules keep whole sequences on a rank:
+    meshes of H100s. A cell whose layout the port partitions (the dense,
+    ssm, MoE and hybrid families, where the rules keep whole sequences on
+    a rank:
     ``partition_reason``) is traced as the partitioned step over a fake
     process group of 256 or 512 ranks (``mesh.fake_mesh``): DTensors on
     the meta device, placed by the resolver, the counter seeing rank 0's
@@ -74,9 +75,6 @@ from repro_torch.parallel.sharding import (entry_axes, mesh_axes, mesh_size,
 MESH_KINDS = ("card", "single", "multi")
 # what a family's partitioned step waits for
 _FAMILY_WAITS = {
-    "moe": "the MoE FFN's backward across ranks (expert parallelism "
-           "through autograd) and experts placed per rank",
-    "hybrid": "the MoE FFN's partitioned step (jamba's MoE layers)",
     "encdec": "the encoder-decoder's partitioned step (cross-attention "
               "and its cache)",
     "vlm": "the vlm family's partitioned step (its patch embeddings)",

@@ -179,10 +179,16 @@ def grad_buffers(named: Mapping[str, torch.Tensor], grad_dtype
 def accumulate(g_acc: Dict[str, torch.Tensor],
                grads: Mapping[str, Optional[torch.Tensor]]) -> None:
     """Add one microbatch's gradients (None where a parameter is unused)
-    into the sums, in the sums' dtype (and placements)."""
+    into the sums, in the sums' dtype (and placements). A DTensor
+    gradient that is a partial sum over ranks is reduced in its own dtype
+    first, as the reference sums its f32 gradients before a bf16 sum
+    takes them."""
     for k, g in grads.items():
-        if g is not None:
-            g_acc[k] += g.to(g_acc[k].dtype)
+        if g is None:
+            continue
+        if sh.is_dtensor(g) and g.placements != g_acc[k].placements:
+            g = g.redistribute(g.device_mesh, g_acc[k].placements)
+        g_acc[k] += g.to(g_acc[k].dtype)
 
 
 @torch.no_grad()
@@ -194,20 +200,24 @@ def finish_grads(g_acc: Dict[str, torch.Tensor], losses) -> torch.Tensor:
 
 
 def microbatch(v: torch.Tensor, accum: int, i: int) -> torch.Tensor:
-    """Microbatch ``i`` of ``accum``. On one device the i-th block of
-    rows. A DTensor batch is split on each rank: microbatch i is the
-    i-th block of every rank's rows, so every microbatch spreads over the
-    same ranks as the batch (the mean of the microbatches' mean losses,
-    and of their gradients, is the same as with the one-device split,
-    their order of summation aside)."""
+    """Microbatch ``i`` of ``accum``: the i-th block of the batch's rows,
+    as the reference's step splits it. A DTensor batch (the tokens: a few
+    KB) is gathered, and each rank keeps its block of the microbatch's
+    rows in the batch's placements, so every microbatch spreads over the
+    same ranks as the batch and holds the rows the reference's holds (a
+    MoE layer's capacity and drops depend on which tokens meet)."""
     if not sh.is_dtensor(v):
         return v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
     from torch.distributed.tensor import DTensor
-    local = v.to_local()
-    local = local.reshape((accum, local.shape[0] // accum)
-                          + local.shape[1:])[i]
-    return DTensor.from_local(local, v.device_mesh, v.placements,
-                              run_check=False)
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    whole = v.full_tensor()
+    mb = whole.reshape((accum, whole.shape[0] // accum) + whole.shape[1:])[i]
+    shape, offset = compute_local_shape_and_global_offset(
+        mb.shape, v.device_mesh, v.placements)
+    local = mb[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return DTensor.from_local(local.contiguous(), v.device_mesh,
+                              v.placements, run_check=False)
 
 
 def _whole(t: torch.Tensor) -> torch.Tensor:

@@ -30,7 +30,7 @@ from repro_torch.parallel import sharding
 
 # The families whose steps run partitioned over a DeviceMesh
 # (``launch/steps.py`` with a mesh).
-PARTITIONED_FAMILIES = ("dense", "ssm")
+PARTITIONED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
 
 META = torch.device("meta")
 
@@ -238,13 +238,14 @@ class Model:
         through ``convert.lm_params_from_jax``) with every parameter
         replaced, in place, by a DTensor on the live ``mesh`` placed by
         the resolver (``sharding.distribute``; each rank keeps its block,
-        no collective). Gradients stay switched as they were. The dense
-        and ssm families only: the partitioned MoE (its backward across
-        ranks), hybrid, encdec and vlm steps are not ported."""
+        no collective; a MoE layer's expert weights are split over their
+        experts, so each rank holds its experts' block). Gradients stay
+        switched as they were. The dense, ssm, MoE and hybrid families:
+        the encdec and vlm steps are not ported (A33)."""
         if self.cfg.family not in PARTITIONED_FAMILIES:
             raise NotImplementedError(
                 f"the partitioned step of the {self.cfg.family} family is "
-                f"not ported (only {PARTITIONED_FAMILIES})")
+                f"not ported (A33; only {PARTITIONED_FAMILIES})")
         named = dict(params.named_parameters())
         placed = sharding.distribute({k: p.detach() for k, p in
                                       named.items()},

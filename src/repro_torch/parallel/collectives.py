@@ -15,25 +15,32 @@ tiled as the reference's ``jax.lax`` collectives under ``shard_map``:
   spec, gathered back to the whole tensor on every rank (what GSPMD does
   where a sharded value meets code that needs it whole).
 
-NCCL moves CUDA tensors where they lie. Gloo, the backend that runs two
-ranks on one card (NCCL refuses two ranks on one device) and the ranks of
-the CPU tests, is given host tensors: a CUDA tensor is copied to the host
-before the collective and the result back after it, explicitly, and the
-bytes of both copies are counted (``stats()["host_copy_bytes"]``). The
-collectives only move bytes, so the result is bit for bit the same either
-way. No computation moves to the host.
+They are issued as the functional collectives
+(``torch.ops._c10d_functional``), which DTensor issues too, so
+``roofline.collective_bytes`` sees them and ``stage_through_host`` routes
+them. Each carries a gradient, its adjoint, issued the same way: an
+all-to-all's is the all-to-all with ``split_dim`` and ``concat_dim``
+swapped (each received block goes back to the rank it came from); a tiled
+all-gather's is a reduce-scatter (sum) along the same dim, since every
+rank's copy of the gathered tensor feeds its own computation (the
+transposes of ``shard_map``'s collectives). Calls and bytes of both
+directions are counted (``stats()``).
 
-A partitioned step's collectives are DTensor's, issued as the functional
-collectives (``torch.ops._c10d_functional``); gloo's own path for CUDA
-tensors is not one to trust (a rank died in it on an H100, torch 2.11).
-``stage_through_host(device_type)`` registers, for that device's
-tensors, kernels of those ops that move the bytes through the host
+NCCL moves CUDA tensors where they lie. Gloo, the backend that runs several
+ranks on one card (NCCL refuses two ranks on one device) and the ranks of
+the CPU tests, moves host tensors; gloo's own path for CUDA tensors is not
+one to trust (a rank died in it on an H100, torch 2.11).
+``stage_through_host(device_type)`` registers, for that device's tensors,
+kernels of the functional ops that move the bytes through the host
 explicitly, over the same group, with gloo's host collectives that only
 move data: an all-gather is one, an all-to-all is one, and the two
 reductions are an all-gather (all-reduce) or an all-to-all
 (reduce-scatter) followed by the sum on the card, over the blocks in rank
-order (so every rank's sum is the same, bit for bit). Their bytes are
-counted as the collectives above count theirs.
+order (so every rank's sum is the same, bit for bit). The bytes of both
+copies are counted (``stats()["host_copy_bytes"]``). The collectives above
+stage themselves where a CUDA tensor meets a gloo group. The collectives
+only move bytes, so the result is bit for bit the same either way. No
+computation moves to the host.
 """
 from __future__ import annotations
 
@@ -61,22 +68,15 @@ def _count(key: str, n: int) -> None:
     _STATS[key] = _STATS.get(key, 0) + n
 
 
-def _run(op: str, collective, out: torch.Tensor, x: torch.Tensor,
-         group) -> torch.Tensor:
-    """``collective(out, x, group=group)`` on the rank's device, through
-    host copies where the group's backend is gloo and x is on the card."""
-    _count(f"{op}_calls", 1)
-    _count(f"{op}_bytes", x.numel() * x.element_size())
-    if x.is_cuda and dist.get_backend(group) == "gloo":
-        host_out = torch.empty(out.shape, dtype=out.dtype)
-        host_x = x.cpu()
-        collective(host_out, host_x, group=group)
-        out.copy_(host_out)
-        _count("host_copy_bytes", (host_x.numel() + host_out.numel())
-               * x.element_size())
-    else:
-        collective(out, x, group=group)
-    return out
+# > 0 while one of this module's collectives issues its functional op: it
+# counts its own call, and the staged kernel counts only the host copies
+_OWN = [0]
+
+
+def _count_call(op: str, x: torch.Tensor) -> None:
+    if not _OWN[0]:
+        _count(f"{op}_calls", 1)
+        _count(f"{op}_bytes", x.numel() * x.element_size())
 
 
 # -- the functional collectives through the host --------------------------------
@@ -121,16 +121,14 @@ def _sum_blocks(t: torch.Tensor, n: int, op: str) -> torch.Tensor:
 
 
 def _staged_all_gather(x, group_size, group_name):
-    _count("all_gather_calls", 1)
-    _count("all_gather_bytes", x.numel() * x.element_size())
+    _count_call("all_gather", x)
     return _host_all_gather(x, _group(group_name))
 
 
 def _staged_all_reduce(x, reduce_op, group_name):
     g = _group(group_name)
     n = dist.get_world_size(g)
-    _count("all_reduce_calls", 1)
-    _count("all_reduce_bytes", x.numel() * x.element_size())
+    _count_call("all_reduce", x)
     flat = x.reshape((1,) + tuple(x.shape)) if x.dim() == 0 else x
     out = _sum_blocks(_host_all_gather(flat, g), n, reduce_op)
     return out.reshape(x.shape).to(x.dtype)
@@ -139,8 +137,7 @@ def _staged_all_reduce(x, reduce_op, group_name):
 def _staged_reduce_scatter(x, reduce_op, group_size, group_name):
     g = _group(group_name)
     n = dist.get_world_size(g)
-    _count("reduce_scatter_calls", 1)
-    _count("reduce_scatter_bytes", x.numel() * x.element_size())
+    _count_call("reduce_scatter", x)
     return _sum_blocks(_host_all_to_all(x, g), n, reduce_op).to(x.dtype)
 
 
@@ -151,8 +148,7 @@ def _staged_all_to_all(x, output_split_sizes, input_split_sizes,
     if any(s != x.shape[0] // n for s in
            list(output_split_sizes) + list(input_split_sizes)):
         raise NotImplementedError("staged all_to_all: uneven splits")
-    _count("all_to_all_calls", 1)
-    _count("all_to_all_bytes", x.numel() * x.element_size())
+    _count_call("all_to_all", x)
     return _host_all_to_all(x, g)
 
 
@@ -172,8 +168,74 @@ def stage_through_host(device_type: str = "cuda") -> None:
     _STAGED.add(device_type)
 
 
+
+
 def axis_size(mesh, axis: str) -> int:
     return int(mesh.size(mesh.mesh_dim_names.index(axis)))
+
+
+def _issue(op: str, x: torch.Tensor, group, call) -> torch.Tensor:
+    """``call(x)``, a functional collective over ``group``, waited on;
+    counted as one ``op`` of x's bytes. A CUDA tensor over gloo goes
+    through the host (``stage_through_host``)."""
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        stage_through_host("cuda")
+    _count(f"{op}_calls", 1)
+    _count(f"{op}_bytes", x.numel() * x.element_size())
+    _OWN[0] += 1
+    try:
+        return torch.ops._c10d_functional.wait_tensor(call(x))
+    finally:
+        _OWN[0] -= 1
+
+
+def _all_to_all(x: torch.Tensor, group, n: int, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    blocks = x.unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
+    out = _issue("all_to_all", blocks.contiguous(), group,
+                 lambda t: torch.ops._c10d_functional.all_to_all_single(
+                     t, [1] * n, [1] * n, group.group_name))
+    return out.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+def _all_gather(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    out = _issue("all_gather", x.movedim(dim, 0).contiguous(), group,
+                 lambda t: torch.ops._c10d_functional.all_gather_into_tensor(
+                     t, n, group.group_name))
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, group, n: int, dim: int
+                    ) -> torch.Tensor:
+    out = _issue("reduce_scatter", x.movedim(dim, 0).contiguous(), group,
+                 lambda t: torch.ops._c10d_functional.reduce_scatter_tensor(
+                     t, "sum", n, group.group_name))
+    return out.movedim(0, dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, split_dim, concat_dim):
+        ctx.args = (group, n, split_dim, concat_dim)
+        return _all_to_all(x, group, n, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, group, n, concat_dim, split_dim), None, None, \
+            None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, dim):
+        ctx.args = (group, n, dim)
+        return _all_gather(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, dim = ctx.args
+        return _reduce_scatter(g, group, n, dim), None, None, None
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
@@ -181,22 +243,14 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int,
     n = axis_size(mesh, axis)
     if n == 1:
         return x
-    blocks = x.unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
-    blocks = blocks.contiguous()
-    out = _run("all_to_all", dist.all_to_all_single, torch.empty_like(blocks),
-               blocks, mesh.get_group(axis))
-    return out.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+    return _AllToAll.apply(x, mesh.get_group(axis), n, split_dim, concat_dim)
 
 
 def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     n = axis_size(mesh, axis)
     if n == 1:
         return x
-    xs = x.movedim(dim, 0).contiguous()
-    out = torch.empty((n * xs.shape[0],) + tuple(xs.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    return _run("all_gather", dist.all_gather_into_tensor, out, xs,
-                mesh.get_group(axis)).movedim(0, dim)
+    return _AllGather.apply(x, mesh.get_group(axis), n, dim)
 
 
 def gather_block(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:

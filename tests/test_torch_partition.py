@@ -32,8 +32,8 @@ step-by-step recurrence (``impl="ref"``; its blocked SSD is what
 ``test_torch_lm.py`` avoids) and its attention blocked.
 
 A faulted partition (the first model-axis all-reduce dropped) fails the
-gate; attention whose sequence the rules split raises; the MoE family's
-parameters refuse to be placed.
+gate; attention whose sequence the rules split raises; the encdec and
+vlm families' parameters refuse to be placed.
 """
 import os
 import pickle
@@ -136,7 +136,7 @@ def _reference_main(in_path, out_path):
             new_p, new_o, loss, gn = jstep(
                 params, opt, {"tokens": jnp.asarray(c["train"])},
                 jnp.int32(1))
-            named = lambda t: {k: v.numpy() for k, v in
+            named = lambda t: {k: v.float().numpy() for k, v in
                                convert.lm_named_from_jax(
                                    cfg, jax.tree.map(np.asarray, t),
                                    "cpu").items()}
@@ -281,13 +281,15 @@ def test_split_sequences_and_moe_are_refused(runs):
     """Reduced gemma3-1b's one kv head does not divide a 2-way model axis,
     so ``rules_for`` puts the sequence there: the prefill raises,
     naming sequence-parallel attention, instead of gathering it; on the
-    (4, 1) mesh it runs. The MoE family's parameters are not placed."""
+    (4, 1) mesh it runs. The encdec and vlm families' parameters are not
+    placed (A33); the MoE family's are (``test_torch_partition_moe.py``)."""
     for r in runs["port"][(2, 2)]:
         assert "sequence-parallel attention" in r["refusal"]
     for r in runs["port"][(4, 1)]:
         assert r["refusal"] is None
-    cfg = get_arch("moonshot-v1-16b-a3b").reduced()
-    model = build(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="moe family"):
-        model.distribute(model.init(torch.Generator(), torch.float32),
-                         None, None)
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        model = build(get_arch(arch).reduced(), "cpu")
+        with pytest.raises(NotImplementedError, match=f"{model.cfg.family} "
+                                                      f"family.*A33"):
+            model.distribute(model.init(torch.Generator(), torch.float32),
+                             None, None)

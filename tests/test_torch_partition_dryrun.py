@@ -9,12 +9,16 @@ and ``multi`` kinds) against the JAX package's.
   (2, 16, 16) meshes, under ``rules_for``, equal with ``==`` the
   placements of the reference's specs (its ``build_shardings``' tree of
   specs, each stacked leaf's first entry, the "layers" axis, dropped; its
-  ``cache_shardings``' and ``batch_shardings``' as they are). On a fake
-  (16, 16) DeviceMesh, ``Model.distribute`` places each parameter so.
+  ``cache_shardings``' and ``batch_shardings``' as they are); the same
+  for the MoE and hybrid families' three archs, with their AdamW moments
+  (``opt_state_struct_and_sharding``). On a fake (16, 16) DeviceMesh,
+  ``Model.distribute`` places each parameter so.
 * ``collective_bytes`` on a hand-built DTensor program on a fake (4, 2)
   mesh: each kind's bytes by the reference's conventions (an all-reduce
   or all-to-all counts its input, an all-gather its gathered output, a
-  reduce-scatter its scattered output) and the axis each ran on.
+  reduce-scatter its scattered output) and the axis each ran on; the
+  port's own all-to-all and all-gather with their adjoints' (an
+  all-to-all, a reduce-scatter) in the backward.
 * The counterpart of ``tests/test_dryrun_small.py::test_dryrun_small_mesh``
   on a fake (4, 2) mesh with the reference's assertions: reduced olmo-1b's
   train step traced partitioned (FLOPs > 0, collectives > 0), its decode
@@ -27,15 +31,18 @@ and ``multi`` kinds) against the JAX package's.
   and local shapes, so it is not a device's).
 * One production cell traced on meta: olmo-1b train_4k over the fake
   (16, 16) mesh.
-* Which cells the dry run partitions: the dense and ssm families' cells
-  whose rules keep whole sequences on a rank, on both meshes; the others'
-  records say why they stay analytic.
+* Which cells the dry run partitions: the dense, ssm, MoE and hybrid
+  families' cells whose rules keep whole sequences on a rank (moonshot's
+  three among them), on both meshes; the others' records say why they
+  stay analytic (phi3.5-moe's and jamba's, sequence-parallel attention;
+  encdec's and vlm's, their family).
 """
 import functools
 
 import jax
 import pytest
 import torch
+from torch.distributed.tensor import Shard
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro.configs import SHAPES as JSHAPES
@@ -49,11 +56,15 @@ from repro_torch.launch import roofline as rl
 from repro_torch.launch.decompose import decompose_cell
 from repro_torch.launch.mesh import MeshShape, fake_mesh, make_production_mesh
 from repro_torch.launch.steps import (batch_shardings, build_shardings,
-                                      cache_shardings)
+                                      cache_shardings,
+                                      opt_state_struct_and_sharding)
 from repro_torch.models.registry import build
+from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding as tsh
 
 ARCHS = ("olmo-1b", "gemma3-1b", "minicpm-2b", "qwen2.5-32b", "mamba2-370m")
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
+             "jamba-1.5-large-398b")
 MESHES = ("single", "multi")
 
 
@@ -85,6 +96,49 @@ def _ref_leaf(tree, name, arch):
 @pytest.mark.parametrize("mk", MESHES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_placements_equal_reference(arch, mk):
+    _placements_equal_reference(arch, mk)
+
+
+@pytest.mark.parametrize("mk", MESHES)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_and_hybrid_placements_equal_reference(arch, mk):
+    """The MoE and hybrid families' parameters (the experts' weights split
+    over their experts and FSDP'd), AdamW moments and decode caches (the
+    hybrid's mamba state beside its KV) on both production meshes, as
+    the five archs' above; the moments in the config's dtype (bf16 for
+    jamba), placed as the parameters."""
+    _placements_equal_reference(arch, mk)
+    desc = _desc(mk)
+    cfg = get_arch(arch)
+    model = build(cfg, "cpu")
+    rules = tsh.rules_for(cfg, desc)
+    struct, placed, _ = build_shardings(model, desc, rules)
+    o_struct, o_placed = opt_state_struct_and_sharding(model, desc, placed,
+                                                       struct)
+    jmodel, shapes, axes, _, _ = _reference(arch)
+    want_dtype = torch.bfloat16 if cfg.bf16_optimizer_state else \
+        torch.float32
+    assert cfg.bf16_optimizer_state == (arch == "jamba-1.5-large-398b")
+    for name, t in struct.named_parameters():
+        ref_a = _ref_leaf(axes, name, arch)
+        ref_s = _ref_leaf(shapes, name, arch).shape
+        if name.startswith("segments."):
+            ref_a, ref_s = ref_a[1:], ref_s[1:]
+        want = tsh.placements(tsh.PartitionSpec(
+            *jsh.spec_for(ref_a, ref_s, rules, desc)), desc)
+        for m in ("mu", "nu"):
+            assert getattr(o_placed, m)[name] == want, (m, name)
+            assert getattr(o_struct, m)[name].dtype == want_dtype
+            assert tuple(getattr(o_struct, m)[name].shape) == tuple(ref_s)
+    experts = [n for n, _ in struct.named_parameters()
+               if n.endswith(("moe.gate", "moe.up", "moe.down"))]
+    assert experts
+    for name in experts:
+        assert placed[name][list(desc.axis_names).index("model")] == \
+            Shard(0), name
+
+
+def _placements_equal_reference(arch, mk):
     desc = _desc(mk)
     cfg = get_arch(arch)
     model = build(cfg, "cpu")
@@ -158,6 +212,21 @@ def test_collective_bytes_follow_the_reference_conventions():
         assert c.result["count"] == 1
         assert c.result["total"] == c.result["by_axis"]["model"] == n
         assert c.result["collective-permute"] == 0
+        # the port's all-to-all and its adjoint, and a tiled all-gather's
+        # adjoint, a reduce-scatter: both directions booked by axis
+        x = torch.empty((8, 6), device="meta", requires_grad=True)
+        with rl.collective_bytes(mesh) as c:
+            y = coll.all_to_all(x, mesh, "model", 0, 1)
+            y.backward(torch.empty_like(y))
+        assert c.result["all-to-all"] == 2 * n
+        assert c.result["by_axis"] == {"model": 2 * n}
+        assert c.result["count"] == 2
+        with rl.collective_bytes(mesh) as c:
+            y = coll.all_gather(x, mesh, "data", 1)
+            y.backward(torch.empty_like(y))
+        assert c.result["all-gather"] == 4 * n
+        assert c.result["reduce-scatter"] == n
+        assert c.result["by_axis"] == {"data": 5 * n}
 
 
 SMALL = MeshShape(("data", "model"), (4, 2))
@@ -247,10 +316,11 @@ def _partitioned(arch, shape, mk):
 
 @pytest.mark.parametrize("mk", MESHES)
 def test_partitioned_cells_are_the_rules_whole_sequence_cells(mk):
-    traced = {(a, s) for a, s in cells("olmo-1b") + cells("mamba2-370m")}
+    traced = {(a, s) for a, s in cells("olmo-1b") + cells("mamba2-370m")
+              + cells("moonshot-v1-16b-a3b")}
     traced |= {(a, "train_4k") for a in ("gemma3-1b", "minicpm-2b",
                                          "qwen2.5-32b")}
-    for arch in ARCHS:
+    for arch in ARCHS + MOE_ARCHS:
         for _, shape in cells(arch):
             why = _partitioned(arch, shape, mk)
             assert (why is None) == ((arch, shape) in traced), (arch, shape)
@@ -260,4 +330,8 @@ def test_partitioned_cells_are_the_rules_whole_sequence_cells(mk):
                 assert "sequence-sharded cache" in why
     rec = dryrun.run_cell("phi3.5-moe-42b-a6.6b", "train_4k", mk,
                           verbose=False)
-    assert rec["analytic"] and "moe family" in rec["reason"]
+    assert rec["analytic"]
+    assert "sequence-parallel attention" in rec["reason"]
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        why = _partitioned(arch, cells(arch)[0][1], mk)
+        assert why and "family is not partitioned" in why
