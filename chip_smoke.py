@@ -44,7 +44,12 @@ it and read just after:
    8 x 1,024 (2 microbatches of 4), once with the kernels (B5 forward with
    its log-sum-exp, and B5's backward, on every layer of every
    microbatch) and once with the plain versions, from the same parameters
-   and data; then ``launch.train.main`` on the reduced config on the card,
+   and data. The config keeps the reference's ``remat``: each layer runs
+   under ``remat.checkpoint``, so a step launches B5's forward twice a
+   layer and microbatch (the recompute in the backward) and its backward
+   once. The remat gate: one step from the same parameters with remat off
+   beside one with it on, loss and grad norm ``==``, both peaks printed.
+   Then ``launch.train.main`` on the reduced config on the card,
    crashed at step 5 (``--fail-at``) and resumed (``--resume``), against an
    uninterrupted run: the final parameters equal bit for bit. Then
    mamba2-370m at full width (f32, AdamW f32) the same way: 4 steps at
@@ -52,8 +57,8 @@ it and read just after:
    (ssd_scan_bwd) on every layer of every microbatch, against the plain
    versions. Then moonshot-v1-16b-a3b at full width (d_model 2,048, 16
    heads of 128, 64 experts of d_ff 1,408 top-6, vocab 163,840 tied; f32,
-   AdamW f32), its depth cut to the dense first layer and 4 MoE layers
-   (2.64 B parameters): 4 steps the same way, B5 and its backward on every
+   AdamW f32), its depth cut to the dense first layer and 2 MoE layers
+   (1.50 B parameters): 4 steps the same way, B5 and its backward on every
    layer, each plain step from the kernel step's state, the routes held
    flip by flip, and the step-1 parameters against a plain step that takes
    the kernel run's routes; a step that drops one expert's gradient must
@@ -157,30 +162,39 @@ it and read just after:
    path on its input; at the config's 1.25, each rank's slots ``==`` and
    its outputs within EP_EMUL_TOL of the one-process emulation of the
    ranks; a run whose return all-to-all swaps the ranks' halves rejected.
-16. The five examples (A28) as child processes on the card: train_lm's
-   crash and resume, nic_apps' and quickstart's oracles, serve_tenants'
-   and serve_pipeline's output against the same scripts on the CPU.
-17. The partitioned steps (A31, A32), after path 16: olmo-1b at full
-   width, its depth cut to 2 layers, and mamba2-370m at full width cut
-   to 4, under ``rules_for``; moonshot-v1-16b-a3b at full width cut to 3
-   layers (the dense first and 2 MoE layers) under ``dp_heavy_rules()``,
+16. The five examples (A28) as child processes on the card, after every
+   timed path, beside the dry run's sample of path 14: train_lm's crash
+   and resume, nic_apps' and quickstart's oracles, serve_tenants' and
+   serve_pipeline's output against the same scripts on the CPU.
+17. The partitioned steps (A31, A32, A33), after path 15: olmo-1b and
+   mamba2-370m at full width, their depth cut to 2 layers, under
+   ``rules_for``; moonshot-v1-16b-a3b at full width cut to 2 layers (the
+   dense first and 1 MoE layer) under ``dp_heavy_rules()``,
    its MoE layers through expert parallelism with the experts placed per
    rank; reduced jamba under ``rules_for`` (the global dispatch's expert
-   block, B7 and its backward), over a (2, 2) ("data", "model") world of
-   four ranks spawned on the one card (gloo, the functional collectives
-   through the host: ``collectives.stage_through_host``): every
+   block, B7 and its backward); seamless-m4t-medium at full width cut to
+   2 encoder and 2 decoder layers under ``rules_for`` (its frames placed
+   beside the tokens, cross-attention's q over the tokens and k/v over
+   the frames on 8 of 16 heads, its decode from a zero self and cross
+   cache); reduced llava-next-34b under ``rules_for`` (its patches ahead
+   of the tokens); every training body checkpointed; over a (2, 2)
+   ("data", "model") world of four ranks spawned on the one card (gloo,
+   the functional collectives through the host:
+   ``collectives.stage_through_host``): every
    parameter, AdamW moment, batch and cache leaf a DTensor placed by the
    resolver. Each rank runs one ``make_train_step`` step at 8 x 1,024 in
-   2 microbatches, a 4 x 1,024 prefill and 8 decode steps, launching B5,
+   2 microbatches, a 4 x 1,024 prefill and 4 decode steps, launching B5,
    B5's backward and B6, B7 and its backward on its local heads under
    ``local_map``, exactly as many times as its layers and microbatches
    ask; the world's results are held against the same calls on one
    device with the kernels, from the same parameters (moonshot at the
    first capacity factor of EP_CF_LADDER where neither a rank nor one
    device drops a token; a route may flip only at a near tie), and
-   worlds with a fault (olmo: the first model-axis reduction dropped;
-   moonshot: the all-to-all's backward with its dims unswapped, the
-   experts' weight-gradient reduce-scatter dropped) must fail that gate.
+   worlds with a fault (olmo and llava: the first model-axis reduction
+   dropped; moonshot: the all-to-all's backward with its dims unswapped,
+   the experts' weight-gradient reduce-scatter dropped; seamless: the
+   reduction after the first cross-attention's output projection
+   dropped) must fail that gate.
    The dry run's sample (path 14) adds the partitioned cells of olmo-1b
    and mamba2-370m on the fake (16, 16) and (2, 16, 16) meshes.
 
@@ -251,7 +265,7 @@ from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
-from repro_torch.models import lm, moe, ssm  # noqa: E402
+from repro_torch.models import lm, moe, remat, ssm  # noqa: E402
 from repro_torch.obs import FIRING, PAGE, WARN, Obs, load_trace  # noqa: E402
 from repro_torch.optim import make_schedule  # noqa: E402
 from repro_torch.parallel import collectives as coll  # noqa: E402
@@ -377,6 +391,9 @@ TRAIN_NOISE_FACTOR = 2.0
 # MoE layers: all 48 layers' f32 weights, gradient sum and two AdamW moments
 # would take ~435 GB; five take ~42 GB, and one microbatch's per-step
 # gradients, activations and (4 x 512 x 163,840) logits most of the rest.
+# Three layers (1.50 B parameters) keep the script inside its time limit
+# once every training body is rematerialized; five took 157 s of a
+# 1,180 s run on an NVIDIA H100 80GB HBM3 (700 W), three 83 s.
 # The kernel and plain runs follow olmo's gates (TRAIN_LOSS_TOL,
 # TRAIN_GNORM_TOL; parameters within 2 lr(1) after step 1, all but a share
 # within 1e-3 lr(1)). What olmo does not have is routing: a token whose
@@ -401,7 +418,7 @@ TRAIN_NOISE_FACTOR = 2.0
 # other experts by step 4: line ``moe train plain run left to run free``).
 # So each plain step starts from the kernel step's state, as mamba's do
 # (TRAIN_RESYNC), and the free plain run is reported, not gated.
-MOE_TRAIN_LAYERS = 5
+MOE_TRAIN_LAYERS = 3
 MOE_TRAIN_CALIBRATE = ("attention", "block_k", 128)
 # The logits' f32 rounding when recomputed for the route gate: a softmax
 # of logits up to |l| rounds each probability by ~|l| 2**-24 relative.
@@ -516,30 +533,41 @@ EP_CF_LADDER = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0, 6.0, 8.0, 10.0, 12.0)
 # slot buffers, so they agree to within one bf16 rounding
 EP_EMUL_TOL = 2.0 ** -7
 EP_TIMEOUT_S = 600
-# the partitioned steps (A31, A32): four ranks of a (2, 2) world on the one
-# card, one train step (2 microbatches of 4 x 1,024), a 4 x 1,024 prefill and
-# 8 decode steps each of (arch, layers (0: the reduced config), rules):
-# olmo-1b and mamba2-370m at full width, their depth cut to 2 and 4 layers
-# (the script keeps inside its time limit beside the moonshot world's
-# ~200 s); moonshot at full
-# width cut to the dense first layer and 2 MoE layers under dp_heavy_rules()
-# (expert parallelism, the four-chip cell's path; 1.50 B parameters, 24.0 GB
-# with gradients and both moments over the four ranks, each rank's 32
-# experts gathered at use, 1.1 GB a layer); reduced jamba under rules_for
+# the partitioned steps (A31, A32, A33): four ranks of a (2, 2) world on the
+# one card, one train step (2 microbatches of 4 x 1,024), a 4 x 1,024
+# prefill and 4 decode steps each of (arch, layers (0: the reduced config),
+# rules). Depths are cut for the script's time limit (under remat a full
+# run took 1,045-1,316 s with olmo 2, mamba 4, moonshot 3 and seamless 4 +
+# 4 layers and 8 decode steps): olmo-1b and mamba2-370m at full width, cut
+# to 2 layers each; moonshot at full width cut to the dense first layer
+# and 1 MoE layer under dp_heavy_rules() (expert parallelism, the
+# four-chip cell's path; 0.93 B parameters, each rank's 32 experts
+# gathered at use, 1.1 GB a layer); reduced jamba under rules_for
 # (the global dispatch's expert block, B7 and its backward; one MoE layer of
 # its full width has 9.66 B parameters, 19.3 GB in bf16 before moments: not
-# on one card)
+# on one card); seamless-m4t-medium at full width (d_model 1,024, 16 heads
+# of 64, vocab 256,206) cut to 2 encoder and 2 decoder layers under
+# rules_for, its frames 8 x 1,024 beside the tokens, its decode from a zero
+# cache (self and a 4,096-row cross cache); reduced llava-next-34b under
+# rules_for, its 8 patch embeddings ahead of the tokens (one layer of its
+# full width and its untied vocab are ~1.5 B f32 parameters, ~23.5 GB with
+# gradients and moments, beside each rank's whole copy at creation and the
+# one-device run: not on one card). Every training body is checkpointed
+# (the configs' remat), so a train step runs each forward kernel twice
 PART_WORLD = (2, 2)
-PART_CASES = (("olmo-1b", 2, "auto"), ("mamba2-370m", 4, "auto"),
-              (MOE_ARCH, 3, "dp_heavy"), ("jamba-1.5-large-398b", 0, "auto"))
+PART_CASES = (("olmo-1b", 2, "auto"), ("mamba2-370m", 2, "auto"),
+              (MOE_ARCH, 2, "dp_heavy"), ("jamba-1.5-large-398b", 0, "auto"),
+              (ENCDEC_ARCH, 4, "auto"), ("llava-next-34b", 0, "auto"))
 # the faulted worlds each arch's train step must fail the gate with
 PART_FAULTS = {"olmo-1b": ("model_reduction",),
-               MOE_ARCH: ("unswapped_all_to_all", "dropped_reduce_scatter")}
+               MOE_ARCH: ("unswapped_all_to_all", "dropped_reduce_scatter"),
+               ENCDEC_ARCH: ("cross_reduction",),
+               "llava-next-34b": ("model_reduction",)}
 PART_BATCH = 8
 PART_SEQ = 1024
 PART_MICROBATCH = 2
 PART_PROMPTS = 4
-PART_DECODE_STEPS = 8
+PART_DECODE_STEPS = 4
 PART_LR1 = 1e-2                 # lr(1) of the rank helper's schedule
 PART_TIMEOUT_S = 900
 # the world against one device, both with the kernels: the same products
@@ -626,8 +654,10 @@ DRYRUN_WORKERS = 7              # the host's 8 cores less this process's
 DRYRUN_SKIPS = 7
 PEAK_MEM_TOL = 0.10             # the step's peak against the card's
 # a step's rise over its arguments against the card's (H100 80GB HBM3,
-# 700 W: olmo +0.15% at step 1, a cuBLAS workspace; mamba +0.008%;
-# moonshot +0.62%, the routes the route gate keeps on the card)
+# 700 W, every training body rematerialized: olmo -0.32% at step 1, a
+# cuBLAS workspace; mamba -0.024%; moonshot +0.011%, now that the route
+# gate keeps each call's router logits on the card and not its inputs,
+# which under remat the step itself no longer keeps: -1.085% before)
 PEAK_RISE_TOL = 0.01
 # what a training run without MoE routes finds allocated before a step
 # beyond its arguments: a cuBLAS workspace (32 MiB) per thread that ran a
@@ -2788,8 +2818,8 @@ def _train_route_gate(rk, rp, cfg, n_moe):
     """The route flips between the kernel run's recorded routes ``rk`` and
     the plain run's ``rp`` (the same calls: steps x microbatches x MoE
     layers), counted per MoE layer. A token's chosen experts (the top-k of
-    its router probabilities, recomputed from the recorded inputs and
-    router as ``moe.route`` computes them) may differ only at a near tie:
+    its router probabilities, from the router logits recorded at each
+    call, the product ``moe.route`` takes) may differ only at a near tie:
     if they differ, some expert a chosen by the kernel run and b chosen by
     the plain run have lp_b - lp_a <= (lp_b - lk_b) + (lk_a - lp_a), so the
     plain run's gap between its k-th and (k+1)-th logits is at most twice
@@ -2806,8 +2836,7 @@ def _train_route_gate(rk, rp, cfg, n_moe):
                   "tokens": 0} for _ in range(n_moe)]
     worst_share = 0.0
     for j, (ck, cp) in enumerate(zip(rk.calls, rp.calls)):
-        lk = (ck["x"] @ ck["router"]).float()
-        lp = (cp["x"] @ cp["router"]).float()
+        lk, lp = ck["logits"], cp["logits"]
         chose = (_top_k_set(torch.softmax(lk, -1), cfg.top_k)
                  == _top_k_set(torch.softmax(lp, -1), cfg.top_k)).all(-1)
         top = torch.sort(lp, dim=-1, descending=True).values
@@ -2886,7 +2915,7 @@ def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
                 for spec in seg.body if spec.ffn == "moe")
     torch.cuda.reset_peak_memory_stats()
     _PEAK["seen"] = 0
-    rk, rp = _Routes(keep_inputs=True), _Routes(keep_inputs=True)
+    rk, rp = _Routes(keep_logits=True), _Routes(keep_logits=True)
     if resync:
         k, p = _train_lockstep(model, batches, rk, rp)
     else:
@@ -2902,14 +2931,13 @@ def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
     free = None
     if resync:
         torch.cuda.empty_cache()
-        with _Routes(keep_inputs=True) as rf:
+        with _Routes(keep_logits=True) as rf:
             free = _train_run(model, batches[:TRAIN_STEPS], "torch")
         del free["params_step1"]
         if n_moe:
             routes["free_run_flips_per_call"] = [
-                int((_top_k_set(torch.softmax(ck["x"] @ ck["router"], -1),
-                                cfg.top_k)
-                     != _top_k_set(torch.softmax(cf["x"] @ cf["router"], -1),
+                int((_top_k_set(torch.softmax(ck["logits"], -1), cfg.top_k)
+                     != _top_k_set(torch.softmax(cf["logits"], -1),
                                    cfg.top_k)).any(-1).sum())
                 for ck, cf in zip(rk.calls, rf.calls)]
         del rf
@@ -2924,7 +2952,12 @@ def training_phase(arch, kernels, resync=False, calibrate=None, layers=None,
         _, floor = _param_diff(cal["params_step1"], p["params_step1"], lr1)
         share_cap = max(TRAIN_PARAM_SHARE, TRAIN_NOISE_FACTOR * floor)
         del cal
-    per_step = {name: 2 * cfg.n_layers for name in kernels}
+    # a microbatch runs each layer's forward kernel twice under remat (the
+    # checkpointed body's recompute in the backward), its backward once
+    fwd_runs = 2 if cfg.remat else 1
+    per_step = {name: 2 * cfg.n_layers * (1 if name.endswith("_bwd")
+                                          else fwd_runs)
+                for name in kernels}
     for s, counts in enumerate(k["launches"], 1):
         for name, n in counts.items():
             if n != per_step.get(name, 0):
@@ -3099,6 +3132,58 @@ def train_ssd_rows(model, tokens, launches_train):
             row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
             row.setdefault("variants", {})[label] = r
     return row
+
+
+def remat_gate(smi):
+    """olmo-1b at full width (f32), one ``make_train_step`` step (batch
+    TRAIN_BATCH x TRAIN_SEQ in 2 microbatches) from the seeded parameters
+    with ``remat`` on (its config's) and off: the recompute runs the same
+    kernels on the same inputs and the backward takes its saved tensors
+    from it, so the loss and grad norm are equal (``==``); each step's
+    launches (B5 twice a layer and microbatch with remat, once without;
+    its backward once) and peak."""
+    ds = SyntheticLMDataset(vocab=get_arch(TRAIN_ARCH).vocab,
+                            seq_len=TRAIN_SEQ + 1)
+    toks = torch.from_numpy(ds.batch(1, TRAIN_BATCH)["tokens"]
+                            [:, :TRAIN_SEQ]).long().cuda()
+    out = {}
+    for on in (True, False):
+        cfg = _train_cfg(TRAIN_ARCH).replace(remat=on)
+        params, (step_fn,), opt = _train_setup(build(cfg, "cuda"), (None,))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, loss, gn = step_fn(params, opt, {"tokens": toks}, 1)
+        torch.cuda.synchronize()
+        out["on" if on else "off"] = {
+            "loss": float(loss), "grad_norm": float(gn),
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "base_bytes": base,
+            "launches": {k: n for k, n in _build.launch_counts().items()
+                         if n}}
+        del params, opt, step_fn, loss, gn
+        torch.cuda.empty_cache()
+    n = 2 * get_arch(TRAIN_ARCH).n_layers       # layers x microbatches
+    for key, fwd in (("on", 2 * n), ("off", n)):
+        want = {"flash_attention": fwd, "flash_attention_bwd": n}
+        if out[key]["launches"] != want:
+            raise AssertionError(f"remat {key}: launches "
+                                 f"{out[key]['launches']}, want {want}")
+    on, off = out["on"], out["off"]
+    if on["loss"] != off["loss"] or on["grad_norm"] != off["grad_norm"]:
+        raise AssertionError(f"remat: loss {on['loss']} / grad norm "
+                             f"{on['grad_norm']} with remat, {off['loss']} /"
+                             f" {off['grad_norm']} without")
+    print(f"remat {TRAIN_ARCH} train step 1 ({smi}): loss {on['loss']} == "
+          f"{off['loss']}, grad norm {on['grad_norm']} == {off['grad_norm']}"
+          f"; peak {on['peak_bytes']} B with remat, {off['peak_bytes']} B "
+          f"without; {on['ms']:.1f} / {off['ms']:.1f} ms (a first step); "
+          f"launches {json.dumps(on['launches'])} / "
+          f"{json.dumps(off['launches'])}")
+    return out
 
 
 def print_training(tag, tr, seconds):
@@ -3307,10 +3392,17 @@ class _Routes:
     the capacity; ``ids`` holds each token's kept experts, ascending, with
     -1 for a choice dropped past capacity. Two runs route a token alike
     when these are equal: a route changed in one token can push another,
-    later in an expert's order, past its capacity."""
+    later in an expert's order, past its capacity. With ``keep_logits``
+    the router's logits (T, E), the product ``moe.route`` computes, made
+    again from the same operands (1 MB a call, where the inputs are 33.5
+    MB at moonshot's widths: under remat the inputs are activations the
+    step no longer keeps, so holding them would raise the peak the dry
+    run is held to). A checkpointed body's recompute
+    (``remat.recomputing()``) is not recorded: the calls are the first
+    forward's."""
 
-    def __init__(self, keep_inputs=False):
-        self.keep_inputs = keep_inputs
+    def __init__(self, keep_inputs=False, keep_logits=False):
+        self.keep_inputs, self.keep_logits = keep_inputs, keep_logits
         self.calls = []
 
     def __enter__(self):
@@ -3318,8 +3410,12 @@ class _Routes:
 
         def route(p, xf, cfg):
             probs, gate_w, ids = self._route(p, xf, cfg)
+            if remat.recomputing():
+                return probs, gate_w, ids
             self.calls.append({
                 "chosen": ids,
+                "logits": ((xf.detach() @ p["router"].detach()).float()
+                           if self.keep_logits else None),
                 "x": xf.detach() if self.keep_inputs else None,
                 "router": (p["router"].detach().clone() if self.keep_inputs
                            else None)})
@@ -3327,6 +3423,8 @@ class _Routes:
 
         def dispatch(ids, T, E, C):
             dest = self._dispatch(ids, T, E, C)
+            if remat.recomputing():
+                return dest
             kept = torch.where(dest < E * C, ids, -1)
             self.calls[-1]["ids"] = kept.sort(-1).values
             return dest
@@ -3343,7 +3441,9 @@ class _ReplayRoutes:
     this run's own probabilities, renormalised as ``route`` does: where
     the recorded run chose as this one would, nothing changes (the sort's
     values are the probabilities it gathers), and the gradient reaches the
-    router the same way, through the gathered probabilities."""
+    router the same way, through the gathered probabilities. A
+    checkpointed body's recompute takes the experts its first forward
+    took."""
 
     def __init__(self, calls):
         self.calls = calls
@@ -3351,10 +3451,17 @@ class _ReplayRoutes:
     def __enter__(self):
         self._route = moe.route
         chosen = iter([c["chosen"] for c in self.calls])
+        taken = {}
 
         def route(p, xf, cfg):
             probs, _, _ = self._route(p, xf, cfg)
-            ids = next(chosen)
+            # a layer's router weights: the same storage in the forward
+            # and its recompute (``route`` gets a fresh dict each call)
+            key = p["router"].data_ptr()
+            if remat.recomputing():
+                ids = taken[key]
+            else:
+                ids = taken[key] = next(chosen)
             gate_w = probs.gather(1, ids)
             return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(
                 1e-9), ids
@@ -4299,12 +4406,24 @@ def ep_checks():
 
 
 def _part_inputs(cfg, seed=0):
+    """A case's tokens, and the encoder's frames (as many as the tokens,
+    input_specs' even split) or the vlm's patch embeddings, f32; the cache
+    deep enough for the prompt and the decode steps."""
     rng = np.random.default_rng(seed)
-    return {"train": rng.integers(2, cfg.vocab, (PART_BATCH, PART_SEQ)),
-            "prefill": rng.integers(2, cfg.vocab, (PART_PROMPTS, PART_SEQ)),
-            "decode": rng.integers(2, cfg.vocab,
-                                   (PART_DECODE_STEPS, PART_PROMPTS)),
-            "max_len": PART_SEQ + PART_DECODE_STEPS}
+    out = {"train": rng.integers(2, cfg.vocab, (PART_BATCH, PART_SEQ)),
+           "prefill": rng.integers(2, cfg.vocab, (PART_PROMPTS, PART_SEQ)),
+           "decode": rng.integers(2, cfg.vocab,
+                                  (PART_DECODE_STEPS, PART_PROMPTS)),
+           "max_len": cfg.frontend_tokens * (cfg.family == "vlm")
+           + PART_SEQ + PART_DECODE_STEPS}
+    for kind, rows in (("train", PART_BATCH), ("prefill", PART_PROMPTS)):
+        if cfg.family == "encdec":
+            out[f"{kind}_frames"] = rng.standard_normal(
+                (rows, PART_SEQ, cfg.d_model)).astype(np.float32)
+        elif cfg.family == "vlm":
+            out[f"{kind}_patches"] = rng.standard_normal(
+                (rows, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _part_params(cfg):
@@ -4339,10 +4458,15 @@ class _HeadTap:
 
 def _part_cfg(arch, layers, cfs=None):
     """A partition case's config: full width with ``layers`` layers (0:
-    the reduced config), microbatch PART_MICROBATCH, and the capacity
+    the reduced config; an encoder-decoder's split evenly between its
+    encoder and decoder), microbatch PART_MICROBATCH, and the capacity
     factor ``cfs`` picked for the arch, if any."""
     cfg = get_arch(arch)
-    cfg = cfg.replace(n_layers=layers) if layers else cfg.reduced()
+    if layers and cfg.family == "encdec":
+        cfg = cfg.replace(n_layers=layers, enc_layers=layers // 2,
+                          dec_layers=layers // 2)
+    else:
+        cfg = cfg.replace(n_layers=layers) if layers else cfg.reduced()
     cfg = cfg.replace(microbatch=PART_MICROBATCH)
     if cfs and arch in cfs:
         cfg = cfg.replace(capacity_factor=cfs[arch])
@@ -4400,26 +4524,34 @@ def _part_expected(cfg, rules, mesh):
     """The launches a rank makes in each phase, and its local heads: B5
     and its backward on each attention layer (B6 a decode step), B7 and
     its backward on each mamba layer, on the heads the rules leave a
-    rank."""
+    rank; an encoder-decoder's attention layers are the encoder's and the
+    decoder's self and cross attention. Under remat a train step runs
+    each forward kernel twice (the checkpointed body's recompute), its
+    backward once."""
     accum, steps = PART_MICROBATCH, PART_DECODE_STEPS
-    body = [s for seg in lm.build_schedule(cfg) for _ in range(seg.count)
-            for s in seg.body]
-    n_attn = sum(s.mixer != "mamba" for s in body)
-    n_ssm = len(body) - n_attn
+    if cfg.family == "encdec":
+        n_attn, n_ssm = cfg.enc_layers + 2 * cfg.dec_layers, 0
+    else:
+        body = [s for seg in lm.build_schedule(cfg)
+                for _ in range(seg.count) for s in seg.body]
+        n_attn = sum(s.mixer != "mamba" for s in body)
+        n_ssm = len(body) - n_attn
+    fwd = accum * (2 if cfg.remat else 1)
     split = lambda axes, n: n // math.prod(
         sh.mesh_axes(mesh)[a] for a in sh.entry_axes(
             sh.spec_for((axes,), (n,), rules, mesh)[0]))
     want = {"train": {}, "prefill": {}, "decode": {}}
     heads = {}
     if n_attn:
-        want["train"].update(flash_attention=n_attn * accum,
+        want["train"].update(flash_attention=n_attn * fwd,
                              flash_attention_bwd=n_attn * accum)
         want["prefill"]["flash_attention"] = n_attn
-        want["decode"]["decode_attention"] = n_attn * steps
+        want["decode"]["decode_attention"] = (
+            2 * cfg.dec_layers if cfg.family == "encdec" else n_attn) * steps
         heads["flash_attention"] = heads["decode_attention"] = {
             split("heads", cfg.n_heads)}
     if n_ssm:
-        want["train"].update(ssd_scan=n_ssm * accum,
+        want["train"].update(ssd_scan=n_ssm * fwd,
                              ssd_scan_bwd=n_ssm * accum)
         want["prefill"]["ssd_scan"] = n_ssm
         heads["ssd_scan"] = {split("ff", cfg.ssm_heads)}
@@ -4428,10 +4560,11 @@ def _part_expected(cfg, rules, mesh):
 
 def _part_fault_case(cfg, inp):
     """A faulted world's config and inputs: the train batch's first
-    microbatch, in one microbatch (so the world and one device split it
-    alike)."""
-    return cfg.replace(microbatch=1), dict(
-        inp, train=inp["train"][:PART_BATCH // PART_MICROBATCH])
+    microbatch (its tokens, and its frames or patches), in one microbatch
+    (so the world and one device split it alike)."""
+    rows = PART_BATCH // PART_MICROBATCH
+    return cfg.replace(microbatch=1), dict(inp, **{
+        k: v[:rows] for k, v in inp.items() if k.startswith("train")})
 
 
 def _trim():
@@ -4608,15 +4741,16 @@ def _part_run(rank, mesh, cfs):
         faults, fault_calls = {}, None
         for name in PART_FAULTS.get(arch, ()):
             cfg_f, inp_f = _part_fault_case(cfg, inp)
-            fault = pr.drop_model_reduction() if name == "model_reduction" \
-                else pr.FAULTS[name]()
+            fault = {"model_reduction": pr.drop_model_reduction,
+                     "cross_reduction": pr.drop_cross_reduction}.get(
+                         name, pr.FAULTS.get(name))()
             with fault as dropped, pr.moe_paths() as fp:
                 faults[name] = pr.run_steps(
                     cfg_f, params, inp_f, mesh, rules, "cuda",
                     counted=False, whole=False, serve=False, state=False)
             fault_calls = len(fp.routes)
             _trim()
-            if name == "model_reduction" and dropped["dropped"] != 1:
+            if name.endswith("_reduction") and dropped["dropped"] != 1:
                 raise AssertionError(f"{arch}: the faulted world dropped "
                                      f"{dropped['dropped']} reductions")
         # every rank's routes and blocks, for the one-device run to replay
@@ -4667,7 +4801,7 @@ def _part_rank(rank, port, out_dir, cfs):
 
 
 def partition_checks():
-    """The partitioned steps (A31, A32) on the card: the MoE cases'
+    """The partitioned steps (A31, A32, A33) on the card: the MoE cases'
     capacity factors picked here, then four ranks, spawned, each on card 0
     with its own CUDA context, joined within PART_TIMEOUT_S."""
     out_dir = ROOT / "build" / "partition"
@@ -5695,6 +5829,7 @@ def main() -> int:
     print(f"train crash/resume (reduced, on the card): crashed at step "
           f"{res['crashed_at']}, resumed, {res['leaves']} leaves at step "
           f"{res['steps']} bit-equal to the uninterrupted run")
+    tr["remat_gate"] = remat_gate(smi)
     print("train " + json.dumps(tr))
     fwd_row, bwd_row = train_attention_rows(launches_train)
     by_name = {row["name"]: row for row in kernels}
@@ -5775,8 +5910,9 @@ def main() -> int:
     by_name["flash_attention"]["launches_by_path"]["moonshot_ep"] = (
         ep["ranks"][0]["launches"]["flash_attention"])
 
-    # the partitioned steps (A31, A32): olmo-1b, mamba2-370m, moonshot
-    # (expert parallelism) and reduced jamba over four ranks
+    # the partitioned steps (A31, A32, A33): olmo-1b, mamba2-370m, moonshot
+    # (expert parallelism), reduced jamba, seamless and reduced llava over
+    # four ranks
     part = partition_checks()
     part["card"] = smi
     for arch in part["archs"]:
@@ -5819,11 +5955,6 @@ def main() -> int:
             for name, n in counts.items():
                 by_name[name]["launches_by_path"][
                     f"{arch} partitioned {phase} (rank 0)"] = n
-
-    # the examples (A28), each as a user runs it
-    ex = examples_checks()
-    ex["card"] = smi
-    print("examples " + json.dumps(ex))
 
     # the MoE and hybrid families reduced, card against CPU
     for arch in REDUCED_MOE_ARCHS:
@@ -5901,9 +6032,14 @@ def main() -> int:
 
     # the dry run (A22), nothing timed from here on: its counts and
     # predicted peaks against the card's, achieved shares of every timed
-    # step, one cell per family and kind
+    # step, one cell per family and kind; its sample's cells run on the
+    # host's CPU beside the examples (A28), each run as a user runs it,
+    # which are gated on their output alone
     sample = _DryrunSample()
     try:
+        ex = examples_checks()
+        ex["card"] = smi
+        print("examples " + json.dumps(ex))
         dr = dryrun_checks(sample, gemma_pd, tr,
                            [(TRAIN_ARCH, None, tr), (MAMBA_ARCH, None, mtr),
                             (MOE_ARCH, MOE_TRAIN_LAYERS, otr)], smi)

@@ -182,7 +182,9 @@ def load() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Count and run one launch of kernel ``name`` on ``device``'s current
-    stream; pointers are passed as Python ints (``tensor.data_ptr()``)."""
+    stream; pointers are passed as Python ints (``tensor.data_ptr()``). A
+    checkpointed body's recompute (``models/remat.py``) launches again and
+    is counted: the card runs it."""
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

@@ -11,7 +11,10 @@ cache's allocation, each segment's body × count, the final norm and
 last-position logits. Decode: the embedding and head, and each segment's
 body × count. The encoder-decoder has its encoder and decoder layers in
 place of segments. Per-segment costs are the per-stage figures Meili's
-Algorithm 1 plans with.
+Algorithm 1 plans with. With ``cfg.remat`` a training body runs under
+``remat.checkpoint`` as the step runs it, so its backward books the
+recomputed forward (the reference's ``jax.checkpoint`` in its pieces);
+the encoder-decoder's cross-entropy chunks are checkpointed always.
 
 Each piece runs eagerly on the meta device at the step's own shapes,
 under the counter of ``roofline.trace`` (the kernels through their
@@ -24,12 +27,11 @@ so do their bytes: what joins two pieces is a piece of its own (the
 first encoder layer, whose input needs no gradient; the sum autograd
 makes of the decoder layers' gradients of the encoder's output).
 
-Over a partitioned mesh (``mesh.fake_mesh``; the dense, ssm, MoE and
-hybrid families) each piece's inputs are DTensors placed as the step
-places them (the parameters, gradients and moments by the resolver,
-activations by their logical axes: ("batch", "seq", None)), each piece
-runs under the step's context (``steps.on_mesh``) and its collectives
-are counted
+Over a partitioned mesh (``mesh.fake_mesh``) each piece's inputs are
+DTensors placed as the step places them (the parameters, gradients and
+moments by the resolver, activations by their logical axes: ("batch",
+"seq", None)), each piece runs under the step's context
+(``steps.on_mesh``) and its collectives are counted
 (``roofline.collective_bytes``, ``coll`` in each piece); its figures are
 one device's. A piece starts from activations in their pinned layout,
 so the redistributions that join two pieces land in the later one.
@@ -47,6 +49,7 @@ from repro_torch.launch.steps import (accumulate, choose_microbatch,
                                       partitioned, place_batch, place_cache)
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import remat
 from repro_torch.models.layers import embed, make_norm
 from repro_torch.models.registry import Model
 from repro_torch.optim import adamw_init, adamw_update, make_schedule
@@ -165,9 +168,8 @@ def _lm_train(model: Model, shape: ShapeConfig, dtype, p: _Pieces) -> None:
         ps = [t for layer in layers for t in layer.parameters()]
 
         def body(layers=layers, x=x, pos=pos, hbar=hbar, ps=ps):
-            h = x
-            for layer in layers:
-                h, _ = lm_mod._apply_layer(cfg, layer, h, pos, None)
+            h = remat.maybe(cfg, lm_mod._apply_body, cfg, layers, x, pos,
+                            None)
             _grad(h, ps + [x], hbar)
         p.add(f"segment{si}", body, seg.count * accum)
 
@@ -271,24 +273,26 @@ def _encdec(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
             cache_dtype) -> None:
     cfg = model.cfg
     train = shape.kind == "train"
-    accum = choose_microbatch(cfg, shape.global_batch) if train else 1
+    accum = choose_microbatch(cfg, shape.global_batch, _ON["mesh"],
+                              _ON["rules"]) if train else 1
     B, D = shape.global_batch // accum, cfg.d_model
-    params = model.param_struct(dtype).requires_grad_(train)
+    params = _params(model, dtype).requires_grad_(train)
     named = dict(params.named_parameters())
     _, norm_apply = make_norm(cfg)
     ctx = torch.enable_grad if train else torch.no_grad
 
     if shape.kind == "decode":
         S = shape.seq_len
-        cache = model.cache_struct(shape, cache_dtype)
-        tokens = _empty((B,), torch.int32)
+        cache = place_cache(model, model.cache_struct(shape, cache_dtype),
+                            _ON["mesh"], _ON["rules"])
+        tokens = _empty((B,), torch.int32, axes=("batch",))
 
         @torch.no_grad()
         def embed_head():
             h = embed(params.embed, tokens)
             encdec_mod.logits(cfg, params, norm_apply(params.dec_norm, h))
         p.add("embed_head", embed_head, 1)
-        x = _empty((B, D), dtype)
+        x = _empty((B, D), dtype, axes=("batch", None))
         p.add("dec_body", torch.no_grad()(lambda: encdec_mod.
                                           decode_layer_encdec(
                                               cfg, params.dec[0], x, cache,
@@ -296,18 +300,20 @@ def _encdec(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
         return
 
     half = shape.seq_len // 2
-    inp = model.input_specs(ShapeConfig(shape.name, shape.seq_len, B,
-                                        shape.kind), dtype)
+    mb_shape = ShapeConfig(shape.name, shape.seq_len, B, shape.kind)
+    inp = place_batch(model, model.input_specs(mb_shape, dtype), mb_shape,
+                      _ON["mesh"], _ON["rules"])
     frames, tokens = inp["frames"], inp["tokens"]
 
     def body_of(layer_fn, lp, grads):
-        xs = [_empty((B, half, D), dtype, grad=g) for g in grads]
+        xs = [_empty((B, half, D), dtype, grad=g, axes=_ACT) for g in grads]
         pos = encdec_mod._positions(xs[0])
-        hbar = _empty((B, half, D), dtype)
+        hbar = _empty((B, half, D), dtype, axes=_ACT)
 
         def body():
             with ctx():
-                out = layer_fn(cfg, lp, xs[0], pos, *xs[1:])
+                out = remat.maybe(cfg, layer_fn, cfg, lp, xs[0], pos,
+                                  *xs[1:])
                 if train:
                     _grad(out, list(lp.parameters())
                           + [x for x in xs if x.requires_grad], hbar)
@@ -322,13 +328,14 @@ def _encdec(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
                               (train, train)), cfg.dec_layers * mult)
     if train:
         # autograd sums the gradients the decoder layers give enc_out
-        g = [_empty((B, half, D), dtype) for _ in range(2)]
+        g = [_empty((B, half, D), dtype, axes=_ACT) for _ in range(2)]
         p.add("enc_out_grad_sum", lambda: g[0] + g[1],
               (cfg.dec_layers - 1) * mult)
 
-    enc_h = _empty((B, half, D), dtype, grad=train)
-    dec_h = _empty((B, half, D), dtype, grad=train)
-    d_eo, d_x0 = _empty((B, half, D), dtype), _empty((B, half, D), dtype)
+    enc_h = _empty((B, half, D), dtype, grad=train, axes=_ACT)
+    dec_h = _empty((B, half, D), dtype, grad=train, axes=_ACT)
+    d_eo = _empty((B, half, D), dtype, axes=_ACT)
+    d_x0 = _empty((B, half, D), dtype, axes=_ACT)
     outer = [t for k, t in named.items()
              if not k.startswith(("enc.", "dec."))]
 
@@ -336,7 +343,7 @@ def _encdec(model: Model, shape: ShapeConfig, dtype, p: _Pieces,
         with ctx():
             encdec_mod._positions(frames)
             eo = norm_apply(params.enc_norm, enc_h)
-            x0 = embed(params.embed, tokens)
+            x0 = encdec_mod._pin(embed(params.embed, tokens))
             encdec_mod._positions(x0)
             x = norm_apply(params.dec_norm, dec_h)
             if not train:

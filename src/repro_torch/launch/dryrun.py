@@ -10,9 +10,8 @@ Mesh kinds:
     carries the per-piece view (``decompose.py``), whose totals equal the
     whole step's.
   * ``single`` / ``multi``: the reference's (16, 16) and (2, 16, 16)
-    meshes of H100s. A cell whose layout the port partitions (the dense,
-    ssm, MoE and hybrid families, where the rules keep whole sequences on
-    a rank:
+    meshes of H100s. A cell whose layout the port partitions (every
+    family, where the rules keep whole sequences on a rank:
     ``partition_reason``) is traced as the partitioned step over a fake
     process group of 256 or 512 ranks (``mesh.fake_mesh``): DTensors on
     the meta device, placed by the resolver, the counter seeing rank 0's
@@ -67,18 +66,12 @@ from repro_torch.launch.steps import (choose_microbatch, make_prefill_step,
                                       make_serve_step, make_train_step,
                                       partitioned, place_batch, place_cache)
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.registry import (PARTITIONED_FAMILIES, Model, build,
-                                         cache_leaves)
+from repro_torch.models.encdec import ENC_LEN_DECODE
+from repro_torch.models.registry import Model, build, cache_leaves
 from repro_torch.parallel.sharding import (entry_axes, mesh_axes, mesh_size,
                                            rules_for, spec_for, tree_specs)
 
 MESH_KINDS = ("card", "single", "multi")
-# what a family's partitioned step waits for
-_FAMILY_WAITS = {
-    "encdec": "the encoder-decoder's partitioned step (cross-attention "
-              "and its cache)",
-    "vlm": "the vlm family's partitioned step (its patch embeddings)",
-}
 
 
 def mesh_for(kind: str):
@@ -139,33 +132,37 @@ def step_call(model: Model, shape: ShapeConfig, dtype=torch.bfloat16,
 def partition_reason(model: Model, shape: ShapeConfig, mesh, rules
                      ) -> Optional[str]:
     """Why the port cannot trace the partitioned step of this cell, or
-    None where it can: a family whose partitioned step is not ported, or
-    a layout whose rules split a sequence (attention's, or a decode
-    cache's) over a mesh axis."""
+    None where it can: a layout whose rules split a sequence (attention's,
+    or a decode cache's) over a mesh axis, which waits for
+    sequence-parallel attention (A34). The encoder-decoder's sequences
+    are its halves of seq_len (frames and tokens), its decode caches the
+    self cache and the ENC_LEN_DECODE-row cross cache."""
     cfg = model.cfg
-    if cfg.family not in PARTITIONED_FAMILIES:
-        return (f"the {cfg.family} family is not partitioned yet: it waits "
-                f"for {_FAMILY_WAITS.get(cfg.family, 'its step')}")
-    attn = any(s.mixer != "mamba" for seg in lm_mod.build_schedule(cfg)
-               for s in seg.body)
+    encdec = cfg.family == "encdec"
+    attn = encdec or any(s.mixer != "mamba"
+                         for seg in lm_mod.build_schedule(cfg)
+                         for s in seg.body)
     if shape.kind == "decode":
         if not attn:
             return None
-        kv = spec_for(lm_mod.KV_CACHE_AXES,
-                      (1, shape.global_batch, shape.seq_len, cfg.n_kv_heads,
-                       cfg.head_dim), rules, mesh)
-        if entry_axes(kv[2]):
-            return (f"decode over a sequence-sharded cache (kv_seq over "
-                    f"{kv[2]!r}) is not ported")
+        depths = (shape.seq_len, ENC_LEN_DECODE) if encdec else \
+            (shape.seq_len,)
+        for depth in depths:
+            kv = spec_for(lm_mod.KV_CACHE_AXES,
+                          (1, shape.global_batch, depth, cfg.n_kv_heads,
+                           cfg.head_dim), rules, mesh)
+            if entry_axes(kv[2]):
+                return (f"decode over a sequence-sharded cache (kv_seq over "
+                        f"{kv[2]!r}) is not ported (A34)")
         return None
     B = shape.global_batch
     if shape.kind == "train":
         B //= choose_microbatch(cfg, B, mesh, rules)
-    act = spec_for(("batch", "seq", None), (B, shape.seq_len, cfg.d_model),
-                   rules, mesh)
+    S = shape.seq_len // 2 if encdec else shape.seq_len
+    act = spec_for(("batch", "seq", None), (B, S, cfg.d_model), rules, mesh)
     if entry_axes(act[1]):
         return (f"sequence-parallel attention (seq over {act[1]!r}) is not "
-                f"ported")
+                f"ported (A34)")
     return None
 
 

@@ -23,9 +23,11 @@ from torch import nn
 
 from repro_torch.hw import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import remat
 from repro_torch.models.layers import (embed, embed_init, make_norm, mlp,
                                        mlp_init, to_module)
-from repro_torch.models.lm import vocab_bias
+from repro_torch.models.lm import _target_logits, vocab_bias
+from repro_torch.parallel.sharding import constrain_act
 
 Tree = Dict
 ENC_LEN_DECODE = 4096
@@ -95,12 +97,18 @@ def _positions(x: torch.Tensor) -> torch.Tensor:
 
 def encoder_layer(cfg, lp, h: torch.Tensor, positions: torch.Tensor,
                   impl: Optional[str] = None) -> torch.Tensor:
-    """One encoder layer: bidirectional self-attention, then the MLP."""
+    """One encoder layer: bidirectional self-attention, then the MLP. The
+    residual stream is pinned to ("batch", "seq", None) after each block,
+    as ``lm._apply_layer`` pins it."""
     _, norm_apply = make_norm(cfg)
-    h = h + attn_mod.attn_apply(lp["attn"], norm_apply(lp["norm1"], h),
-                                cfg, positions=positions, causal=False,
-                                impl=impl)
-    return h + mlp(lp["mlp"], norm_apply(lp["norm2"], h))
+    h = _pin(h + attn_mod.attn_apply(lp["attn"], norm_apply(lp["norm1"], h),
+                                     cfg, positions=positions, causal=False,
+                                     impl=impl))
+    return _pin(h + mlp(lp["mlp"], norm_apply(lp["norm2"], h)))
+
+
+def _pin(h: torch.Tensor) -> torch.Tensor:
+    return constrain_act(h, ("batch", "seq", None))
 
 
 def decoder_layer(cfg, lp, h: torch.Tensor, positions: torch.Tensor,
@@ -109,37 +117,43 @@ def decoder_layer(cfg, lp, h: torch.Tensor, positions: torch.Tensor,
     """One decoder layer over whole sequences: causal self-attention,
     cross-attention over ``enc_out`` (bidirectional), the MLP."""
     _, norm_apply = make_norm(cfg)
-    h = h + attn_mod.attn_apply(lp["self"], norm_apply(lp["norm1"], h),
-                                cfg, positions=positions, causal=True,
-                                impl=impl)
-    h = h + attn_mod.attn_apply(lp["cross"], norm_apply(lp["norm2"], h),
-                                cfg, positions=positions, causal=False,
-                                kv_x=enc_out, impl=impl)
-    return h + mlp(lp["mlp"], norm_apply(lp["norm3"], h))
+    h = _pin(h + attn_mod.attn_apply(lp["self"], norm_apply(lp["norm1"], h),
+                                     cfg, positions=positions, causal=True,
+                                     impl=impl))
+    h = _pin(h + attn_mod.attn_apply(lp["cross"],
+                                     norm_apply(lp["norm2"], h), cfg,
+                                     positions=positions, causal=False,
+                                     kv_x=enc_out, impl=impl))
+    return _pin(h + mlp(lp["mlp"], norm_apply(lp["norm3"], h)))
 
 
 def encode(cfg, params: EncDec, frames: torch.Tensor,
            impl: Optional[str] = None) -> torch.Tensor:
     """frames: (B, S_enc, D) stub embeddings -> the encoder output, every
-    layer's attention bidirectional (``causal=False``)."""
+    layer's attention bidirectional (``causal=False``). With ``cfg.remat``
+    each layer runs under ``remat.checkpoint`` when autograd records, as
+    the reference checkpoints its scanned body."""
     _, norm_apply = make_norm(cfg)
-    h = frames
+    h = _pin(frames)
     positions = _positions(frames)
     for lp in params.enc:
-        h = encoder_layer(cfg, lp, h, positions, impl)
+        h = remat.maybe(cfg, encoder_layer, cfg, lp, h, positions, impl)
     return norm_apply(params.enc_norm, h)
 
 
 def decode_train(cfg, params: EncDec, tokens: torch.Tensor,
                  enc_out: torch.Tensor, impl: Optional[str] = None
                  ) -> torch.Tensor:
-    """The decoder over whole token sequences (``decoder_layer`` each).
-    Returns the final hidden states (B, S, D)."""
+    """The decoder over whole token sequences (``decoder_layer`` each,
+    checkpointed as ``encode``'s). Returns the final hidden states (B, S,
+    D)."""
     _, norm_apply = make_norm(cfg)
-    h = embed(params.embed, tokens)
+    # pinned: a vocab-parallel lookup leaves a partial sum
+    h = _pin(embed(params.embed, tokens))
     positions = _positions(h)
     for lp in params.dec:
-        h = decoder_layer(cfg, lp, h, positions, enc_out, impl)
+        h = remat.maybe(cfg, decoder_layer, cfg, lp, h, positions, enc_out,
+                        impl)
     return norm_apply(params.dec_norm, h)
 
 
@@ -158,7 +172,10 @@ def chunked_ce(cfg, params: EncDec, x: torch.Tensor, tokens: torch.Tensor,
     """The loss of the decoder's final hidden states ``x``: unlike
     ``lm.lm_loss`` the logits carry ``vocab_bias``, so the padded vocab
     rows stay out of the log-sum-exp; the predictions past the last whole
-    chunk are dropped."""
+    chunk are dropped. Each chunk runs under ``remat.checkpoint`` where
+    autograd records, whatever ``cfg.remat`` says, as the reference
+    checkpoints its scanned chunk; its logits are pinned to
+    ("loss_batch", "seq", "vocab")."""
     xs, tgt = x[:, :-1], tokens[:, 1:].long()
     B, S, _ = xs.shape
     chunk = min(chunk, S)
@@ -167,11 +184,21 @@ def chunked_ce(cfg, params: EncDec, x: torch.Tensor, tokens: torch.Tensor,
     vbias = vocab_bias(cfg, device=x.device)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
-        lg = (xs[:, i * chunk:(i + 1) * chunk] @ w).float() + vbias
-        lse = torch.logsumexp(lg, dim=-1)
+        xc = xs[:, i * chunk:(i + 1) * chunk]
         tc = tgt[:, i * chunk:(i + 1) * chunk, None]
-        total = total + (lse - lg.gather(-1, tc)[..., 0]).sum()
+        part = remat.checkpoint(_ce_chunk, xc, w, vbias, tc) \
+            if torch.is_grad_enabled() else _ce_chunk(xc, w, vbias, tc)
+        total = total + part
     return total / (B * n * chunk)
+
+
+def _ce_chunk(xc: torch.Tensor, w: torch.Tensor, vbias: torch.Tensor,
+              tc: torch.Tensor) -> torch.Tensor:
+    """One chunk's summed cross-entropy."""
+    lg = constrain_act((xc @ w).float() + vbias,
+                       ("loss_batch", "seq", "vocab"))
+    lse = torch.logsumexp(lg, dim=-1)
+    return (lse - _target_logits(lg, tc)).sum()
 
 
 def logits(cfg, params: EncDec, x: torch.Tensor) -> torch.Tensor:
@@ -223,7 +250,7 @@ def decode_step_encdec(cfg, params: EncDec, cache: Tree,
     tokens: (B,) int. Writes the self-attention cache in place, advances
     ``cache["pos"]`` and returns (logits (B, V), cache)."""
     _, norm_apply = make_norm(cfg)
-    h = embed(params.embed, tokens)                           # (B, D)
+    h = constrain_act(embed(params.embed, tokens), ("batch", None))  # (B, D)
     pos = int(cache["pos"])
     for i, lp in enumerate(params.dec):
         h = decode_layer_encdec(cfg, lp, h, cache, i, pos, impl)

@@ -31,6 +31,7 @@ from torch import nn
 from repro_torch.hw import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import remat
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        make_norm, mlp, mlp_init, pad_vocab,
@@ -238,13 +239,27 @@ def forward(cfg, params: LM, tokens: Optional[torch.Tensor],
             extra_embeds: Optional[torch.Tensor] = None,
             impl: Optional[str] = None) -> torch.Tensor:
     """Returns final hidden states (B, S, D). Differentiable: autograd
-    records it where parameters require gradients (training)."""
+    records it where parameters require gradients (training). With
+    ``cfg.remat`` each repetition of a segment's body (the reference's
+    scanned ``body``: one layer, gemma's local/global pair, jamba's 8)
+    runs under ``remat.checkpoint`` when autograd records."""
     x = _embed_inputs(params, tokens, extra_embeds)
     positions = positions_of(x)
-    for _, _, _, layer in params.all_layers():
-        x, _ = _apply_layer(cfg, layer, x, positions, impl)
+    for si, seg in enumerate(build_schedule(cfg)):
+        for rep in range(seg.count):
+            x = remat.maybe(cfg, _apply_body, cfg, params.layers(si, rep),
+                            x, positions, impl)
     _, norm_apply = make_norm(cfg)
     return norm_apply(params.final_norm, x)
+
+
+def _apply_body(cfg, layers: List[DecoderLayer], x: torch.Tensor,
+                positions: torch.Tensor, impl: Optional[str]
+                ) -> torch.Tensor:
+    """One repetition of a segment's body: its layers in order."""
+    for layer in layers:
+        x, _ = _apply_layer(cfg, layer, x, positions, impl)
+    return x
 
 
 def vocab_bias(cfg, dtype=torch.float32, device=None) -> torch.Tensor:

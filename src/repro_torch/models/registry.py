@@ -30,7 +30,7 @@ from repro_torch.parallel import sharding
 
 # The families whose steps run partitioned over a DeviceMesh
 # (``launch/steps.py`` with a mesh).
-PARTITIONED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
+PARTITIONED_FAMILIES = ("dense", "ssm", "moe", "hybrid", "encdec", "vlm")
 
 META = torch.device("meta")
 
@@ -232,20 +232,21 @@ class Model:
             out["patches"] = ("batch", "seq", "embed_act")
         return out
 
-    def distribute(self, params, mesh, rules) -> "lm_mod.LM":
-        """``params`` (an ``LM`` whose tensors are whole and the same on
-        every rank: from ``init`` with one seed, or the JAX package's
-        through ``convert.lm_params_from_jax``) with every parameter
-        replaced, in place, by a DTensor on the live ``mesh`` placed by
-        the resolver (``sharding.distribute``; each rank keeps its block,
-        no collective; a MoE layer's expert weights are split over their
-        experts, so each rank holds its experts' block). Gradients stay
-        switched as they were. The dense, ssm, MoE and hybrid families:
-        the encdec and vlm steps are not ported (A33)."""
+    def distribute(self, params, mesh, rules):
+        """``params`` (an ``LM`` or an ``EncDec`` whose tensors are whole
+        and the same on every rank: from ``init`` with one seed, or the
+        JAX package's through ``convert``) with every parameter replaced,
+        in place, by a DTensor on the live ``mesh`` placed by the resolver
+        (``sharding.distribute``; each rank keeps its block, no
+        collective; a MoE layer's expert weights are split over their
+        experts, so each rank holds its experts' block; the encoder's and
+        decoder's layers by their ``attn``, ``self``, ``cross`` and
+        ``mlp`` blocks). Gradients stay switched as they were. Every
+        family (``PARTITIONED_FAMILIES``)."""
         if self.cfg.family not in PARTITIONED_FAMILIES:
             raise NotImplementedError(
                 f"the partitioned step of the {self.cfg.family} family is "
-                f"not ported (A33; only {PARTITIONED_FAMILIES})")
+                f"not ported (only {PARTITIONED_FAMILIES})")
         named = dict(params.named_parameters())
         placed = sharding.distribute({k: p.detach() for k, p in
                                       named.items()},

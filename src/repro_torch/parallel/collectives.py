@@ -60,7 +60,10 @@ def reset_stats() -> None:
 
 def stats() -> Dict[str, int]:
     """Calls and bytes since the last ``reset_stats``: ``<op>_calls``,
-    ``<op>_bytes`` (each rank's input), and ``host_copy_bytes``."""
+    ``<op>_bytes`` (each rank's input), and ``host_copy_bytes``. A
+    checkpointed body's recompute (``models/remat.py``) issues its
+    collectives again, and they are counted: the step moves those bytes
+    twice."""
     return dict(_STATS)
 
 

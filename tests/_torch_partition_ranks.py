@@ -30,8 +30,8 @@ from repro_torch.kernels import _build
 from repro_torch.launch import roofline
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                       make_train_step, partitioned,
-                                      place_batch)
-from repro_torch.models import build, moe
+                                      place_batch, place_cache)
+from repro_torch.models import attention, build, moe, remat
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import sharding as sh
 
@@ -65,11 +65,28 @@ def _block(t: torch.Tensor):
 
 
 def _lm(cfg, params, device):
-    """A fresh LM from whole parameters: a numpy tree in the reference's
-    layout (converted), or a function of the device that makes one."""
+    """A fresh LM (an EncDec for the encdec family) from whole
+    parameters: a numpy tree in the reference's layout (converted), or a
+    function of the device that makes one."""
     if callable(params):
         return params(device)
+    if cfg.family == "encdec":
+        return convert.encdec_params_from_jax(cfg, params, device=device)
     return convert.lm_params_from_jax(cfg, params, device=device)
+
+
+EMBEDS = ("frames", "patches")
+
+
+def _batch(inputs, kind, tok):
+    """The ``kind`` ("train" or "prefill") batch: its tokens, and the
+    encoder's frames or the vlm's patches where ``inputs`` has them
+    (``<kind>_frames``, ``<kind>_patches``: float32 numpy)."""
+    out = {"tokens": tok(inputs[kind])}
+    for k in EMBEDS:
+        if f"{kind}_{k}" in inputs:
+            out[k] = tok(inputs[f"{kind}_{k}"])
+    return out
 
 
 def run_steps(cfg, params, inputs: Dict[str, Any], mesh, rules,
@@ -78,7 +95,11 @@ def run_steps(cfg, params, inputs: Dict[str, Any], mesh, rules,
               serve: bool = True, state: bool = True) -> Dict[str, Any]:
     """One train step, a prefill and decode steps of ``cfg`` from
     ``params``; ``inputs`` holds numpy ``train`` tokens (B, S), ``prefill``
-    tokens (B, S), ``decode`` tokens (steps, B) and ``max_len``. Returns
+    tokens (B, S), ``decode`` tokens (steps, B) and ``max_len``, and for
+    the encdec and vlm families the train and prefill batches' frames or
+    patches (``_batch``). The encoder-decoder's prefill makes no cache (as
+    the reference's): its decode steps start from a zero cache of
+    ``max_len`` (``Model.init_cache``, f32, placed). Returns
     the loss, grad norm, every parameter and moment after the step, the
     prefill's and each decode step's logits, with ``counted`` the
     collectives each phase issued (``roofline.collective_bytes``), and
@@ -95,8 +116,9 @@ def run_steps(cfg, params, inputs: Dict[str, Any], mesh, rules,
     meter = (lambda: roofline.collective_bytes(mesh)) if counted and mesh \
         is not None else contextlib.nullcontext
 
-    train = tok(inputs["train"])
-    shape = ShapeConfig("t", train.shape[1], train.shape[0], "train")
+    train = _batch(inputs, "train", tok)
+    shape = ShapeConfig("t", train["tokens"].shape[1],
+                        train["tokens"].shape[0], "train")
     params_t = _lm(cfg, params, device).requires_grad_(True)
     if mesh is not None:
         model.distribute(params_t, mesh, rules)
@@ -104,7 +126,7 @@ def run_steps(cfg, params, inputs: Dict[str, Any], mesh, rules,
     step_fn, opt_init = make_train_step(model, shape, mesh, rules,
                                         impl=impl, **LR)
     opt = opt_init(params_t)
-    batch = place_batch(model, {"tokens": train}, shape, mesh, rules)
+    batch = place_batch(model, train, shape, mesh, rules)
     with meter() as m, clock("train"):
         params_t, opt, loss, gn = step_fn(params_t, opt, batch, 1)
     out["collectives_train"] = getattr(m, "result", None)
@@ -124,8 +146,8 @@ def run_steps(cfg, params, inputs: Dict[str, Any], mesh, rules,
     if not serve:
         return out
 
-    prompt = tok(inputs["prefill"])
-    B, S = prompt.shape
+    prompt = _batch(inputs, "prefill", tok)
+    B, S = prompt["tokens"].shape
     params_s = _lm(cfg, params, device)
     if mesh is not None:
         model.distribute(params_s, mesh, rules)
@@ -134,10 +156,13 @@ def run_steps(cfg, params, inputs: Dict[str, Any], mesh, rules,
                                 impl=impl, cache_dtype=torch.float32)
     serve = make_serve_step(model, mesh, rules, impl=impl)
     with torch.no_grad(), meter() as m:
-        batch = place_batch(model, {"tokens": prompt},
-                            ShapeConfig("p", S, B, "prefill"), mesh, rules)
+        batch = place_batch(model, prompt, ShapeConfig("p", S, B, "prefill"),
+                            mesh, rules)
         with clock("prefill"):
             lg, cache = prefill(params_s, batch)
+        if cache is None:
+            cache = place_cache(model, model.init_cache(
+                B, inputs["max_len"], torch.float32), mesh, rules)
         logits = [_np(lg)]
         for t in inputs["decode"]:
             tokens = place_batch(model, {"tokens": tok(t)},
@@ -206,6 +231,30 @@ def drop_model_reduction():
         yield state
     finally:
         sh.constrain = real
+
+
+@contextlib.contextmanager
+def drop_cross_reduction():
+    """A faulted partition: the model-axis all-reduce after the first
+    cross-attention's output projection (the decoder's first layer, the
+    first microbatch's forward) is dropped, as ``drop_model_reduction``
+    drops one; a checkpointed body's recompute keeps it."""
+    real = attention.attn_apply
+    state = {"dropped": 0}
+
+    def faulty(p, x, cfg, **kw):
+        if kw.get("kv_x") is None or state["dropped"] or \
+                remat.recomputing():
+            return real(p, x, cfg, **kw)
+        with drop_model_reduction() as inner:
+            y = real(p, x, cfg, **kw)
+        state["dropped"] += inner["dropped"]
+        return y
+    attention.attn_apply = faulty
+    try:
+        yield state
+    finally:
+        attention.attn_apply = real
 
 
 def steps_case(mesh, inputs, device) -> Dict[str, Any]:
@@ -315,38 +364,51 @@ class moe_paths:
     ``replay`` (each call's experts, recorded so from another run), each
     call takes those experts, gated by its own probabilities renormalised
     as ``route`` does, and still records its own choices: where the two
-    runs choose alike nothing changes but the order of a k-term sum."""
+    runs choose alike nothing changes but the order of a k-term sum.
+    A checkpointed body's recompute (``remat.recomputing()``) is not
+    recorded or counted: the records are the first forward's; replaying,
+    the recompute takes the experts its forward took (found by the
+    layer's router weights: ``route`` gets a fresh dict each call)."""
 
     def __init__(self, replay=None):
         self.replay = replay
 
     def __enter__(self):
         self.calls = {"ep": 0, "global": 0, "block": 0}
-        self.drops, self.routes = [], []
+        self.drops, self.routes, self._taken = [], [], {}
         self._real = (moe._moe_ep, moe._moe_global_partitioned,
                       moe._expert_matmuls, moe.dispatch, moe.route)
 
         def route(p, xf, cfg):
             probs, gate_w, ids = self._real[4](p, xf, cfg)
+            if remat.recomputing():
+                if self.replay is not None:
+                    ids = self._taken[p["router"].data_ptr()].to(ids.device)
+                    gate_w = probs.gather(1, ids)
+                    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(
+                        1e-9)
+                return probs, gate_w, ids
             top = probs.detach().topk(cfg.top_k + 1).values.log()
             self.routes.append((ids.sort(-1).values.cpu().numpy(),
                                 (top[:, -2] - top[:, -1]).cpu().numpy()))
             if self.replay is not None:
                 ids = torch.from_numpy(self.replay[len(self.routes) - 1]).to(
                     ids.device)
+                self._taken[p["router"].data_ptr()] = ids
                 gate_w = probs.gather(1, ids)
                 gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
             return probs, gate_w, ids
 
         def counted(key, fn):
             def wrapped(*a, **k):
-                self.calls[key] += 1
+                self.calls[key] += not remat.recomputing()
                 return fn(*a, **k)
             return wrapped
 
         def dispatch(ids, T, E, C):
             dest = self._real[3](ids, T, E, C)
-            self.drops.append(int((dest == E * C).sum()))
+            if not remat.recomputing():
+                self.drops.append(int((dest == E * C).sum()))
             return dest
         moe._moe_ep = counted("ep", self._real[0])
         moe._moe_global_partitioned = counted("global", self._real[1])
@@ -520,4 +582,28 @@ def collective_grads(mesh) -> Dict[str, Any]:
     return out
 
 
-CASES = {"steps": steps_case, "moe": moe_case}
+def encdec_case(mesh, inputs, device) -> Dict[str, Any]:
+    """The encdec and vlm cases' ``run_steps`` over this world, the
+    collectives staged through the host, and the train step of
+    ``inputs["fault_case"]`` with the cross-attention's reduction dropped
+    (``drop_cross_reduction``)."""
+    coll.stage_through_host(device)
+    coll.reset_stats()
+    out = {"coords": sh.coordinates(mesh), "axes": sh.mesh_axes(mesh)}
+    for c in inputs["cases"]:
+        cfg = get_arch(c["arch"]).reduced().replace(**c.get("cfg", {}))
+        out[c["name"]] = run_steps(cfg, c["params"], c, mesh,
+                                   rules_of(c["rules"], cfg, mesh), device)
+    c = next(c for c in inputs["cases"] if c["name"] == inputs["fault_case"])
+    cfg = get_arch(c["arch"]).reduced().replace(**c.get("cfg", {}))
+    with drop_cross_reduction() as fault:
+        r = run_steps(cfg, c["params"], c, mesh,
+                      rules_of(c["rules"], cfg, mesh), device,
+                      counted=False, serve=False, state=False)
+    out["fault"] = {"name": c["name"], "dropped": fault["dropped"],
+                    "loss": r["loss"], "grad_norm": r["grad_norm"]}
+    out["staged"] = coll.stats()
+    return out
+
+
+CASES = {"steps": steps_case, "moe": moe_case, "encdec": encdec_case}

@@ -1049,8 +1049,9 @@ def test_reduced_train_step_on_card_equals_cpu(cuda):
     atol = rtol = 1e-4 (f32 through 4 layers), parameters and moments at
     atol = rtol = 1e-4 but for a share under 1e-3 of the parameters (the
     AdamW update of a near-zero gradient follows its low bits, see
-    ``test_torch_train.py``); exactly 2 x 4 forward and backward launches a
-    step."""
+    ``test_torch_train.py``); exactly 2 x 4 backward launches a step and,
+    the config keeping the reference's remat, twice as many forward ones
+    (each checkpointed layer's recompute)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import make_train_step
     cfg = get_arch("olmo-1b").reduced().replace(microbatch=2, d_head=64,
@@ -1076,7 +1077,8 @@ def test_reduced_train_step_on_card_equals_cpu(cuda):
             stats.append((float(loss), float(gn)))
         runs.append((params, opt, stats, _build.launch_counts()))
     (p_cpu, o_cpu, s_cpu, _), (p_card, o_card, s_card, counts) = runs
-    assert counts["flash_attention"] == 3 * 2 * cfg.n_layers
+    assert cfg.remat
+    assert counts["flash_attention"] == 2 * 3 * 2 * cfg.n_layers
     assert counts["flash_attention_bwd"] == 3 * 2 * cfg.n_layers
     np.testing.assert_allclose(s_card, s_cpu, atol=1e-4, rtol=1e-4)
     for k, v in o_cpu.mu.items():

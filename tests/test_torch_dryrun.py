@@ -284,13 +284,11 @@ def test_param_counts_and_model_flops_equal_reference(family,
         assert rec["tokens_per_step"] == tokens
         assert rec["model_flops"] == jrl.model_flops(total, active, s.kind,
                                                      tokens)
-        # the dense, ssm, MoE and hybrid families' steps are traced
-        # partitioned on the fake (16, 16) mesh, but where the rules split
-        # a sequence (the reduced configs' decode caches under
-        # dp_heavy_rules: kv_seq over model); the other cells stay
-        # analytic and say why
-        traced = family in ("dense", "ssm", "moe", "hybrid") and not (
-            family != "ssm" and shape == "decode_32k")
+        # every family's steps are traced partitioned on the fake (16, 16)
+        # mesh, but where the rules split a sequence (the reduced configs'
+        # decode caches under dp_heavy_rules: kv_seq over model); those
+        # cells stay analytic and say why
+        traced = not (family != "ssm" and shape == "decode_32k")
         if traced:
             assert "analytic" not in rec and rec["roofline"]["chips"] == 256
         else:

@@ -32,8 +32,9 @@ step-by-step recurrence (``impl="ref"``; its blocked SSD is what
 ``test_torch_lm.py`` avoids) and its attention blocked.
 
 A faulted partition (the first model-axis all-reduce dropped) fails the
-gate; attention whose sequence the rules split raises; the encdec and
-vlm families' parameters refuse to be placed.
+gate; attention whose sequence the rules split raises; every family's
+parameters are placed (the encdec and vlm families' steps are
+``test_torch_partition_encdec.py``'s).
 """
 import os
 import pickle
@@ -46,13 +47,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Replicate
 
 import _torch_ep_ranks as epr
 import _torch_partition_ranks as pr
 from repro.configs import ARCHS as JARCHS
 from repro.models import build as jbuild
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.launch.mesh import MeshShape, fake_mesh
+from repro_torch.launch.steps import build_shardings
 from repro_torch.models import build
+from repro_torch.models.registry import PARTITIONED_FAMILIES
+from repro_torch.parallel.sharding import rules_for
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE_TIMEOUT_S = 300
@@ -281,15 +287,25 @@ def test_split_sequences_and_moe_are_refused(runs):
     """Reduced gemma3-1b's one kv head does not divide a 2-way model axis,
     so ``rules_for`` puts the sequence there: the prefill raises,
     naming sequence-parallel attention, instead of gathering it; on the
-    (4, 1) mesh it runs. The encdec and vlm families' parameters are not
-    placed (A33); the MoE family's are (``test_torch_partition_moe.py``)."""
+    (4, 1) mesh it runs. No family is refused any more: the encdec and vlm
+    families' parameters are placed on a fake (2, 2) mesh as the resolver
+    gives them (their steps: ``test_torch_partition_encdec.py``); the MoE
+    family's are (``test_torch_partition_moe.py``)."""
     for r in runs["port"][(2, 2)]:
         assert "sequence-parallel attention" in r["refusal"]
     for r in runs["port"][(4, 1)]:
         assert r["refusal"] is None
+    assert set(PARTITIONED_FAMILIES) == {get_arch(a).family for a in ARCHS}
+    desc = MeshShape(("data", "model"), (2, 2))
     for arch in ("seamless-m4t-medium", "llava-next-34b"):
-        model = build(get_arch(arch).reduced(), "cpu")
-        with pytest.raises(NotImplementedError, match=f"{model.cfg.family} "
-                                                      f"family.*A33"):
-            model.distribute(model.init(torch.Generator(), torch.float32),
-                             None, None)
+        model = build(get_arch(arch).reduced(), "meta")
+        rules = rules_for(model.cfg, desc)
+        _, want, _ = build_shardings(model, desc, rules)
+        with fake_mesh(desc) as mesh:
+            params = model.distribute(model.param_struct(torch.float32),
+                                      mesh, rules)
+            placed = {k: tuple(p.placements)
+                      for k, p in params.named_parameters()}
+        assert placed == want
+        assert any(pl != (Replicate(), Replicate())
+                   for pl in placed.values())

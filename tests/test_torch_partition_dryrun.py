@@ -11,7 +11,9 @@ and ``multi`` kinds) against the JAX package's.
   specs, each stacked leaf's first entry, the "layers" axis, dropped; its
   ``cache_shardings``' and ``batch_shardings``' as they are); the same
   for the MoE and hybrid families' three archs, with their AdamW moments
-  (``opt_state_struct_and_sharding``). On a fake (16, 16) DeviceMesh,
+  (``opt_state_struct_and_sharding``); and for the encdec and vlm
+  families' two archs (seamless's encoder and decoder stacks, its self
+  and cross caches; llava's patches). On a fake (16, 16) DeviceMesh,
   ``Model.distribute`` places each parameter so.
 * ``collective_bytes`` on a hand-built DTensor program on a fake (4, 2)
   mesh: each kind's bytes by the reference's conventions (an all-reduce
@@ -31,11 +33,11 @@ and ``multi`` kinds) against the JAX package's.
   and local shapes, so it is not a device's).
 * One production cell traced on meta: olmo-1b train_4k over the fake
   (16, 16) mesh.
-* Which cells the dry run partitions: the dense, ssm, MoE and hybrid
-  families' cells whose rules keep whole sequences on a rank (moonshot's
-  three among them), on both meshes; the others' records say why they
-  stay analytic (phi3.5-moe's and jamba's, sequence-parallel attention;
-  encdec's and vlm's, their family).
+* Which cells the dry run partitions: every family's cells whose rules
+  keep whole sequences on a rank (moonshot's three, seamless's three and
+  llava's train_4k among them), on both meshes; the others' records say
+  why they stay analytic, and it is always sequence-parallel attention
+  or a sequence-sharded cache (A34).
 """
 import functools
 
@@ -65,6 +67,7 @@ from repro_torch.parallel import sharding as tsh
 ARCHS = ("olmo-1b", "gemma3-1b", "minicpm-2b", "qwen2.5-32b", "mamba2-370m")
 MOE_ARCHS = ("moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
              "jamba-1.5-large-398b")
+ENC_VLM_ARCHS = ("seamless-m4t-medium", "llava-next-34b")
 MESHES = ("single", "multi")
 
 
@@ -122,7 +125,7 @@ def test_moe_and_hybrid_placements_equal_reference(arch, mk):
     for name, t in struct.named_parameters():
         ref_a = _ref_leaf(axes, name, arch)
         ref_s = _ref_leaf(shapes, name, arch).shape
-        if name.startswith("segments."):
+        if _stacked(name):
             ref_a, ref_s = ref_a[1:], ref_s[1:]
         want = tsh.placements(tsh.PartitionSpec(
             *jsh.spec_for(ref_a, ref_s, rules, desc)), desc)
@@ -138,6 +141,21 @@ def test_moe_and_hybrid_placements_equal_reference(arch, mk):
             Shard(0), name
 
 
+@pytest.mark.parametrize("mk", MESHES)
+@pytest.mark.parametrize("arch", ENC_VLM_ARCHS)
+def test_encdec_and_vlm_placements_equal_reference(arch, mk):
+    """seamless's encoder and decoder layers (their ``attn``, ``self``,
+    ``cross`` and ``mlp`` blocks), its self and cross caches and its
+    frames, and llava's layers, untied head and patches, on both
+    production meshes, as the five archs' above."""
+    _placements_equal_reference(arch, mk)
+
+
+def _stacked(name):
+    """Whether the reference stacks the parameter's leaf over layers."""
+    return name.startswith(("segments.", "enc.", "dec."))
+
+
 def _placements_equal_reference(arch, mk):
     desc = _desc(mk)
     cfg = get_arch(arch)
@@ -149,7 +167,7 @@ def _placements_equal_reference(arch, mk):
     for name, t in struct.named_parameters():
         ref_a = _ref_leaf(axes, name, arch)
         ref_s = _ref_leaf(shapes, name, arch).shape
-        if name.startswith("segments."):
+        if _stacked(name):
             ref_a, ref_s = ref_a[1:], ref_s[1:]
         want = jsh.spec_for(ref_a, ref_s, rules, desc)
         assert placed[name] == tsh.placements(tsh.PartitionSpec(*want),
@@ -157,9 +175,12 @@ def _placements_equal_reference(arch, mk):
     c_struct_t, c_placed = cache_shardings(model, SHAPES["decode_32k"],
                                            desc, rules)
     for key, t in c_struct_t.items():
-        _, i, j, leaf = key.split(".")
-        ref_t = c_struct["segments"][int(i)][int(j)][leaf]
-        ref_a = c_axes["segments"][int(i)][int(j)][leaf]
+        if key.startswith("segments."):
+            _, i, j, leaf = key.split(".")
+            ref_t = c_struct["segments"][int(i)][int(j)][leaf]
+            ref_a = c_axes["segments"][int(i)][int(j)][leaf]
+        else:
+            ref_t, ref_a = c_struct[key], c_axes[key]
         want = jsh.spec_for(ref_a, ref_t.shape, rules, desc)
         assert tuple(t.shape) == tuple(ref_t.shape)
         assert c_placed[key] == tsh.placements(tsh.PartitionSpec(*want),
@@ -307,6 +328,23 @@ def test_production_cell_traced_on_meta():
             assert tuple(p.placements) == want[name], name
 
 
+@pytest.mark.parametrize("arch,shape", [
+    ("seamless-m4t-medium", "prefill_32k"),
+    ("seamless-m4t-medium", "decode_32k"), ("llava-next-34b", "train_4k")])
+def test_encdec_and_vlm_cells_traced_on_meta(arch, shape):
+    """seamless's prefill (encoder and decoder, cross-attention over the
+    placed encoder output) and decode (self and cross caches placed), and
+    llava's train step (placed patches ahead of the tokens), each traced
+    over the fake (16, 16) mesh: a device's step with its collectives and
+    kernels."""
+    rec = dryrun.run_cell(arch, shape, "single", device="cpu",
+                          verbose=False)
+    assert "analytic" not in rec and rec["chips"] == 256
+    assert rec["collectives_full_step"]["total"] > 0
+    assert rec["step"]["flops"] > 0 and rec["step"]["kernels"]
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["held_bytes"] > 0
+
+
 def _partitioned(arch, shape, mk):
     model = build(get_arch(arch), "meta")
     desc = _desc(mk)
@@ -319,11 +357,14 @@ def test_partitioned_cells_are_the_rules_whole_sequence_cells(mk):
     traced = {(a, s) for a, s in cells("olmo-1b") + cells("mamba2-370m")
               + cells("moonshot-v1-16b-a3b")}
     traced |= {(a, "train_4k") for a in ("gemma3-1b", "minicpm-2b",
-                                         "qwen2.5-32b")}
-    for arch in ARCHS + MOE_ARCHS:
+                                         "qwen2.5-32b", "llava-next-34b")}
+    traced |= set(cells("seamless-m4t-medium"))
+    for arch in ARCHS + MOE_ARCHS + ENC_VLM_ARCHS:
         for _, shape in cells(arch):
             why = _partitioned(arch, shape, mk)
             assert (why is None) == ((arch, shape) in traced), (arch, shape)
+            if why:
+                assert why.endswith("(A34)"), why
             if arch != "mamba2-370m" and shape == "prefill_32k" and why:
                 assert "sequence-parallel attention" in why
             if why and shape in ("decode_32k", "long_500k"):
@@ -332,6 +373,3 @@ def test_partitioned_cells_are_the_rules_whole_sequence_cells(mk):
                           verbose=False)
     assert rec["analytic"]
     assert "sequence-parallel attention" in rec["reason"]
-    for arch in ("seamless-m4t-medium", "llava-next-34b"):
-        why = _partitioned(arch, cells(arch)[0][1], mk)
-        assert why and "family is not partitioned" in why
