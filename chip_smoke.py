@@ -166,7 +166,7 @@ it and read just after:
    timed path, beside the dry run's sample of path 14: train_lm's crash
    and resume, nic_apps' and quickstart's oracles, serve_tenants' and
    serve_pipeline's output against the same scripts on the CPU.
-17. The partitioned steps (A31, A32, A33), after path 15: olmo-1b and
+17. The partitioned steps (A31, A32, A33, A34), after path 15: olmo-1b and
    mamba2-370m at full width, their depth cut to 2 layers, under
    ``rules_for``; moonshot-v1-16b-a3b at full width cut to 2 layers (the
    dense first and 1 MoE layer) under ``dp_heavy_rules()``,
@@ -194,7 +194,18 @@ it and read just after:
    dropped; moonshot: the all-to-all's backward with its dims unswapped,
    the experts' weight-gradient reduce-scatter dropped; seamless: the
    reduction after the first cross-attention's output projection
-   dropped) must fail that gate.
+   dropped) must fail that gate. Sequence-parallel attention (A34) adds
+   three cases whose rules put the sequence over the model axis:
+   gemma3-1b at full width cut to one local and one global layer under
+   ``dp_heavy_rules()`` (a 2 x 2,048 train step in one microbatch, a 2 x
+   4,096 prefill), reduced jamba under the table ``rules_for`` gives its
+   full config (kv heads that do not divide the production model axis)
+   and reduced mamba2-370m under ``dp_heavy_rules()`` (2 x 64): B5 on a
+   rank's queries against the K/V it gathers, B6 with its lse on a
+   rank's block of the cache, B7 on a rank's block with the state carried
+   in; the K/V gather's reduce-scatter dropped (gemma) and the SSD's
+   state exchange left out (mamba) must fail the gate; B6's lse is then
+   held to its plain version at each block depth the ranks reached.
    The dry run's sample (path 14) adds the partitioned cells of olmo-1b
    and mamba2-370m on the fake (16, 16) and (2, 16, 16) meshes.
 
@@ -263,6 +274,7 @@ from repro_torch.launch import dryrun as dry  # noqa: E402
 from repro_torch.launch import report as dry_report  # noqa: E402
 from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import MeshShape  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import lm, moe, remat, ssm  # noqa: E402
@@ -552,17 +564,43 @@ EP_TIMEOUT_S = 600
 # rules_for, its 8 patch embeddings ahead of the tokens (one layer of its
 # full width and its untied vocab are ~1.5 B f32 parameters, ~23.5 GB with
 # gradients and moments, beside each rank's whole copy at creation and the
-# one-device run: not on one card). Every training body is checkpointed
+# one-device run: not on one card); the sequence-parallel cases (A34):
+# gemma3-1b at full width cut to one local (window 512) and one global
+# layer under dp_heavy_rules() (2 rows a step: the sequence over the model
+# axis), reduced jamba under the table rules_for gives its full config on
+# the production mesh (kv heads whole, the sequence over the model axis),
+# reduced mamba2-370m under dp_heavy_rules() (its conv and SSD over the
+# split sequence). Every training body is checkpointed
 # (the configs' remat), so a train step runs each forward kernel twice
 PART_WORLD = (2, 2)
 PART_CASES = (("olmo-1b", 2, "auto"), ("mamba2-370m", 2, "auto"),
               (MOE_ARCH, 2, "dp_heavy"), ("jamba-1.5-large-398b", 0, "auto"),
-              (ENCDEC_ARCH, 4, "auto"), ("llava-next-34b", 0, "auto"))
-# the faulted worlds each arch's train step must fail the gate with
-PART_FAULTS = {"olmo-1b": ("model_reduction",),
-               MOE_ARCH: ("unswapped_all_to_all", "dropped_reduce_scatter"),
-               ENCDEC_ARCH: ("cross_reduction",),
-               "llava-next-34b": ("model_reduction",)}
+              (ENCDEC_ARCH, 4, "auto"), ("llava-next-34b", 0, "auto"),
+              ("gemma3-1b", 2, "dp_heavy"),
+              ("jamba-1.5-large-398b", 0, "kv_indivisible"),
+              ("mamba2-370m", 0, "dp_heavy"))
+# the faulted worlds each case's train step must fail the gate with
+PART_FAULTS = {"olmo-1b/auto": ("model_reduction",),
+               f"{MOE_ARCH}/dp_heavy": ("unswapped_all_to_all",
+                                        "dropped_reduce_scatter"),
+               f"{ENCDEC_ARCH}/auto": ("cross_reduction",),
+               "llava-next-34b/auto": ("model_reduction",),
+               "gemma3-1b/dp_heavy": ("dropped_kv_reduce_scatter",),
+               "mamba2-370m/dp_heavy": ("dropped_state_exchange",)}
+# (rows, sequence) of the train batch and the prompts where a case's
+# differ from PART_BATCH x PART_SEQ and PART_PROMPTS x PART_SEQ: 2 rows
+# over the data axis leave the model axis to the sequence (2 rows a step:
+# choose_microbatch keeps a step's rows a multiple of the data axis, so
+# one microbatch; 4 rows in 2 microbatches would put the batch over data
+# x model and split no sequence). Reduced mamba's decays (a = exp(-dt),
+# dt ~ 0.7) forget a state within a few tokens, so the state carried into
+# a rank's block moves the loss by the share of tokens it reaches: blocks
+# of 32 tokens make a world without the exchange fail PART_TOL's 1e-4
+# (blocks of 512 moved it less)
+PART_SHAPES = {"gemma3-1b/dp_heavy": {"train": (2, 2048),
+                                      "prefill": (2, 4096)},
+               "mamba2-370m/dp_heavy": {"train": (2, 64),
+                                        "prefill": (2, 64)}}
 PART_BATCH = 8
 PART_SEQ = 1024
 PART_MICROBATCH = 2
@@ -4405,21 +4443,29 @@ def ep_checks():
             "seconds": time.perf_counter() - t0, "ranks": ranks}
 
 
-def _part_inputs(cfg, seed=0):
-    """A case's tokens, and the encoder's frames (as many as the tokens,
-    input_specs' even split) or the vlm's patch embeddings, f32; the cache
-    deep enough for the prompt and the decode steps."""
+def _part_name(arch, rules_name):
+    return f"{arch}/{rules_name}"
+
+
+def _part_inputs(cfg, name="", seed=0):
+    """A case's tokens (``PART_SHAPES``' where it names the case), and the
+    encoder's frames (as many as the tokens, input_specs' even split) or
+    the vlm's patch embeddings, f32; the cache deep enough for the prompt
+    and the decode steps."""
     rng = np.random.default_rng(seed)
-    out = {"train": rng.integers(2, cfg.vocab, (PART_BATCH, PART_SEQ)),
-           "prefill": rng.integers(2, cfg.vocab, (PART_PROMPTS, PART_SEQ)),
+    shapes = PART_SHAPES.get(name, {})
+    train = shapes.get("train", (PART_BATCH, PART_SEQ))
+    prompt = shapes.get("prefill", (PART_PROMPTS, PART_SEQ))
+    out = {"train": rng.integers(2, cfg.vocab, train),
+           "prefill": rng.integers(2, cfg.vocab, prompt),
            "decode": rng.integers(2, cfg.vocab,
-                                  (PART_DECODE_STEPS, PART_PROMPTS)),
+                                  (PART_DECODE_STEPS, prompt[0])),
            "max_len": cfg.frontend_tokens * (cfg.family == "vlm")
-           + PART_SEQ + PART_DECODE_STEPS}
-    for kind, rows in (("train", PART_BATCH), ("prefill", PART_PROMPTS)):
+           + prompt[1] + PART_DECODE_STEPS}
+    for kind, (rows, seq) in (("train", train), ("prefill", prompt)):
         if cfg.family == "encdec":
             out[f"{kind}_frames"] = rng.standard_normal(
-                (rows, PART_SEQ, cfg.d_model)).astype(np.float32)
+                (rows, seq, cfg.d_model)).astype(np.float32)
         elif cfg.family == "vlm":
             out[f"{kind}_patches"] = rng.standard_normal(
                 (rows, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
@@ -4433,17 +4479,24 @@ def _part_params(cfg):
 
 class _HeadTap:
     """While installed, records the heads of every B5, B6 and B7 launch's
-    input (the rank's local heads)."""
+    input (the rank's local heads), and the shapes and dtypes of B6's
+    launches with ``return_lse`` (a rank's block of a sequence-sharded
+    cache): {(B, Hq, D, S, Hkv, q dtype, cache dtype): launches}."""
 
     def __enter__(self):
         self.heads = {"flash_attention": set(), "decode_attention": set(),
                       "ssd_scan": set()}
+        self.lse = {}
         self.real = (fa.flash_attention_cuda, da.decode_attention_cuda,
                      ss.ssd_scan_cuda)
 
         def tap(name, fn, dim):
             def wrapped(*a, **k):
                 self.heads[name].add(int(a[0].shape[dim]))
+                if k.get("return_lse") and name == "decode_attention":
+                    key = tuple(a[0].shape) + tuple(a[1].shape[1:3]) + (
+                        str(a[0].dtype), str(a[1].dtype))
+                    self.lse[key] = self.lse.get(key, 0) + 1
                 return fn(*a, **k)
             return wrapped
         fa.flash_attention_cuda = tap("flash_attention", self.real[0], 2)
@@ -4456,20 +4509,24 @@ class _HeadTap:
          ss.ssd_scan_cuda) = self.real
 
 
-def _part_cfg(arch, layers, cfs=None):
+def _part_cfg(arch, layers, cf=None):
     """A partition case's config: full width with ``layers`` layers (0:
     the reduced config; an encoder-decoder's split evenly between its
-    encoder and decoder), microbatch PART_MICROBATCH, and the capacity
-    factor ``cfs`` picked for the arch, if any."""
+    encoder and decoder; a local/global schedule cut to one body of
+    ``layers``, its last layer global), microbatch PART_MICROBATCH, and
+    the capacity factor ``cf`` picked for the case, if any."""
     cfg = get_arch(arch)
     if layers and cfg.family == "encdec":
         cfg = cfg.replace(n_layers=layers, enc_layers=layers // 2,
                           dec_layers=layers // 2)
+    elif layers and cfg.local_global_period > layers:
+        # the depth cut to one body: local layers, then one global
+        cfg = cfg.replace(n_layers=layers, local_global_period=layers)
     else:
         cfg = cfg.replace(n_layers=layers) if layers else cfg.reduced()
     cfg = cfg.replace(microbatch=PART_MICROBATCH)
-    if cfs and arch in cfs:
-        cfg = cfg.replace(capacity_factor=cfs[arch])
+    if cf is not None:
+        cfg = cfg.replace(capacity_factor=cf)
     return cfg
 
 
@@ -4482,60 +4539,70 @@ def _part_capacity(arch, layers, rules_name):
     step's 4 tokens never fill an expert's 128 slots). Run in the parent
     before the ranks start, on the card, then freed."""
     cfg = _part_cfg(arch, layers)
-    inp = _part_inputs(cfg)
+    inp = _part_inputs(cfg, _part_name(arch, rules_name))
     model = build(cfg, "cuda")
     params = _part_params(cfg)("cuda")
-    world = PART_WORLD[0] * PART_WORLD[1]
+    desc = MeshShape(("data", "model"), PART_WORLD)
+    rules = _partition_ranks().rules_of(rules_name, cfg, desc)
+    coords = [{"data": i, "model": j} for i in range(PART_WORLD[0])
+              for j in range(PART_WORLD[1])]
     mb = PART_BATCH // PART_MICROBATCH
     calls = [inp["train"][i * mb:(i + 1) * mb]
              for i in range(PART_MICROBATCH)] + [inp["prefill"]]
-    loads = []                          # (global load, largest rank load)
-    with torch.no_grad():
+    loads = []      # (tokens, a rank's tokens, largest rank load, largest
+    with torch.no_grad():                          # load, expert parallel)
         for tokens in calls:
             with _Routes() as r:
                 model.forward(params, {"tokens": torch.from_numpy(
                     tokens).cuda()})
-            rows = tokens.shape[0] // world
             for c in r.calls:
-                ids = c["chosen"].reshape(world, -1)
-                per = [int(torch.bincount(i, minlength=cfg.n_experts).max())
-                       for i in ids]
-                loads.append((tokens.shape[0] * tokens.shape[1], rows
-                              * tokens.shape[1], max(per), int(
-                                  torch.bincount(ids.reshape(-1)).max())))
+                ids = c["chosen"].reshape(tokens.shape[0] * tokens.shape[1],
+                                          -1).cpu()
+                ranks = [_part_token_rows(cfg, rules, desc, tokens.shape, x)
+                         for x in coords]
+                per = [int(torch.bincount(ids[torch.from_numpy(t)].reshape(
+                    -1), minlength=cfg.n_experts).max()) for _, t in ranks]
+                loads.append((ids.shape[0], len(ranks[0][1]), max(per),
+                              int(torch.bincount(ids.reshape(-1)).max()),
+                              ranks[0][0]))
     del model, params
     torch.cuda.empty_cache()
-    ep = rules_name == "dp_heavy"
     for tried, cf in enumerate(EP_CF_LADDER, 1):
         ok = all(g_load <= moe._capacity(T, cfg.top_k, cfg.n_experts, cf)
                  and (not ep or r_load <= moe._capacity(
                      T_l, cfg.top_k, cfg.n_experts, cf))
-                 for T, T_l, r_load, g_load in loads)
+                 for T, T_l, r_load, g_load, ep in loads)
         if ok:
             return cf, {"capacity_factor": cf, "factors_tried": tried,
+                        "expert_parallel": any(x[4] for x in loads),
                         "largest_rank_load": max(x[2] for x in loads),
                         "largest_global_load": max(x[3] for x in loads)}
     raise AssertionError(f"{arch}: tokens drop at every capacity factor of "
                          f"{EP_CF_LADDER}: (tokens, a rank's tokens, largest "
-                         f"load on a rank, largest load) of each call {loads}")
+                         f"load on a rank, largest load, expert parallel) of "
+                         f"each call {loads}")
 
 
-def _part_expected(cfg, rules, mesh):
+def _part_expected(cfg, rules, mesh, accum):
     """The launches a rank makes in each phase, and its local heads: B5
-    and its backward on each attention layer (B6 a decode step), B7 and
+    and its backward on each attention layer (B6 a decode step on each
+    layer without a window: a local layer's windowed decode runs in plain
+    PyTorch, as the reference's does), B7 and
     its backward on each mamba layer, on the heads the rules leave a
     rank; an encoder-decoder's attention layers are the encoder's and the
     decoder's self and cross attention. Under remat a train step runs
     each forward kernel twice (the checkpointed body's recompute), its
     backward once."""
-    accum, steps = PART_MICROBATCH, PART_DECODE_STEPS
+    steps = PART_DECODE_STEPS
     if cfg.family == "encdec":
         n_attn, n_ssm = cfg.enc_layers + 2 * cfg.dec_layers, 0
+        n_b6 = 2 * cfg.dec_layers
     else:
         body = [s for seg in lm.build_schedule(cfg)
                 for _ in range(seg.count) for s in seg.body]
         n_attn = sum(s.mixer != "mamba" for s in body)
         n_ssm = len(body) - n_attn
+        n_b6 = sum(s.mixer == "attn" for s in body)   # no window
     fwd = accum * (2 if cfg.remat else 1)
     split = lambda axes, n: n // math.prod(
         sh.mesh_axes(mesh)[a] for a in sh.entry_axes(
@@ -4546,8 +4613,7 @@ def _part_expected(cfg, rules, mesh):
         want["train"].update(flash_attention=n_attn * fwd,
                              flash_attention_bwd=n_attn * accum)
         want["prefill"]["flash_attention"] = n_attn
-        want["decode"]["decode_attention"] = (
-            2 * cfg.dec_layers if cfg.family == "encdec" else n_attn) * steps
+        want["decode"]["decode_attention"] = n_b6 * steps
         heads["flash_attention"] = heads["decode_attention"] = {
             split("heads", cfg.n_heads)}
     if n_ssm:
@@ -4574,30 +4640,78 @@ def _trim():
     ctypes.CDLL("libc.so.6").malloc_trim(0)
 
 
-def _part_token_block(cfg, rules, mesh):
-    """(whether the MoE layers take expert parallelism, this rank's block
-    of the tokens along the batch): an EP rank routes its own rows, the
-    global dispatch every token on every rank."""
-    x_spec = sh.token_spec((PART_BATCH // PART_MICROBATCH, PART_SEQ,
-                            cfg.d_model), rules, mesh)
-    return ({"data", "model"} <= set(sh.entry_axes(x_spec[0])),
-            sh.block_index(x_spec[0], mesh)[0])
+def _partition_ranks():
+    """``tests/_torch_partition_ranks.py``: the steps, the gate and the
+    rule tables of the partition tests (no JAX)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_partition_ranks
+    return _torch_partition_ranks
 
 
-def _part_replay(cfg, rules, mesh, world_routes):
-    """The routes one device replays: every rank's ({token block:
-    routes}), its blocks of the tokens in order under expert
-    parallelism; one rank's where every rank routes every token."""
+def _part_route_calls(cfg, inp, accum):
+    """The (rows, sequence) of the tokens of each MoE route call of
+    ``run_steps``, in order: the train step's microbatches, the prefill,
+    the decode steps (a checkpointed body's recompute is not recorded)."""
+    n_moe = sum(s.ffn == "moe" for seg in lm.build_schedule(cfg)
+                for _ in range(seg.count) for s in seg.body)
+    B, S = inp["train"].shape
+    P, Sp = inp["prefill"].shape
+    return ([(B // accum, S)] * (accum * n_moe) + [(P, Sp)] * n_moe
+            + [(P, 1)] * (len(inp["decode"]) * n_moe))
+
+
+def _part_token_rows(cfg, rules, mesh, shape, coords):
+    """Whether MoE tokens of global (rows, sequence) ``shape`` take expert
+    parallelism over ``mesh`` (a DeviceMesh or a description), as
+    ``moe_ffn`` decides, and the flat indices (row-major) of the tokens
+    the rank at ``coords`` ({axis: index}) routes: its block of the rows
+    and of the sequence under expert parallelism, every token on the
+    global dispatch."""
+    B, S = shape
+    spec = sh.token_spec((B, S, cfg.d_model), rules, mesh)
+    sizes = sh.mesh_axes(mesh)
+    flat = {a for e in spec[:2] for a in sh.entry_axes(e)}
+    if not ({"data", "model"} <= flat
+            and cfg.n_experts % sizes["model"] == 0):
+        return False, np.arange(B * S)
+
+    def block(entry, n):
+        index, count = 0, 1
+        for a in sh.entry_axes(entry):
+            index, count = index * sizes[a] + coords[a], count * sizes[a]
+        return np.arange(index * (n // count), (index + 1) * (n // count))
+    rows, cols = block(spec[0], B), block(spec[1], S)
+    return True, (rows[:, None] * S + cols[None, :]).reshape(-1)
+
+
+def _part_replay(cfg, rules, mesh, world_routes, inp, accum):
+    """The routes one device replays: for each route call, every rank's
+    choices ({rank coordinates: routes}) placed at its tokens under
+    expert parallelism; one rank's where every rank routes every
+    token."""
     if not cfg.n_experts:
         return None
-    ep, me = _part_token_block(cfg, rules, mesh)
-    blocks = sorted(world_routes) if ep else [me]
-    return [np.concatenate([world_routes[b][i][0] for b in blocks])
-            for i in range(len(world_routes[me]))]
+    per = [(dict(c), routes) for c, routes in sorted(world_routes.items())]
+    out = []
+    for i, shape in enumerate(_part_route_calls(cfg, inp, accum)[
+            :len(per[0][1])]):
+        ep, _ = _part_token_rows(cfg, rules, mesh, shape, per[0][0])
+        if not ep:
+            out.append(per[0][1][i][0])
+            continue
+        first = per[0][1][i][0]
+        ids = np.empty((shape[0] * shape[1],) + first.shape[1:],
+                       first.dtype)
+        for coords, routes in per:
+            ids[_part_token_rows(cfg, rules, mesh, shape, coords)[1]] = \
+                routes[i][0]
+        out.append(ids)
+    return out
 
 
 def _part_one_device(pr, rank, cfg, params, inp, mesh, rules, world_routes,
-                     fault_calls, indices):
+                     fault_calls, indices, accum):
     """The world's calls on one device, run once, by rank 0, while the
     other ranks hold nothing on the card (a MoE arch replaying the
     world's routes, as the MoE training phase replays the kernel run's),
@@ -4609,7 +4723,7 @@ def _part_one_device(pr, rank, cfg, params, inp, mesh, rules, world_routes,
              for k in sorted(indices[rank])]
     meta = [None]
     if rank == 0:
-        replay = _part_replay(cfg, rules, mesh, world_routes)
+        replay = _part_replay(cfg, rules, mesh, world_routes, inp, accum)
         with pr.moe_paths(replay) as paths:
             one = pr.run_steps(cfg, params, inp, None, None, "cuda")
         one["routes"], one["drops"] = paths.routes, paths.drops
@@ -4648,7 +4762,7 @@ def _part_one_device(pr, rank, cfg, params, inp, mesh, rules, world_routes,
     return one
 
 
-def _part_gate(arch, pr, r, faults, cfg, one, mesh, rules):
+def _part_gate(arch, pr, r, faults, cfg, one, mesh, rules, inp):
     """This rank's world results ``r`` (and the faulted worlds') held to
     the same calls on one device (``_part_one_device``), on the rank's
     blocks; a MoE arch's one-device choices held to the world's: a flip
@@ -4665,11 +4779,11 @@ def _part_gate(arch, pr, r, faults, cfg, one, mesh, rules):
                                     for k, w in one["params"].items()),
            "gate": pr.compare(r, one, tol)}
     if cfg.n_experts:
-        ep, me = _part_token_block(cfg, rules, mesh)
+        calls = _part_route_calls(cfg, inp, r["accum"])
+        me = sh.coordinates(mesh)
 
         def rows(i, n_rank, n_one):
-            return slice(me * n_rank, (me + 1) * n_rank) if ep else \
-                slice(0, n_one)
+            return _part_token_rows(cfg, rules, mesh, calls[i], me)[1]
         out["routes"] = pr.route_flips(r["routes"], one["routes"], rows)
         out["routes"]["replayed"] = True
     if out["gate"]:
@@ -4702,25 +4816,34 @@ def _part_run(rank, mesh, cfs):
     moments to the one-device run's."""
     import gc
     import torch.distributed as dist
-    sys.path.insert(0, str(ROOT / "tests"))
-    import _torch_partition_ranks as pr   # the steps and the gate: no JAX
+    pr = _partition_ranks()
     out = {"rank": rank, "coords": sh.coordinates(mesh), "archs": {}}
     world = dist.get_world_size()
     for arch, layers, rules_name in PART_CASES:
-        cfg = _part_cfg(arch, layers, cfs)
+        name = _part_name(arch, rules_name)
+        cfg = _part_cfg(arch, layers, cfs.get(name))
         rules = pr.rules_of(rules_name, cfg, mesh)
-        inp, params = _part_inputs(cfg), _part_params(cfg)
+        inp, params = _part_inputs(cfg, name), _part_params(cfg)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         coll.reset_stats()
-        with _HeadTap() as tap, pr.moe_paths() as paths:
+        with _HeadTap() as tap, pr.moe_paths() as paths, \
+                pr.seq_paths() as seq:
             r = pr.run_steps(cfg, params, inp, mesh, rules, "cuda",
                              whole=False)
         r["routes"], r["drops"] = paths.routes, paths.drops
         _trim()
-        rec = {"layers": cfg.n_layers, "reduced": not layers,
-               "rules": "rules_for" if rules_name == "auto" else
-               "dp_heavy_rules", "capacity_factor": cfg.capacity_factor,
+        rec = {"arch": arch, "layers": cfg.n_layers, "reduced": not layers,
+               "rules": {"auto": "rules_for", "dp_heavy": "dp_heavy_rules",
+                         "kv_indivisible": "rules_for of the full config "
+                         "on the (16, 16) mesh (kv heads indivisible)"}[
+                             rules_name],
+               "train_tokens": list(inp["train"].shape),
+               "prompt_tokens": list(inp["prefill"].shape),
+               "seq_gathers": seq.report(),
+               "b6_lse_launches": {json.dumps(k): n
+                                   for k, n in tap.lse.items()},
+               "capacity_factor": cfg.capacity_factor,
                "moe_paths": paths.calls,
                "ms": {k: 1e3 * v for k, v in r["seconds"].items()},
                "decode_ms_per_step": 1e3 * r["seconds"]["decode"]
@@ -4732,47 +4855,51 @@ def _part_run(rank, mesh, cfs):
                "staged": coll.stats(),
                "peak_bytes": torch.cuda.max_memory_allocated(),
                "loss": r["loss"], "grad_norm": r["grad_norm"]}
-        want_launches, want_heads = _part_expected(cfg, rules, mesh)
+        want_launches, want_heads = _part_expected(cfg, rules, mesh,
+                                                   r["accum"])
         if r["launches"] != want_launches or \
                 {k: set(v) for k, v in rec["heads"].items()} != want_heads:
-            raise AssertionError(f"rank {rank} {arch}: launches "
+            raise AssertionError(f"rank {rank} {name}: launches "
                                  f"{r['launches']} (want {want_launches}), "
                                  f"heads {rec['heads']} (want {want_heads})")
         faults, fault_calls = {}, None
-        for name in PART_FAULTS.get(arch, ()):
+        for fname in PART_FAULTS.get(name, ()):
             cfg_f, inp_f = _part_fault_case(cfg, inp)
             fault = {"model_reduction": pr.drop_model_reduction,
-                     "cross_reduction": pr.drop_cross_reduction}.get(
-                         name, pr.FAULTS.get(name))()
+                     "cross_reduction": pr.drop_cross_reduction,
+                     **pr.FAULTS, **pr.SEQ_FAULTS}[fname]()
             with fault as dropped, pr.moe_paths() as fp:
-                faults[name] = pr.run_steps(
+                faults[fname] = pr.run_steps(
                     cfg_f, params, inp_f, mesh, rules, "cuda",
                     counted=False, whole=False, serve=False, state=False)
             fault_calls = len(fp.routes)
             _trim()
-            if name.endswith("_reduction") and dropped["dropped"] != 1:
-                raise AssertionError(f"{arch}: the faulted world dropped "
+            if fname.endswith("_reduction") and dropped["dropped"] != 1:
+                raise AssertionError(f"{name}: the faulted world dropped "
                                      f"{dropped['dropped']} reductions")
         # every rank's routes and blocks, for the one-device run to replay
         # and cut; it runs while no rank holds memory on the card
         shared = [None] * world
         dist.all_gather_object(shared, (
-            _part_token_block(cfg, rules, mesh)[1], r["routes"], r["index"]))
-        world_routes = {b: routes for b, routes, _ in shared}
+            tuple(sorted(sh.coordinates(mesh).items())), r["routes"],
+            r["index"]))
+        world_routes = {c: routes for c, routes, _ in shared}
         indices = [ix for _, _, ix in shared]
         gc.collect()
         torch.cuda.empty_cache()
         rec["reserved_before_one_device"] = torch.cuda.memory_reserved()
         dist.barrier()
         one = _part_one_device(pr, rank, cfg, params, inp, mesh, rules,
-                               world_routes, fault_calls, indices)
+                               world_routes, fault_calls, indices,
+                               r["accum"])
         gc.collect()
         torch.cuda.empty_cache()
-        rec.update(_part_gate(arch, pr, r, faults, cfg, one, mesh, rules))
+        rec.update(_part_gate(name, pr, r, faults, cfg, one, mesh, rules,
+                              inp))
         del r, faults, world_routes, one, shared
         _trim()
         dist.barrier()
-        out["archs"][arch] = rec
+        out["archs"][name] = rec
     return out
 
 
@@ -4800,8 +4927,65 @@ def _part_rank(rank, port, out_dir, cfs):
         dist.destroy_process_group()
 
 
+def decode_lse_rows(part):
+    """B6 with ``return_lse`` at every shape (a rank's block of a
+    sequence-sharded cache: its depth sets the split count) the partition
+    worlds' ranks launched it with: rows with the block full, half full
+    and empty (LSE_EMPTY, output 0), out and lse against the plain
+    version (ATTN_TOL, ATTN_BF16_TOL for a bf16 output; lse at ATTN_TOL),
+    then timed with the block full as ``_variant_rows`` times a B6 row,
+    the row's output the lse, and the same launch without its lse
+    (``ms_without_lse``)."""
+    launches = {}
+    for case, a in part["ranks"][0]["archs"].items():
+        for key, n in a["b6_lse_launches"].items():
+            launches[key] = launches.get(key, 0) + n
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(34)
+    specs = []
+    for key, n in sorted(launches.items()):
+        B, Hq, D, S, Hkv, q_dt, kv_dt = json.loads(key)
+        q_dt, kv_dt = (getattr(torch, t.split(".")[-1]) for t in (q_dt,
+                                                                   kv_dt))
+        cache = [torch.randn((3, S, Hkv, D), generator=g,
+                             device="cuda").to(kv_dt) for _ in range(2)]
+        q = torch.randn((3, Hq, D), generator=g, device="cuda").to(q_dt)
+        lens = torch.tensor([S, S // 2 + 1, 0], dtype=torch.int32,
+                            device="cuda")
+        out, lse = da.decode_attention_cuda(q, *cache, lens,
+                                            return_lse=True)
+        want, want_lse = da.decode_attention_torch(q, *cache, lens,
+                                                   return_lse=True)
+        tol = ATTN_BF16_TOL if q_dt == torch.bfloat16 else ATTN_TOL
+        if not (torch.allclose(out.float(), want.float(), **tol)
+                and torch.allclose(lse, want_lse, **ATTN_TOL)
+                and bool((lse[2] == fa.LSE_EMPTY).all())
+                and not bool(out[2].any())):
+            raise AssertionError(f"B6 with lse at {key}: out within "
+                                 f"{(out.float() - want.float()).abs().max()}"
+                                 f", lse within "
+                                 f"{(lse - want_lse).abs().max()}")
+        spec = _decode_spec(f"rank block S={S} with lse ({da.splits(S)[0]} "
+                            f"splits)", q, cache[0], cache[1], S, n)
+        full = lens[:1].expand(3).contiguous()
+        spec["run"] = lambda q=q, c=cache, k=full: da.decode_attention_cuda(
+            q, *c, k, return_lse=True)[1]
+        spec["plain"] = lambda q=q, c=cache, k=full: \
+            da.decode_attention_torch(q, *c, k, return_lse=True)[1]
+        spec["nbytes"] += 4 * 3 * Hq
+        spec["without_lse"] = lambda q=q, c=cache, k=full: \
+            da.decode_attention_cuda(q, *c, k)
+        specs.append(spec)
+    rows = _variant_rows(specs, flush)
+    for spec, (_, _, row) in zip(specs, rows):
+        # the same launch without its lse, timed the same way
+        row["ms_without_lse"] = _time_ms(spec["without_lse"], KERNEL_REPS,
+                                         flush)
+    return rows
+
+
 def partition_checks():
-    """The partitioned steps (A31, A32, A33) on the card: the MoE cases'
+    """The partitioned steps (A31-A34) on the card: the MoE cases'
     capacity factors picked here, then four ranks, spawned, each on card 0
     with its own CUDA context, joined within PART_TIMEOUT_S."""
     out_dir = ROOT / "build" / "partition"
@@ -4813,7 +4997,8 @@ def partition_checks():
     cfs, capacity = {}, {}
     for arch, layers, rules_name in PART_CASES:
         if get_arch(arch).n_experts:
-            cfs[arch], capacity[arch] = _part_capacity(arch, layers,
+            name = _part_name(arch, rules_name)
+            cfs[name], capacity[name] = _part_capacity(arch, layers,
                                                        rules_name)
     # the ranks' host heaps: few arenas, so freed staging buffers go back
     arenas = os.environ.get("MALLOC_ARENA_MAX")
@@ -4839,7 +5024,8 @@ def partition_checks():
                 p.join(10)
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
              for r in range(world)]
-    return {"world": list(PART_WORLD), "archs": [a for a, *_ in PART_CASES],
+    return {"world": list(PART_WORLD),
+            "archs": [_part_name(a, r) for a, _, r in PART_CASES],
             "capacity": capacity,
             "backend": "gloo, the functional collectives staged through the "
                        "host, four ranks on card 0",
@@ -5910,9 +6096,10 @@ def main() -> int:
     by_name["flash_attention"]["launches_by_path"]["moonshot_ep"] = (
         ep["ranks"][0]["launches"]["flash_attention"])
 
-    # the partitioned steps (A31, A32, A33): olmo-1b, mamba2-370m, moonshot
-    # (expert parallelism), reduced jamba, seamless and reduced llava over
-    # four ranks
+    # the partitioned steps (A31-A34): olmo-1b, mamba2-370m, moonshot
+    # (expert parallelism), reduced jamba, seamless and reduced llava, and
+    # over a split sequence gemma3-1b, reduced jamba and reduced mamba2,
+    # over four ranks; then B6's lse at the ranks' block depths
     part = partition_checks()
     part["card"] = smi
     for arch in part["archs"]:
@@ -5934,7 +6121,14 @@ def main() -> int:
                   f"{a['collectives_serve']['total']} B; host copies "
                   f"{a['staged'].get('host_copy_bytes', 0)} B; peak "
                   f"{a['peak_bytes']} B; reserved before the one-device "
-                  f"run {a['reserved_before_one_device']} B")
+                  f"run {a['reserved_before_one_device']} B"
+                  + (f"; sequence-parallel forward gathers (train, prefill "
+                     f"and decode; calls, bytes) "
+                     + ", ".join(f"{k} ({v['calls']} calls) "
+                                 f"{v['all_gather_calls']} all-gathers "
+                                 f"{v['all_gather_bytes']} B"
+                                 for k, v in a["seq_gathers"].items())
+                     if a["seq_gathers"] else ""))
         print(f"partition {arch} ({smi}): one device train step "
               f"{r0['one_device']['ms']['train']:.1f} ms, prefill "
               f"{r0['one_device']['ms']['prefill']:.1f} ms; world against "
@@ -5949,6 +6143,14 @@ def main() -> int:
               + "".join(f"; faulted world ({k}) rejected ({v[:2]})"
                         for k, v in r0["faults"].items()))
     print("partition " + json.dumps(part))
+    lse_rows = decode_lse_rows(part)
+    for name, label, row in lse_rows:
+        by_name[name].setdefault("variants", {})[label] = row
+        print(f"decode_attention with lse ({label}, {smi}): "
+              f"{row['ms']:.4f} ms ({row['ms_without_lse']:.4f} ms without "
+              f"lse), plain {row['plain_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms, lse and outputs within "
+              f"{row['max_abs_err']} of the plain version")
     for arch in part["archs"]:
         for phase, counts in part["ranks"][0]["archs"][arch][
                 "launches"].items():

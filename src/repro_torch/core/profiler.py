@@ -201,6 +201,10 @@ def _meta_key(func, args, kwargs):
         return None
 
 
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "c10d")
+
+
 def _memo_entry(out, args, flops: int, nbytes: int):
     """What a memoized meta op replays (whether it returned a tuple, each
     output's shape, stride and dtype, its FLOPs and bytes), or None when
@@ -321,11 +325,15 @@ class _CostMode(TorchDispatchMode):
         and it returns tensors only. A meta kernel computes only its
         outputs' shapes, strides and dtypes, at up to ~0.2 ms an op, and a
         dry run repeats each layer's ops thousands of times: on plain meta
-        tensors such an op is memoized by its inputs' metadata."""
+        tensors such an op is memoized by its inputs' metadata, but for a
+        collective."""
         ok = self._memo_funcs.get(func)
         if ok is None:
             sch = func._schema
-            ok = (not func.is_view and len(sch.returns) > 0
+            # a collective runs every time: a mode outside this one (the
+            # dry run's ``roofline.collective_bytes``) counts each call
+            ok = (func.namespace not in _COLLECTIVE_NAMESPACES
+                  and not func.is_view and len(sch.returns) > 0
                   and all(a.alias_info is None
                           for a in (*sch.arguments, *sch.returns))
                   and all(str(r.type) == "Tensor" for r in sch.returns))

@@ -54,7 +54,7 @@ SIGNATURES = {
     "meili_flash_attention": [_P, _P, _P, _P] + [_I32] * 8 + [_F32]
                              + [_I32] * 4 + [_P] * 4,
     "meili_flash_attention_bwd": [_P] * 10 + [_I32] * 8 + [_F32, _P],
-    "meili_decode_attention": [_P] * 8 + [_I32] * 9 + [_F32] + [_I32] * 2
+    "meili_decode_attention": [_P] * 9 + [_I32] * 9 + [_F32] + [_I32] * 2
                               + [_P],
     "meili_ssd_scan": [_P] * 8 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3 + [_P],
     "meili_ssd_scan_bwd": [_P] * 14 + [_I32] * 6 + [_I64] * 3 + [_I32] * 3

@@ -42,6 +42,11 @@
 //   arrive merges that eighth over the clusters, writes the output and sets
 //   the counter back to 0 (counters are zeroed once, when the wrapper first
 //   allocates them). A head with no valid key yields 0.
+// - Optional lse. Where the caller passes `lse`, the last merge also writes
+//   each head's log-sum-exp of its scaled logits, in natural log ((max +
+//   log2 sum) · ln 2: the merges run in base 2), 1e30 for a head with no
+//   valid key: a rank that holds one block of a cache split over ranks
+//   returns (out, lse), and the ranks' partials merge by log-sum-exp.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -57,6 +62,8 @@ constexpr int kCluster = 8;
 constexpr int kMaxKeysPerStage = 8;
 constexpr int kMaxOut = 2048;             // G·D
 constexpr float kNegInf = -1e30f;
+constexpr float kLseEmpty = 1e30f;        // lse of a row with no valid key
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr size_t kStaticSmemLimit = 48 * 1024;
 
 // N consecutive elements of a row, as f32: one 4-, 8- or 16-byte load.
@@ -232,6 +239,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                             const T* __restrict__ k, const T* __restrict__ v,
                             const int32_t* __restrict__ kv_len,
                             void* __restrict__ out,
+                            float* __restrict__ lse,
                             float* __restrict__ part_acc,
                             float* __restrict__ part_ml,
                             int32_t* __restrict__ counters, int S, int Hkv,
@@ -296,6 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         else
           static_cast<float*>(out)[out_base + i] = 0.f;
       }
+      if (lse != nullptr && tid < G) lse[out_base / D + tid] = kLseEmpty;
     }
     return;
   }
@@ -473,18 +482,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   cluster.sync();             // no block leaves while others read it
 
-  auto store = [&](int i, float a, float sum) {
+  auto store = [&](int i, float a, float sum, float mx) {
     const float r = a / (sum == 0.f ? 1.f : sum);
     if (q_bf16)
       static_cast<__nv_bfloat16*>(out)[out_base + i] = __float2bfloat16_rn(r);
     else
       static_cast<float*>(out)[out_base + i] = r;
+    if (lse != nullptr && i % D == 0)     // one thread a head
+      lse[out_base / D + i / D] =
+          sum == 0.f ? kLseEmpty : (mx + log2f(sum)) * kLn2;
   };
   if (nvc == 1) {
 #pragma unroll
     for (int u = 0; u < PER_T; ++u) {
       const int i = lo + tid + u * kThreads;
-      if (i < hi) store(i, res_a[u], res_l[u]);
+      if (i < hi) store(i, res_a[u], res_l[u], res_m[u]);
     }
     return;
   }
@@ -548,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         mx = mn;
       }
-      store(i, a, sum);
+      store(i, a, sum, mx);
     }
   }
   if (tid == 0) *counter = 0;
@@ -556,10 +568,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int D, typename T, int GM>
 int launch(const void* q, const void* k, const void* v,
-           const int32_t* kv_len, void* out, float* part_acc, float* part_ml,
-           int32_t* counters, int B, int S, int Hq, int Hkv, int nsplit,
-           int chunk, int kt, int stages, float scale, int q_bf16,
-           cudaStream_t stream) {
+           const int32_t* kv_len, void* out, float* lse, float* part_acc,
+           float* part_ml, int32_t* counters, int B, int S, int Hq, int Hkv,
+           int nsplit, int chunk, int kt, int stages, float scale,
+           int q_bf16, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const size_t smem =
       static_cast<size_t>(kWarps) * stages * kt * 2 * D * sizeof(T) +
@@ -586,21 +598,22 @@ int launch(const void* q, const void* k, const void* v,
   cfg.numAttrs = 1;
   return static_cast<int>(cudaLaunchKernelEx(
       &cfg, kernel, q, static_cast<const T*>(k), static_cast<const T*>(v),
-      kv_len, out, part_acc, part_ml, counters, S, Hkv, G, chunk, kt, stages,
+      kv_len, out, lse, part_acc, part_ml, counters, S, Hkv, G, chunk, kt,
+      stages,
       scale, q_bf16));
 }
 
 template <int D, typename T>
 int dispatch_g(int G, const void* q, const void* k, const void* v,
-               const int32_t* kv_len, void* out, float* part_acc,
-               float* part_ml, int32_t* counters, int B, int S, int Hq,
-               int Hkv, int nsplit, int chunk, int kt, int stages,
-               float scale, int q_bf16, cudaStream_t s) {
+               const int32_t* kv_len, void* out, float* lse,
+               float* part_acc, float* part_ml, int32_t* counters, int B,
+               int S, int Hq, int Hkv, int nsplit, int chunk, int kt,
+               int stages, float scale, int q_bf16, cudaStream_t s) {
 #define MEILI_DECODE_G(GM)                                                  \
   if (G <= GM)                                                              \
     return launch<D, T, GM>(                                                \
-        q, k, v, kv_len, out, part_acc, part_ml, counters, B, S, Hq, Hkv,   \
-        nsplit, chunk, kt, stages, scale, q_bf16, s);
+        q, k, v, kv_len, out, lse, part_acc, part_ml, counters, B, S, Hq,   \
+        Hkv, nsplit, chunk, kt, stages, scale, q_bf16, s);
   MEILI_DECODE_G(1)
   MEILI_DECODE_G(2)
   MEILI_DECODE_G(4)
@@ -614,27 +627,27 @@ int dispatch_g(int G, const void* q, const void* k, const void* v,
 
 template <typename T>
 int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
-               const int32_t* kv_len, void* out, float* part_acc,
-               float* part_ml, int32_t* counters, int B, int S, int Hq,
-               int Hkv, int nsplit, int chunk, int kt, int stages,
-               float scale, int q_bf16, cudaStream_t s) {
+               const int32_t* kv_len, void* out, float* lse,
+               float* part_acc, float* part_ml, int32_t* counters, int B,
+               int S, int Hq, int Hkv, int nsplit, int chunk, int kt,
+               int stages, float scale, int q_bf16, cudaStream_t s) {
   switch (D) {
     case 16:
-      return dispatch_g<16, T>(G, q, k, v, kv_len, out, part_acc, part_ml,
-                               counters, B, S, Hq, Hkv, nsplit, chunk, kt,
-                               stages, scale, q_bf16, s);
+      return dispatch_g<16, T>(G, q, k, v, kv_len, out, lse, part_acc,
+                               part_ml, counters, B, S, Hq, Hkv, nsplit,
+                               chunk, kt, stages, scale, q_bf16, s);
     case 64:
-      return dispatch_g<64, T>(G, q, k, v, kv_len, out, part_acc, part_ml,
-                               counters, B, S, Hq, Hkv, nsplit, chunk, kt,
-                               stages, scale, q_bf16, s);
+      return dispatch_g<64, T>(G, q, k, v, kv_len, out, lse, part_acc,
+                               part_ml, counters, B, S, Hq, Hkv, nsplit,
+                               chunk, kt, stages, scale, q_bf16, s);
     case 128:
-      return dispatch_g<128, T>(G, q, k, v, kv_len, out, part_acc, part_ml,
-                                counters, B, S, Hq, Hkv, nsplit, chunk, kt,
-                                stages, scale, q_bf16, s);
+      return dispatch_g<128, T>(G, q, k, v, kv_len, out, lse, part_acc,
+                                part_ml, counters, B, S, Hq, Hkv, nsplit,
+                                chunk, kt, stages, scale, q_bf16, s);
     case 256:
-      return dispatch_g<256, T>(G, q, k, v, kv_len, out, part_acc, part_ml,
-                                counters, B, S, Hq, Hkv, nsplit, chunk, kt,
-                                stages, scale, q_bf16, s);
+      return dispatch_g<256, T>(G, q, k, v, kv_len, out, lse, part_acc,
+                                part_ml, counters, B, S, Hq, Hkv, nsplit,
+                                chunk, kt, stages, scale, q_bf16, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -644,9 +657,9 @@ int dispatch_d(int D, int G, const void* q, const void* k, const void* v,
 
 extern "C" int meili_decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
-    void* out, void* part_acc, void* part_ml, void* counters, int B, int S,
-    int Hq, int Hkv, int D, int nsplit, int chunk, int kt, int stages,
-    float scale, int q_bf16, int kv_bf16, void* stream) {
+    void* out, void* lse, void* part_acc, void* part_ml, void* counters,
+    int B, int S, int Hq, int Hkv, int D, int nsplit, int chunk, int kt,
+    int stages, float scale, int q_bf16, int kv_bf16, void* stream) {
   if (B <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * D > kMaxOut || nsplit <= 0 ||
       nsplit % kCluster != 0 || chunk <= 0 || kt <= 0 ||
@@ -658,11 +671,13 @@ extern "C" int meili_decode_attention(
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int32_t* cnt = static_cast<int32_t*>(counters);
+  float* ls = static_cast<float*>(lse);
   const int G = Hq / Hkv;
   if (kv_bf16)
-    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, out, pa, pm, cnt, B,
-                                     S, Hq, Hkv, nsplit, chunk, kt, stages,
-                                     scale, q_bf16, s);
-  return dispatch_d<float>(D, G, q, k, v, len, out, pa, pm, cnt, B, S, Hq,
-                           Hkv, nsplit, chunk, kt, stages, scale, q_bf16, s);
+    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, out, ls, pa, pm,
+                                     cnt, B, S, Hq, Hkv, nsplit, chunk, kt,
+                                     stages, scale, q_bf16, s);
+  return dispatch_d<float>(D, G, q, k, v, len, out, ls, pa, pm, cnt, B, S,
+                           Hq, Hkv, nsplit, chunk, kt, stages, scale, q_bf16,
+                           s);
 }

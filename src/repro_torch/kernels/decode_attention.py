@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import NEG_INF, check_shapes
+from repro_torch.kernels.flash_attention import LSE_EMPTY, NEG_INF, check_shapes
 
 THREADS = 128
 WARPS = THREADS // 32
@@ -36,10 +36,12 @@ _counters: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 def decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, kv_len: torch.Tensor, *,
                            scale: Optional[float] = None,
-                           block_k: int = 512) -> torch.Tensor:
+                           block_k: int = 512, return_lse: bool = False):
     """Plain version: the Pallas kernel's recurrence — running (max, sum,
     acc) per (b, kv head, g) over key blocks of ``block_k``, probabilities
-    multiplied by the ``s < kv_len`` mask."""
+    multiplied by the ``s < kv_len`` mask. With ``return_lse`` returns
+    (out, lse (B, Hq) f32): each row's log-sum-exp of its scaled logits,
+    ``LSE_EMPTY`` where it has no valid key."""
     B, Hq, D = q.shape
     _, S, Hkv, _ = k.shape
     G = Hq // Hkv
@@ -65,7 +67,11 @@ def decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
         acc = acc * alpha[..., None] + torch.einsum("bhgs,bshd->bhgd", p, vb)
         m = m_new
     safe = torch.where(l == 0.0, 1.0, l)
-    return (acc / safe[..., None]).reshape(B, Hq, D).to(q.dtype)
+    out = (acc / safe[..., None]).reshape(B, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0.0, LSE_EMPTY, m + torch.log(safe))
+    return out, lse.reshape(B, Hq)
 
 
 def row_lanes(D: int) -> int:
@@ -196,9 +202,14 @@ def _arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor, *,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Launch the CUDA kernel; every tensor contiguous on one CUDA
-    device, kv_len int32, k and v of one dtype. One launch per call."""
+    device, kv_len int32, k and v of one dtype. One launch per call. With
+    ``return_lse`` the kernel's last merge also writes each row's
+    log-sum-exp (B, Hq) f32, in natural log (the kernel merges in base
+    2), ``LSE_EMPTY`` where the row has no valid key: returns (out,
+    lse)."""
     name = "decode_attention"
     dev = _build.require_cuda(name, q, k, v, kv_len)
     _build.require_dtype(name, "kv_len", kv_len, torch.int32)
@@ -227,8 +238,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: B*Hkv={B * Hkv} exceeds the grid")
     scale = float(scale) if scale is not None else D ** -0.5
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq), dtype=torch.float32, device=dev) \
+        if return_lse else None
+    done = (lambda: (out, lse)) if return_lse else (lambda: out)
     if B == 0 or S == 0:
-        return out.zero_()
+        out.zero_()
+        if lse is not None:
+            lse.fill_(LSE_EMPTY)
+        return done()
     nsplit, chunk = splits(S)
     kt, stages = stage_plan(chunk, D, k.element_size())
     ncl = nsplit // CLUSTER
@@ -241,16 +258,17 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         # cache, as a decode step at the cache's last position does (the
         # dry run decodes at pos = S - 1); the arrival counters are
         # allocated once per stream and kept, outside any step
-        _build.trace_launch(name, *cost(q, k, B * S))
-        return out
+        _build.trace_launch(name, *cost(q, k, B * S, return_lse))
+        return done()
     counters = _arrival_counters(dev, B * Hkv * CLUSTER)
     _build.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  kv_len.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+                  kv_len.data_ptr(), out.data_ptr(),
+                  0 if lse is None else lse.data_ptr(), part_acc.data_ptr(),
                   part_ml.data_ptr(), counters.data_ptr(), B, S, Hq, Hkv, D,
                   nsplit, chunk, kt, stages, scale,
                   int(q.dtype == torch.bfloat16),
                   int(k.dtype == torch.bfloat16))
-    return out
+    return done()
 
 
 def work(kv_len: torch.Tensor, S: int, Hq: int) -> int:
@@ -259,13 +277,16 @@ def work(kv_len: torch.Tensor, S: int, Hq: int) -> int:
     return int(kv_len.clamp(0, S).sum()) * Hq
 
 
-def cost(q: torch.Tensor, k: torch.Tensor, keys: int) -> Tuple[int, int]:
+def cost(q: torch.Tensor, k: torch.Tensor, keys: int,
+         return_lse: bool = False) -> Tuple[int, int]:
     """(flops, bytes) of one call over ``keys`` valid cache rows in all
     (``kv_len`` summed over the batch): 4·D flops per query head and key
     (``work``); q read and out written at q's item size, kv_len (B,)
-    int32, and each valid row's k and v once at the cache's item size."""
+    int32, each valid row's k and v once at the cache's item size, and
+    with ``return_lse`` the (B, Hq) f32 lse written."""
     B, Hq, D = q.shape
     Hkv = k.shape[2]
     nbytes = (2 * q.numel() * q.element_size() + 4 * B
-              + keys * Hkv * D * 2 * k.element_size())
+              + keys * Hkv * D * 2 * k.element_size()
+              + 4 * B * Hq * bool(return_lse))
     return keys * Hq * 4 * D, nbytes

@@ -18,9 +18,14 @@ On DTensors (a partitioned step) the attention and SSD ops run under
 ``local_map``: each rank calls the same op on its local block, whose
 placements come from the logical axes of the op's tensors under the
 installed rules (batch over data, heads over model where the rules put
-them there). A layout that splits a sequence, a head's features or a GQA
-group over ranks raises: sequence-parallel attention is not ported, and
-gathering the sequence silently would hide that.
+them there). Where the rules split a sequence over ranks, each rank runs
+the kernel on its block and the ranks exchange what the block needs:
+the keys and values for attention (``attention_seq``), each block's
+partial for decode over a sequence-sharded cache (``decode_over_blocks``,
+B6 returning its log-sum-exp), the state carried between blocks for the
+SSD (``ssd_seq``); no rank gathers the whole sequence of queries or
+states. A layout that splits a head's features or a GQA group over ranks
+raises.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.kernels import dfa_regex as _dfa
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.parallel import collectives as _coll
 from repro_torch.parallel import sharding as _sh
 
 build_aho_corasick = _ref.build_aho_corasick
@@ -92,7 +98,8 @@ def digest(words, key, *, impl: Optional[str] = None):
 def _specs(op: str, tensors, axes):
     """(mesh, specs) of the op's DTensor arguments from their logical
     ``axes`` under the installed rules; raises where the specs split a
-    sequence or a head's features over a mesh axis."""
+    head's features over a mesh axis (no rule table of the reference
+    does)."""
     rules = _sh.installed()[0]
     mesh = tensors[0].device_mesh
     if rules is None:
@@ -102,22 +109,35 @@ def _specs(op: str, tensors, axes):
              for t, ax in zip(tensors, axes)]
     for t, ax, spec in zip(tensors, axes, specs):
         for d, a in enumerate(ax):
-            if a in ("seq", "kv_seq", "head_dim") and \
-                    _sh.entry_axes(spec[d]):
+            if a == "head_dim" and _sh.entry_axes(spec[d]):
                 raise NotImplementedError(
                     f"{op}: the rules split dim {d} ({ax[d]}) of a tensor "
-                    f"of shape {tuple(t.shape)} over {spec[d]!r}; "
-                    f"sequence-parallel attention is not ported")
+                    f"of shape {tuple(t.shape)} over {spec[d]!r}; a head's "
+                    f"features split over ranks is not ported")
     return mesh, specs
 
 
-def _local(fn, mesh, specs, out_specs, *args):
+def _split(entry, mesh):
+    """The entry if it splits a dim over more than one rank, else None."""
+    if not _sh.entry_axes(entry):
+        return None
+    return entry if _sh.block_index(entry, mesh)[1] > 1 else None
+
+
+def _local(fn, mesh, specs, out_specs, *args, partial_axes=()):
     """``fn`` on each rank's local blocks of ``args`` (the DTensors
     redistributed to ``specs`` first, a no-op where they have them), its
-    outputs DTensors placed by ``out_specs``."""
+    outputs DTensors placed by ``out_specs``; an output numbered in
+    ``partial_axes`` (output index -> mesh axes) is a partial sum over
+    those axes."""
+    from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
     pl = [_sh.live_placements(s, mesh) for s in specs]
-    outs = [_sh.live_placements(s, mesh) for s in out_specs]
+    outs = [list(_sh.live_placements(s, mesh)) for s in out_specs]
+    for i, axes in dict(partial_axes).items():
+        for a in axes:
+            outs[i][mesh.mesh_dim_names.index(a)] = Partial()
+    outs = [tuple(o) for o in outs]
     return local_map(fn, out_placements=tuple(outs) if len(outs) > 1
                      else list(outs[0]),
                      in_placements=tuple(pl), device_mesh=mesh,
@@ -135,35 +155,166 @@ _Q_AXES = ("batch", "seq", "heads", "head_dim")
 _KV_AXES = ("batch", "seq", "kv_heads", "head_dim")
 
 
+def attention_seq(q, k, v, entry, mesh, *, causal: bool = True,
+                  window: Optional[int] = None, **kw):
+    """Sequence-parallel attention on one rank's blocks (plain tensors):
+    q (B, L, Hq, D) is the rank's block r of n of the queries, k and v
+    the rank's blocks of the keys, the sequence split over ``entry``'s
+    mesh axes. K and V are gathered over those axes
+    (``collectives.gather_dim``: its adjoint, a reduce-scatter, returns
+    dK and dV to their owners); causal attention keeps the keys [0,
+    (r+1)·L), under a window w from max(0, r·L - w + 1), and runs on the
+    rank's L queries, which B5 aligns to the end of the keys; bidirectional
+    attention keeps every key. dQ stays local."""
+    r, _ = _sh.block_index(entry, mesh)
+    L = q.shape[1]
+    k = _coll.gather_dim(k, entry, mesh, 1)
+    v = _coll.gather_dim(v, entry, mesh, 1)
+    if causal:
+        lo = 0 if window is None else max(0, r * L - window + 1)
+        k, v = k[:, lo:(r + 1) * L], v[:, lo:(r + 1) * L]
+    elif window is not None:
+        raise NotImplementedError("a bidirectional window over a split "
+                                  "sequence")
+    return _attention_local(q, k, v, causal=causal, window=window, **kw)
+
+
 def _attention_partitioned(q, k, v, **kw):
     mesh, (qs, ks, vs) = _specs("attention", (q, k, v),
                                 (_Q_AXES, _KV_AXES, _KV_AXES))
     _same_groups("attention", qs[2], ks[2])
-    return _local(lambda q, k, v: attention(q, k, v, **kw), mesh,
-                  (qs, ks, vs), (qs,), q, k, v)
+    seq, kv_seq = _split(qs[1], mesh), _split(ks[1], mesh)
+    if _sh.entry_axes(seq) != _sh.entry_axes(kv_seq):
+        raise NotImplementedError(
+            f"attention: queries over {qs[1]!r}, keys over {ks[1]!r}")
+    if seq is None:
+        fn = lambda q, k, v: attention(q, k, v, **kw)
+    else:
+        fn = lambda q, k, v: attention_seq(q, k, v, seq, mesh, **kw)
+    return _local(fn, mesh, (qs, ks, vs), (qs,), q, k, v)
 
 
-def _decode_partitioned(q, k, v, kv_len, **kw):
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, entry, mesh
+                   ) -> torch.Tensor:
+    """Decode attention from each rank's partial over its block of the
+    cache: out (B, Hq, D) and lse (B, Hq) (``LSE_EMPTY`` where the block
+    has no valid key) gathered over ``entry``'s axes and merged by
+    log-sum-exp, each rank's out weighed by exp(lse_r - max). Every rank
+    of those axes gets the same (B, Hq, D) in out's dtype."""
+    outs = _coll.gather_dim(out.float()[None], entry, mesh, 0)
+    lses = _coll.gather_dim(lse.float()[None], entry, mesh, 0)
+    lses = torch.where(lses >= _fa.LSE_EMPTY, _fa.NEG_INF, lses)
+    w = torch.exp(lses - lses.amax(0))
+    merged = (w[..., None] * outs).sum(0) / w.sum(0)[..., None]
+    return merged.to(out.dtype)
+
+
+def decode_over_blocks(partial, q, k, v, lo, kv_len, entry, mesh
+                       ) -> torch.Tensor:
+    """One rank's decode over its block of a cache whose keys ``entry``
+    splits: ``partial(q, k, v, lo, kv_len, s0)`` gives (out, lse) over the
+    block, s0 its first key's position; the ranks' partials merged
+    (``merge_partials``)."""
+    s0 = _sh.block_index(entry, mesh)[0] * k.shape[1]
+    out, lse = partial(q, k, v, lo, kv_len, s0)
+    return merge_partials(out, lse, entry, mesh)
+
+
+def decode_partitioned(partial, q, k, v, lo, kv_len, whole):
+    """Decode over DTensors q (B, Hq, D) and a cache k, v (B, S, Hkv, D),
+    ``lo`` and ``kv_len`` plain (B,) tensors (``lo`` may be None): the
+    rows of each rank's block of the batch; where the rules split the
+    cache's keys, ``decode_over_blocks`` with ``partial``, else ``whole(q,
+    k, v, lo, kv_len)`` on the block."""
     kv_axes = ("batch", "kv_seq", "kv_heads", "head_dim")
     mesh, (qs, ks, vs) = _specs("decode_attention", (q, k, v),
                                 (("batch", "heads", "head_dim"), kv_axes,
                                  kv_axes))
     _same_groups("decode_attention", qs[1], ks[2])
-    lens = _sh.block(kv_len, _sh.PartitionSpec(qs[0]), mesh)
-    return _local(lambda q, k, v: decode_attention(q, k, v, lens, **kw),
-                  mesh, (qs, ks, vs), (qs,), q, k, v)
+    rows = lambda t: None if t is None else \
+        _sh.block(t, _sh.PartitionSpec(qs[0]), mesh)
+    lo, lens = rows(lo), rows(kv_len)
+    seq = _split(ks[1], mesh)
+    if seq is None:
+        fn = lambda q, k, v: whole(q, k, v, lo, lens)
+    else:
+        fn = lambda q, k, v: decode_over_blocks(partial, q, k, v, lo, lens,
+                                                seq, mesh)
+    return _local(fn, mesh, (qs, ks, vs), (qs,), q, k, v)
+
+
+def b6_partial(**kw):
+    """The partial of ``decode_over_blocks`` that B6 computes: (out, lse)
+    over a block of the cache whose first key is at s0, with the block's
+    valid length clamp(kv_len - s0, 0, S_b) (``lo`` is 0)."""
+    def partial(q, k, v, lo, kv_len, s0):
+        mine = (kv_len - s0).clamp(0, k.shape[1]).to(torch.int32)
+        return decode_attention(q, k, v, mine, return_lse=True, **kw)
+    return partial
+
+
+def _decode_partitioned(q, k, v, kv_len, **kw):
+    return decode_partitioned(
+        b6_partial(**kw), q, k, v, None, kv_len,
+        lambda q, k, v, lo, lens: decode_attention(q, k, v, lens, **kw))
+
+
+def ssd_seq(x, a, b, c, entry, mesh, *, chunk: int = 128,
+            impl: Optional[str] = None, partial_state: bool = False):
+    """The SSD on one rank's block r of n of a sequence split over
+    ``entry``'s axes (plain tensors). B7 runs from a zero state on the
+    block, giving (y_r, h_r); the block's decay A_r = exp(sum log a)
+    (B, H) f32 and h_r are gathered over the axes; the state entering
+    the block, h_in(r) = A_{r-1} h_in(r-1) + h_{r-1} (h_in(0) = 0), adds
+    exp(cl_t) (c_t · h_in(r)) to y_t, cl_t the cumulative log decay inside
+    the block (<= 0: exp cannot overflow). The gradients reach the earlier
+    blocks' h and A through the gather's adjoint. Returns (y, h_final):
+    the whole sequence's final state, or with ``partial_state`` this
+    rank's term of it, (A_{r+1} ··· A_{n-1}) h_r, whose sum over the
+    ranks is the final state (a partial sum, as its gradient wants)."""
+    r, n = _sh.block_index(entry, mesh)
+    y, h = _ssd_local(x, a, b, c, chunk, impl)
+    cl = torch.cumsum(torch.log(a.float()), dim=1)           # (B, L, H)
+    A = torch.exp(cl[:, -1])                                 # (B, H)
+    hs = _coll.gather_dim(h[None], entry, mesh, 0)           # (n, B, H, N, P)
+    As = _coll.gather_dim(A[None], entry, mesh, 0)[..., None, None]
+    # every rank runs the same ops on every block's (h, A), selecting by
+    # its index: the gathers' gradients (reduce-scatters) then run on
+    # every rank, in one order, whichever blocks a rank's output needs
+    pick = lambda cond, new, old: new * float(cond) + old * float(not cond)
+    h_in = hs[0] * 0.0
+    for j in range(n - 1):
+        h_in = pick(j < r, As[j] * h_in + hs[j], h_in)
+    carried = torch.einsum("bshn,bhnp->bshp", c.float(), h_in)
+    y = (y.float() + torch.exp(cl)[..., None] * carried).to(y.dtype)
+    if partial_state:
+        later = torch.ones_like(As[0])
+        for j in range(1, n):
+            later = pick(j > r, later * As[j], later)
+        return y, later * h
+    h_fin = h_in
+    for j in range(n):
+        h_fin = pick(j >= r, As[j] * h_fin + hs[j], h_fin)
+    return y, h_fin
 
 
 def _ssd_partitioned(x, a, b, c, **kw):
     """The scan's heads follow the inner dim's rule (``ff``), as the
     reference's reshape of the pinned (B, S, d_inner) activations gives
-    them."""
+    them. Where the rules split the sequence, ``ssd_seq``: its final
+    state is a partial sum over the sequence's axes."""
     four = ("batch", "seq", "ff", None)
     mesh, (xs, as_, bs, cs) = _specs(
         "ssd", (x, a, b, c), (four, ("batch", "seq", "ff"), four, four))
     hs = _sh.PartitionSpec(xs[0], xs[2], None, None)
-    return _local(lambda x, a, b, c: ssd(x, a, b, c, **kw), mesh,
-                  (xs, as_, bs, cs), (xs, hs), x, a, b, c)
+    seq = _split(xs[1], mesh)
+    if seq is None:
+        return _local(lambda x, a, b, c: ssd(x, a, b, c, **kw), mesh,
+                      (xs, as_, bs, cs), (xs, hs), x, a, b, c)
+    return _local(lambda x, a, b, c: ssd_seq(x, a, b, c, seq, mesh,
+                                             partial_state=True, **kw),
+                  mesh, (xs, as_, bs, cs), (xs, hs), x, a, b, c,
+                  partial_axes={1: _sh.entry_axes(seq)})
 
 
 # ---------------------------------------------------------------------------
@@ -214,12 +365,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     gradient of q, k or v, the call goes through ``_Attention``: B5 and
     its backward kernel on the card, the plain pair on the CPU or with
     ``impl="torch"``. On DTensors, each rank's local block (module
-    docstring)."""
+    docstring); on a rank's plain block of installed tokens whose
+    sequence is split over ranks, ``attention_seq``."""
     _check_impl(impl)
+    kw = dict(causal=causal, window=window, scale=scale, impl=impl,
+              block_k=block_k)
     if _sh.is_dtensor(q):
-        return _attention_partitioned(q, k, v, causal=causal, window=window,
-                                      scale=scale, impl=impl,
-                                      block_k=block_k)
+        return _attention_partitioned(q, k, v, **kw)
+    entry = _sh.token_seq_entry()
+    if entry is not None:
+        return attention_seq(q, k, v, entry, _sh.installed()[1], **kw)
+    return _attention_local(q, k, v, **kw)
+
+
+def _attention_local(q, k, v, *, causal=True, window=None, scale=None,
+                     impl=None, block_k=256):
     scale_v = float(scale) if scale is not None else q.shape[-1] ** -0.5
     plain = _plain(impl, q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -237,22 +397,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, scale: Optional[float] = None,
-                     impl: Optional[str] = None,
-                     block_k: int = 512) -> torch.Tensor:
+                     impl: Optional[str] = None, block_k: int = 512,
+                     return_lse: bool = False):
     """q: (B, Hq, D); k, v: (B, S, Hkv, D); kv_len: (B,) int32.
-    ``block_k`` is the plain version's key block. On DTensors, each
-    rank's local block, with its rows of ``kv_len`` (a plain tensor)."""
+    ``block_k`` is the plain version's key block. With ``return_lse``
+    also each row's log-sum-exp of its scaled logits (B, Hq) f32,
+    ``LSE_EMPTY`` where it has no valid key. On DTensors, each rank's
+    local block, with its rows of ``kv_len`` (a plain tensor); where the
+    rules split the cache's keys over ranks, each rank's partial over its
+    block, merged (``merge_partials``)."""
     _check_impl(impl)
     if _sh.is_dtensor(q):
+        if return_lse:
+            raise NotImplementedError("decode_attention's lse on DTensors")
         return _decode_partitioned(q, k, v, kv_len, scale=scale, impl=impl,
                                    block_k=block_k)
     scale_v = float(scale) if scale is not None else q.shape[-1] ** -0.5
     if _plain(impl, q):
         return _da.decode_attention_torch(q, k, v, kv_len, scale=scale_v,
-                                          block_k=block_k)
+                                          block_k=block_k,
+                                          return_lse=return_lse)
     return _da.decode_attention_cuda(q.contiguous(), k.contiguous(),
                                      v.contiguous(), kv_len.contiguous(),
-                                     scale=scale_v)
+                                     scale=scale_v, return_lse=return_lse)
 
 
 # ---------------------------------------------------------------------------
@@ -305,10 +472,20 @@ def ssd(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     (y (B, S, H, P), h_final (B, H, N, P) f32). Where autograd needs a
     gradient of x, a, b or c, the call goes through ``_SSD``: B7 and its
     backward kernel on the card, the plain pair on the CPU or with
-    ``impl="torch"``. On DTensors, each rank's local block."""
+    ``impl="torch"``. On DTensors, each rank's local block; on a rank's
+    plain block of installed tokens whose sequence is split over ranks,
+    ``ssd_seq`` (h_final the whole sequence's, on every rank)."""
     _check_impl(impl)
     if _sh.is_dtensor(x):
         return _ssd_partitioned(x, a, b, c, chunk=chunk, impl=impl)
+    entry = _sh.token_seq_entry()
+    if entry is not None:
+        return ssd_seq(x, a, b, c, entry, _sh.installed()[1], chunk=chunk,
+                       impl=impl)
+    return _ssd_local(x, a, b, c, chunk, impl)
+
+
+def _ssd_local(x, a, b, c, chunk, impl):
     plain = _plain(impl, x)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, a, b, c)):
         return _SSD.apply(x, a, b, c, chunk, plain)

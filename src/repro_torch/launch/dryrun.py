@@ -11,18 +11,20 @@ Mesh kinds:
     whole step's.
   * ``single`` / ``multi``: the reference's (16, 16) and (2, 16, 16)
     meshes of H100s. A cell whose layout the port partitions (every
-    family, where the rules keep whole sequences on a rank:
-    ``partition_reason``) is traced as the partitioned step over a fake
-    process group of 256 or 512 ranks (``mesh.fake_mesh``): DTensors on
+    cell of every family: ``partition_reason``) is traced as the
+    partitioned step over a fake process group of 256 or 512 ranks
+    (``mesh.fake_mesh``): DTensors on
     the meta device, placed by the resolver, the counter seeing rank 0's
     local ops. Its record holds that device's FLOPs and bytes, its
     predicted peak memory against the card's, the collectives the step
     issues (``collectives_full_step``: ``roofline.collective_bytes`` by
     kind and by mesh axis) and the roofline with its collective term
-    (each axis's bytes over its link rate, ``hw.axis_link_bw``). The
-    other cells stay ``"analytic": true``, with a ``reason`` naming what
-    they wait for: only what the resolver's specs give per device is
-    recorded.
+    (each axis's bytes over its link rate, ``hw.axis_link_bw``); where
+    the rules split a sequence, the K/V gathers of sequence-parallel
+    attention, the decode partials' gathers and the SSD's state exchange
+    among them. A cell the port could not partition would stay
+    ``"analytic": true``, with a ``reason``: only what the resolver's
+    specs give per device would be recorded.
 
 Every kind records the parameter counts, tokens per step, the
 accumulation count and the per-device bytes of the step's arguments
@@ -65,8 +67,6 @@ from repro_torch.launch.mesh import (fake_mesh, make_host_mesh,
 from repro_torch.launch.steps import (choose_microbatch, make_prefill_step,
                                       make_serve_step, make_train_step,
                                       partitioned, place_batch, place_cache)
-from repro_torch.models import lm as lm_mod
-from repro_torch.models.encdec import ENC_LEN_DECODE
 from repro_torch.models.registry import Model, build, cache_leaves
 from repro_torch.parallel.sharding import (entry_axes, mesh_axes, mesh_size,
                                            rules_for, spec_for, tree_specs)
@@ -132,37 +132,22 @@ def step_call(model: Model, shape: ShapeConfig, dtype=torch.bfloat16,
 def partition_reason(model: Model, shape: ShapeConfig, mesh, rules
                      ) -> Optional[str]:
     """Why the port cannot trace the partitioned step of this cell, or
-    None where it can: a layout whose rules split a sequence (attention's,
-    or a decode cache's) over a mesh axis, which waits for
-    sequence-parallel attention (A34). The encoder-decoder's sequences
-    are its halves of seq_len (frames and tokens), its decode caches the
-    self cache and the ENC_LEN_DECODE-row cross cache."""
+    None where it can: a layout whose rules split a head's features over
+    a mesh axis (no rule table of the reference does; ``kernels/ops.py``
+    refuses it). A sequence or a decode cache split over ranks runs
+    sequence-parallel attention and decode (``ops.attention_seq``,
+    ``ops.decode_over_blocks``)."""
     cfg = model.cfg
-    encdec = cfg.family == "encdec"
-    attn = encdec or any(s.mixer != "mamba"
-                         for seg in lm_mod.build_schedule(cfg)
-                         for s in seg.body)
-    if shape.kind == "decode":
-        if not attn:
-            return None
-        depths = (shape.seq_len, ENC_LEN_DECODE) if encdec else \
-            (shape.seq_len,)
-        for depth in depths:
-            kv = spec_for(lm_mod.KV_CACHE_AXES,
-                          (1, shape.global_batch, depth, cfg.n_kv_heads,
-                           cfg.head_dim), rules, mesh)
-            if entry_axes(kv[2]):
-                return (f"decode over a sequence-sharded cache (kv_seq over "
-                        f"{kv[2]!r}) is not ported (A34)")
+    if not cfg.n_heads:
         return None
     B = shape.global_batch
     if shape.kind == "train":
         B //= choose_microbatch(cfg, B, mesh, rules)
-    S = shape.seq_len // 2 if encdec else shape.seq_len
-    act = spec_for(("batch", "seq", None), (B, S, cfg.d_model), rules, mesh)
-    if entry_axes(act[1]):
-        return (f"sequence-parallel attention (seq over {act[1]!r}) is not "
-                f"ported (A34)")
+    q = spec_for(("batch", "seq", "heads", "head_dim"),
+                 (B, shape.seq_len, cfg.n_heads, cfg.head_dim), rules, mesh)
+    if entry_axes(q[3]):
+        return (f"attention with a head's features split over {q[3]!r} is "
+                f"not ported")
     return None
 
 

@@ -14,9 +14,11 @@ from typing import Mapping, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import LSE_EMPTY
 from repro_torch.models.layers import apply_rope, dense_init, weight
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import (constrain_act, is_dtensor,
-                                           local_product, whole_dims)
+                                           local_product)
 
 Tree = dict
 
@@ -101,10 +103,11 @@ def attn_decode(p: Mapping, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
     while the valid length stays ``pos + 1``. With ``cross`` the cache
     holds the encoder's keys and values: it is read, not written, every
     row attends over all S of them, and the query gets no RoPE. Returns y
-    (B, D)."""
+    (B, D). A cache whose keys the rules split over ranks is written by
+    the rank whose block holds the position, and read by each rank over
+    its block, the ranks' partials merged (``ops.decode_partitioned``)."""
     B = x.shape[0]
     S = cache_k.shape[1]
-    whole_dims(cache_k, (1,), "decode over a sequence-sharded cache")
     q = _into_heads("bd,dhe->bhe", x, weight(p["q"]))
     if "b" in p["q"]:
         q = q + p["q"]["b"]
@@ -120,32 +123,65 @@ def attn_decode(p: Mapping, x: torch.Tensor, cfg, *, cache_k: torch.Tensor,
         q = apply_rope(q[:, None], posv, cfg.rope_theta)[:, 0]
         k_new = apply_rope(k_new[:, None], posv, cfg.rope_theta)[:, 0]
         at = min(pos, S - 1)
-        cache_k[:, at] = k_new.to(cache_k.dtype)
-        cache_v[:, at] = v_new.to(cache_v.dtype)
+        write_row(cache_k, at, k_new)
+        write_row(cache_v, at, v_new)
         kv_len = torch.full((B,), pos + 1, dtype=torch.int32,
                             device=x.device)
     if window is not None:
         lo = torch.clamp(kv_len - window, min=0)
-        out = _window_decode(q, cache_k, cache_v, lo, kv_len)
+        if is_dtensor(q):
+            out = ops.decode_partitioned(
+                window_partial, q, cache_k, cache_v, lo, kv_len,
+                lambda q, k, v, lo, n: window_partial(q, k, v, lo, n, 0)[0])
+        else:
+            out = window_partial(q, cache_k, cache_v, lo, kv_len, 0)[0]
     else:
         out = ops.decode_attention(q, cache_k, cache_v, kv_len, impl=impl)
     return _from_heads("bhe,hed->bd", out, weight(p["o"]))
 
 
-def _window_decode(q: torch.Tensor, cache_k: torch.Tensor,
+def write_row(cache: torch.Tensor, at: int, row: torch.Tensor) -> None:
+    """cache[:, at] = row, in place: cache (B, S, Hkv, dh), row (B, Hkv,
+    dh). A DTensor cache whose keys the rules split over ranks is written
+    on the rank whose block holds ``at`` alone, the row laid out as the
+    cache's batch and heads first."""
+    if not is_dtensor(cache) or sh.split_entry(cache, 1) is None:
+        cache[:, at] = row.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache.device_mesh
+    target = [Shard(q.dim - (q.dim > 1)) if isinstance(q, Shard) and q.dim
+              != 1 else Replicate() for q in cache.placements]
+    local = row.redistribute(mesh, target).to_local()
+    r, _ = sh.block_index(sh.split_entry(cache, 1), mesh)
+    block = cache.to_local()
+    Sb = block.shape[1]
+    if r * Sb <= at < (r + 1) * Sb:
+        block[:, at - r * Sb] = local.to(block.dtype)
+
+
+def window_partial(q: torch.Tensor, cache_k: torch.Tensor,
                    cache_v: torch.Tensor, lo: torch.Tensor,
-                   kv_len: torch.Tensor) -> torch.Tensor:
-    """Decode attention over [lo, kv_len): a masked softmax over the whole
-    cache in plain PyTorch, as the reference computes it outside any
-    kernel (O(S) memory — decode is cheap)."""
+                   kv_len: torch.Tensor, s0: int):
+    """Decode attention over the keys [lo, kv_len) of a block of the cache
+    whose first key is at position s0: a masked softmax over the block in
+    plain PyTorch, as the reference computes it outside any kernel (O(S)
+    memory — decode is cheap). Returns (out (B, Hq, dh) in q's dtype, lse
+    (B, Hq) f32, ``LSE_EMPTY`` where the block holds no key of the
+    range)."""
     B, S, Hkv, dh = cache_k.shape
     Hq = q.shape[1]
     G = Hq // Hkv
-    s = torch.arange(S, device=q.device)[None, :]
+    s = s0 + torch.arange(S, device=q.device)[None, :]
     valid = (s >= lo[:, None]) & (s < kv_len[:, None])
     qf = q.float().reshape(B, Hkv, G, dh) * dh ** -0.5
     logits = torch.einsum("bhgd,bshd->bhgs", qf, cache_k.float())
     logits = torch.where(valid[:, None, None], logits, -1e30)
-    pr = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", pr, cache_v.float())
-    return out.reshape(B, Hq, dh).to(q.dtype)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m) * valid[:, None, None]
+    l = p.sum(-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float()) / torch.where(
+        l == 0, 1.0, l)[..., None]
+    lse = torch.where(l == 0, LSE_EMPTY, m[..., 0] + torch.log(
+        torch.where(l == 0, 1.0, l)))
+    return out.reshape(B, Hq, dh).to(q.dtype), lse.reshape(B, Hq)

@@ -36,6 +36,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, embed, embed_init,
                                        make_norm, mlp, mlp_init, pad_vocab,
                                        to_module)
+from repro_torch.parallel import collectives
 from repro_torch.parallel import sharding
 
 Tree = Dict
@@ -215,7 +216,6 @@ def _apply_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
 
 def _embed_inputs(params: LM, tokens: Optional[torch.Tensor],
                   extra_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    sharding.require_whole_sequences()     # positions and attention
     parts = []
     if extra_embeds is not None:
         parts.append(extra_embeds)
@@ -229,9 +229,14 @@ def _embed_inputs(params: LM, tokens: Optional[torch.Tensor],
 
 
 def positions_of(x: torch.Tensor) -> torch.Tensor:
-    """(B, S) int32 positions 0..S-1 of a (B, S, D) activation."""
+    """(B, S) int32 positions 0..S-1 of a (B, S, D) activation: a
+    DTensor's global ones; for a rank's plain block of installed tokens
+    whose sequence is split over ranks, its block's global positions."""
     B, S = x.shape[:2]
-    return torch.arange(S, dtype=torch.int32,
+    entry = sharding.token_seq_entry()
+    start = 0 if entry is None else \
+        sharding.block_index(entry, sharding.installed()[1])[0] * S
+    return torch.arange(start, start + S, dtype=torch.int32,
                         device=x.device)[None].expand(B, S)
 
 
@@ -325,13 +330,18 @@ def prefill_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
     ``c`` (a mamba leaf is made at repetition 0, in the first state's
     dtype)."""
     x, kv = _apply_layer(cfg, layer, x, positions, impl, collect_kv=True)
-    S = x.shape[1]
     if _is_attn(layer.spec):
-        c["k"][rep, :, :S] = kv[0].to(cache_dtype)
-        c["v"][rep, :, :S] = kv[1].to(cache_dtype)
+        _write_prefix(c["k"], rep, kv[0].to(cache_dtype))
+        _write_prefix(c["v"], rep, kv[1].to(cache_dtype))
         return x
     for k, t in kv.items():
         t = t if t.dtype == torch.float32 else t.to(cache_dtype)
+        if sharding.is_dtensor(t) and any(q.is_partial()
+                                          for q in t.placements):
+            # the SSD's state over a split sequence: a partial sum
+            from torch.distributed.tensor import Replicate
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if q.is_partial() else q for q in t.placements])
         if rep == 0 and sharding.is_dtensor(t):
             c[k] = _cache_zeros(t.device, t.device_mesh)(
                 (count,) + tuple(t.shape), MAMBA_CACHE_AXES[k], t.dtype)
@@ -339,6 +349,44 @@ def prefill_layer(cfg, layer: DecoderLayer, x: torch.Tensor,
             c[k] = t.new_empty((count,) + t.shape)
         c[k][rep] = t
     return x
+
+
+def _write_prefix(leaf: torch.Tensor, rep: int, kv: torch.Tensor) -> None:
+    """``leaf[rep, :, :S] = kv``: a prefill's keys or values kv (B, S,
+    Hkv, dh) into repetition ``rep`` of a stacked cache leaf (count, B,
+    max_len, Hkv, dh). Where the rules split the cache's keys or the
+    prefill's sequence over ranks, each rank writes the rows of its block
+    of the cache: its own block of kv where the two blocks coincide
+    (max_len == S), else from kv gathered over the sequence's axes. A
+    rank's plain block of installed tokens whose sequence is split writes
+    the gathered kv into its whole-depth cache."""
+    if not (sharding.is_dtensor(leaf) and (
+            sharding.split_entry(leaf, 2) or sharding.split_entry(kv, 1))):
+        entry = sharding.token_seq_entry()
+        if entry is not None and not sharding.is_dtensor(kv):
+            kv = collectives.gather_dim(kv, entry, sharding.installed()[1],
+                                        1)
+        leaf[rep, :, :kv.shape[1]] = kv
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = leaf.device_mesh
+    target = [Shard(1) if q_kv == Shard(1) else
+              Shard(q.dim - 1) if isinstance(q, Shard) and q.dim != 2 else
+              Replicate() for q, q_kv in zip(leaf.placements, kv.placements)]
+    kv = kv.redistribute(mesh, target)
+    src, block = kv.to_local(), leaf.to_local()[rep]
+    kv_entry, leaf_entry = (sharding.split_entry(kv, 1),
+                            sharding.split_entry(leaf, 2))
+    Mb = block.shape[1]
+    if kv_entry == leaf_entry and src.shape[1] == Mb:
+        block.copy_(src)
+        return
+    if kv_entry is not None:
+        src = collectives.gather_dim(src, kv_entry, mesh, 1)
+    r = sharding.block_index(leaf_entry, mesh)[0] if leaf_entry else 0
+    lo, hi = r * Mb, min((r + 1) * Mb, src.shape[1])
+    if hi > lo:
+        block[:, :hi - lo] = src[:, lo:hi]
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +519,9 @@ def prefill(cfg, params: LM, tokens: Optional[torch.Tensor],
     and the conv tails of an f32 model, stay f32."""
     x = _embed_inputs(params, tokens, extra_embeds)
     B, S, _ = x.shape
+    entry = sharding.token_seq_entry()
+    if entry is not None:                 # the rank's block of the tokens
+        S *= sharding.block_index(entry, sharding.installed()[1])[1]
     max_len = max_len or S
     positions = positions_of(x)
     schedule = build_schedule(cfg)
@@ -484,4 +535,4 @@ def prefill(cfg, params: LM, tokens: Optional[torch.Tensor],
                           schedule[si].count, cache_dtype)
     _, norm_apply = make_norm(cfg)
     x = norm_apply(params.final_norm, x)
-    return logits(cfg, params, x[:, -1]), cache
+    return logits(cfg, params, collectives.seq_tail(x, 1)[:, 0]), cache

@@ -21,7 +21,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (_normal, dense_init, project_in,
                                        project_out, rmsnorm, rmsnorm_init)
-from repro_torch.parallel.sharding import constrain_act, is_dtensor, whole_dims
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import constrain_act, is_dtensor
 
 Tree = Dict
 
@@ -50,37 +52,67 @@ def mamba_init(gen: torch.Generator, cfg, dtype, device) -> Tree:
     }
 
 
+def _conv_rows(pad: torch.Tensor, w: torch.Tensor, S: int) -> torch.Tensor:
+    """The last S outputs of a depthwise conv over ``pad`` (B, K-1+S,
+    Ch): f32 sums in the reference's order, in pad's dtype."""
+    out = torch.zeros((pad.shape[0], S, pad.shape[2]), dtype=torch.float32,
+                      device=pad.device)
+    for i in range(w.shape[0]):
+        out = out + pad[:, i:i + S].float() * w[i].float()
+    return out.to(pad.dtype)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv. x: (B, S, Ch), w: (K, Ch); f32 sums in the
     reference's order, cast back to x's dtype. A DTensor x is convolved on
     each rank's block: its batch and channels as x lays them out (w's
-    channels alike), its sequence whole."""
+    channels alike), its sequence as x lays it out (``conv_seq`` where
+    ranks split it, as on a rank's plain block of installed tokens whose
+    sequence is split)."""
     if is_dtensor(x):
         return _conv_partitioned(x, w)
+    entry = sh.token_seq_entry()
+    if entry is not None:
+        return conv_seq(x, w, entry, sh.installed()[1])
+    K = w.shape[0]
+    return _conv_rows(F.pad(x, (0, 0, K - 1, 0)), w, x.shape[1])
+
+
+def conv_seq(x: torch.Tensor, w: torch.Tensor, entry, mesh) -> torch.Tensor:
+    """The causal conv of one rank's block r of a sequence split over
+    ``entry``'s axes (plain tensors): every rank's last K-1 rows are
+    gathered over the axes (the gather's adjoint returns their gradient),
+    and the block is convolved after rank r-1's (zeros on rank 0)."""
     K, S = w.shape[0], x.shape[1]
-    pad = F.pad(x, (0, 0, K - 1, 0))
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for i in range(K):
-        out = out + pad[:, i:i + S].float() * w[i].float()
-    return out.to(x.dtype)
+    if S < K - 1:
+        raise ValueError(f"a block of {S} rows is shorter than the conv's "
+                         f"{K - 1}-row halo")
+    r, n = sh.block_index(entry, mesh)
+    tails = coll.gather_dim(x[None, :, S - (K - 1):], entry, mesh, 0)
+    # rank 0 takes its zeros from the gathered tails too, so every rank's
+    # gradient runs the gather's reduce-scatter
+    prev = tails[(r - 1) % n] * float(r > 0)
+    return _conv_rows(torch.cat([prev, x], dim=1), w, S)
 
 
 def _conv_partitioned(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``_causal_conv`` under ``local_map``. w's gradient on a rank is
-    its block's share of the batch: partial over the batch's axes."""
+    its block's share of the batch and the sequence: partial over their
+    axes."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    whole_dims(x, (1,), "a causal conv over a sequence split across ranks")
     x_pl = tuple(q if isinstance(q, Shard) else Replicate()
                  for q in x.placements)
     w_pl = tuple(Shard(1) if q == Shard(2) else Replicate() for q in x_pl)
-    w_grad = tuple(Partial() if q == Shard(0) else p
+    w_grad = tuple(Partial() if q in (Shard(0), Shard(1)) else p
                    for q, p in zip(x_pl, w_pl))
-    return local_map(_causal_conv, out_placements=list(x_pl),
+    mesh, seq = x.device_mesh, sh.split_entry(x, 1)
+    fn = _causal_conv if seq is None else \
+        (lambda x, w: conv_seq(x, w, seq, mesh))
+    return local_map(fn, out_placements=list(x_pl),
                      in_placements=(x_pl, w_pl),
                      in_grad_placements=(x_pl, w_grad),
-                     device_mesh=x.device_mesh,
-                     redistribute_inputs=True)(x, w)
+                     device_mesh=mesh, redistribute_inputs=True)(x, w)
 
 
 def _gates(p: Mapping, xw: torch.Tensor) -> Tuple[torch.Tensor,
@@ -132,8 +164,8 @@ def mamba_apply(p: Mapping, xw: torch.Tensor, cfg, impl: Optional[str] = None,
                         ("batch", "seq", None))
     if return_state:
         K = cfg.conv_kernel
-        return out, {"conv_x": xi_pre[:, S - (K - 1):],
-                     "conv_BC": bc_pre[:, S - (K - 1):], "h": h_fin}
+        return out, {"conv_x": coll.seq_tail(xi_pre, K - 1),
+                     "conv_BC": coll.seq_tail(bc_pre, K - 1), "h": h_fin}
     return out
 
 

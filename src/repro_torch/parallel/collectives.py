@@ -49,6 +49,7 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.sharding import PartitionSpec, entry_axes
 
 _STATS: Dict[str, int] = {}
@@ -256,11 +257,52 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return _AllGather.apply(x, mesh.get_group(axis), n, dim)
 
 
+def gather_dim(x: torch.Tensor, entry, mesh, dim: int) -> torch.Tensor:
+    """``dim`` of x whole from each rank's block of it, the dim laid out
+    by one spec entry: gathered over its last axis first, whose blocks lie
+    next to each other (``sharding.block_index``'s order)."""
+    for axis in reversed(entry_axes(entry)):
+        x = all_gather(x, mesh, axis, dim)
+    return x
+
+
 def gather_block(x: torch.Tensor, spec: PartitionSpec, mesh) -> torch.Tensor:
     """The whole tensor from each rank's block of it (``sharding.block``):
-    each dim split over a tuple of axes is gathered over its last axis
-    first, whose blocks lie next to each other."""
+    each dim split over a tuple of axes gathered as ``gather_dim``."""
     for dim, entry in enumerate(spec):
-        for axis in reversed(entry_axes(entry)):
-            x = all_gather(x, mesh, axis, dim)
+        x = gather_dim(x, entry, mesh, dim)
     return x
+
+
+def _last_block_rows(x: torch.Tensor, rows: int, entry, mesh
+                     ) -> torch.Tensor:
+    """The last ``rows`` rows along dim 1 of a sequence split over
+    ``entry``'s axes, from each rank's block x: every rank's last rows
+    gathered, the last rank's kept, on every rank."""
+    tails = gather_dim(x[None, :, x.shape[1] - rows:], entry, mesh, 0)
+    return tails[-1]
+
+
+def seq_tail(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x[:, S - rows:]`` of activations x (B, S, ...) (a negative
+    ``S - rows`` counts from the end, as a slice does). Where x's
+    sequence is split over ranks (a DTensor's, or the installed tokens'
+    on a live mesh) the rows live on the last rank: each rank's last rows
+    are gathered and the last rank's kept, placed whole over the
+    sequence's axes; the sequence itself is not gathered."""
+    if sh.is_dtensor(x):
+        entry = sh.split_entry(x, 1)
+        if entry is None:
+            return x[:, x.shape[1] - rows:]
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        mesh = x.device_mesh
+        out_pl = [Replicate() if q == Shard(1) else q for q in x.placements]
+        return local_map(
+            lambda t: _last_block_rows(t, rows, entry, mesh),
+            out_placements=out_pl, in_placements=(tuple(x.placements),),
+            device_mesh=mesh)(x)
+    entry = sh.token_seq_entry()
+    if entry is None:
+        return x[:, x.shape[1] - rows:]
+    return _last_block_rows(x, rows, entry, sh.installed()[1])

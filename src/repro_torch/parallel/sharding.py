@@ -23,8 +23,10 @@ process group is installed (``launch/mesh.make_host_mesh`` with a group
 initialised), each rank holds its own block of every activation, the block
 that the activation's spec gives it (``block``), and ``constrain`` and
 ``constrain_act`` are identities on it: the block already has the layout
-the spec names. Only the MoE FFN crosses ranks (``models/moe.py``, through
-``parallel/collectives.py``). The reference decides its MoE path on the
+the spec names. The MoE FFN crosses ranks (``models/moe.py``, through
+``parallel/collectives.py``), and where the installed tokens split the
+sequence so do attention, the SSD and the conv (``token_seq_entry``;
+``kernels/ops.py``). The reference decides its MoE path on the
 *global* shape of the activations, which a rank does not see: the launcher
 installs the global (batch, seq) of the tokens with the rules
 (``set_activation_sharding(..., tokens=)``), and ``global_shape`` gives a
@@ -309,9 +311,17 @@ def distribute(tensors: Mapping[str, torch.Tensor],
     ``NamedSharding``. Every rank passes the same whole tensors and keeps
     its block of each (``block``; no collective)."""
     specs = tree_specs(axes, tensors, rules, mesh)
-    return {k: _from_block(block(t, specs[k], mesh).contiguous(), specs[k],
-                           mesh)
+    return {k: _from_block(_owned(block(t, specs[k], mesh)), specs[k], mesh)
             for k, t in tensors.items()}
+
+
+def _owned(t: torch.Tensor) -> torch.Tensor:
+    """A block as a tensor of its own: a copy where it is a view of a
+    larger storage (``contiguous`` keeps a contiguous view, such as one
+    expert of a (E, D, F) weight, and the whole storage with it)."""
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        return t.clone(memory_format=torch.contiguous_format)
+    return t.contiguous()
 
 
 def dzeros(shape: Sequence[int], axes: Sequence[Optional[str]],
@@ -326,21 +336,6 @@ def dzeros(shape: Sequence[int], axes: Sequence[Optional[str]],
             local[d] //= sizes[a]
     return _from_block(torch.zeros(local, dtype=dtype, device=device), spec,
                        mesh)
-
-
-def whole_dims(x: torch.Tensor, dims: Sequence[int], what: str) -> None:
-    """Raise where a DTensor ``x`` splits one of ``dims`` over a mesh axis:
-    ``what`` (sequence-parallel attention, say) is not ported, and
-    gathering the dim silently would hide that."""
-    if not is_dtensor(x):
-        return
-    from torch.distributed.tensor import Shard
-    split = [d for d in dims for p in x.placements
-             if isinstance(p, Shard) and p.dim % x.dim() == d % x.dim()]
-    if split:
-        raise NotImplementedError(
-            f"{what} is not ported: a tensor of shape {tuple(x.shape)} is "
-            f"split over a mesh axis on dim {split[0]} ({x.placements})")
 
 
 def at_use(w: torch.Tensor) -> torch.Tensor:
@@ -506,15 +501,24 @@ def global_shape(x: torch.Tensor) -> Tuple[int, int, int]:
     return shape
 
 
-def require_whole_sequences() -> None:
-    """The port's attention runs on whole sequences: raise where the
-    installed tokens split the sequence over ranks (sequence-parallel
-    attention is not ported; the MoE FFN alone takes such a layout)."""
+def split_entry(x: torch.Tensor, dim: int):
+    """The spec entry (mesh axes, in the mesh's order) that splits ``dim``
+    of a DTensor x, or None where no axis of more than one rank does."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    axes = tuple(n for n, q, size in zip(mesh.mesh_dim_names, x.placements,
+                                         mesh_axes(mesh).values())
+                 if q == Shard(dim % x.dim()) and size > 1)
+    return axes or None
+
+
+def token_seq_entry():
+    """Where a live mesh is installed with the global tokens and the model
+    code sees plain blocks of them: the spec entry that splits the
+    sequence over ranks, or None (one device, DTensors, or a whole
+    sequence on each rank)."""
     rules, mesh, tokens = _ACT["rules"], _ACT["mesh"], _ACT["tokens"]
     if mesh is None or rules is None or tokens is None or _one_device(mesh):
-        return
-    spec = token_spec((tokens[0], tokens[1], 1), rules, mesh)
-    if entry_axes(spec[1]):
-        raise NotImplementedError(
-            f"tokens {tokens} split the sequence over {spec[1]!r}: the "
-            f"port's attention needs whole sequences on a rank")
+        return None
+    entry = token_spec((tokens[0], tokens[1], 1), rules, mesh)[1]
+    return entry if entry_axes(entry) else None

@@ -39,12 +39,31 @@ LR = dict(base_lr=1e-2, warmup=1, total_steps=10)
 
 
 def rules_of(name: str, cfg, mesh):
-    """``"auto"``: the table ``rules_for`` picks on ``mesh``; else
+    """``"auto"``: the table ``rules_for`` picks on ``mesh``;
+    ``"kv_indivisible"``: the table it picks for the arch's full config on
+    the production mesh's model axis, where the kv heads do not divide it
+    (heads and kv heads whole, the sequence over the model axis); else
     ``"dp_heavy"``."""
     if name == "auto":
         return sh.rules_for(cfg, mesh)
+    if name == "kv_indivisible":
+        return kv_indivisible_rules(cfg.name)
     assert name == "dp_heavy", name
     return sh.dp_heavy_rules()
+
+
+def kv_indivisible_rules(arch: str):
+    """``rules_for`` of the full ``arch`` on the (16, 16) production mesh,
+    checked to be the table for kv heads that do not divide its model
+    axis."""
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = get_arch(arch)
+    mesh = make_production_mesh()
+    rules = sh.rules_for(cfg, mesh)
+    if rules["kv_heads"] or rules["heads"] or rules["seq"] != [("model",)]:
+        raise ValueError(f"{arch}'s kv heads divide the production mesh's "
+                         f"model axis")
+    return rules
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -333,25 +352,28 @@ def compare(got: Dict[str, Any], want: Dict[str, Any], tol: Dict[str, Any],
     return bad
 
 
-def refusal(mesh, device) -> Optional[str]:
-    """What attention over a sequence the rules split raises: reduced
-    gemma3-1b under ``rules_for`` on a mesh whose model axis its one kv
-    head does not divide (the rules put the sequence there). None if it
-    ran."""
+def refusal(mesh, device) -> Dict[str, Any]:
+    """Attention over a sequence the rules split: reduced gemma3-1b's
+    prefill under ``rules_for`` on a mesh whose model axis its one kv head
+    does not divide (the rules put the sequence there). What it raised
+    (None since sequence-parallel attention runs) and its logits (None
+    where it raised)."""
     cfg = get_arch("gemma3-1b").reduced()
     rules = sh.rules_for(cfg, mesh)
     model = build(cfg, device)
     params = model.distribute(model.init(torch.Generator(device=device)
                                          .manual_seed(0), torch.float32),
                               mesh, rules)
-    tokens = torch.zeros((4, 16), dtype=torch.int64, device=device)
+    tokens = torch.arange(64, dtype=torch.int64, device=device).reshape(
+        4, 16) % cfg.vocab
     try:
-        make_prefill_step(model, 16, mesh, rules)(params, place_batch(
-            model, {"tokens": tokens}, ShapeConfig("p", 16, 4, "prefill"),
-            mesh, rules))
+        lg, _ = make_prefill_step(model, 16, mesh, rules)(
+            params, place_batch(model, {"tokens": tokens},
+                                ShapeConfig("p", 16, 4, "prefill"), mesh,
+                                rules))
     except NotImplementedError as e:
-        return str(e)
-    return None
+        return {"error": str(e), "logits": None}
+    return {"error": None, "logits": _np(lg)}
 
 
 class moe_paths:
@@ -484,8 +506,31 @@ def dropped_weight_reduce_scatter():
         coll._AllGather.backward = real
 
 
+@contextlib.contextmanager
+def dropped_state_exchange():
+    """A faulted world: the SSD over a split sequence runs B7 on each
+    rank's block from a zero state and carries no state between the
+    ranks (``ops.ssd_seq`` without its exchange)."""
+    from repro_torch.kernels import ops
+    real = ops.ssd_seq
+
+    def faulty(x, a, b, c, entry, mesh, *, chunk=128, impl=None,
+               partial_state=False):
+        return ops._ssd_local(x, a, b, c, chunk, impl)
+    ops.ssd_seq = faulty
+    try:
+        yield
+    finally:
+        ops.ssd_seq = real
+
+
 FAULTS = {"unswapped_all_to_all": unswapped_all_to_all_backward,
           "dropped_reduce_scatter": dropped_weight_reduce_scatter}
+# the faulted worlds of the sequence-parallel paths: the K/V gather's
+# reduce-scatter (the tiled all-gather's backward) keeping the rank's own
+# slice, and the SSD's state exchange left out
+SEQ_FAULTS = {"dropped_kv_reduce_scatter": dropped_weight_reduce_scatter,
+              "dropped_state_exchange": dropped_state_exchange}
 
 
 def moe_case(mesh, inputs, device) -> Dict[str, Any]:
@@ -606,4 +651,185 @@ def encdec_case(mesh, inputs, device) -> Dict[str, Any]:
     return out
 
 
-CASES = {"steps": steps_case, "moe": moe_case, "encdec": encdec_case}
+def seq_case(mesh, inputs, device) -> Dict[str, Any]:
+    """The sequence-parallel cases' ``run_steps`` over this world, the
+    collectives staged through the host, with the calls of the
+    sequence-parallel paths (``seq_paths``), the MoE paths and drops; and
+    the train step of each ``inputs["faults"]`` case (fault name -> case
+    name) under its fault."""
+    coll.stage_through_host(device)
+    coll.reset_stats()
+    out = {"coords": sh.coordinates(mesh), "axes": sh.mesh_axes(mesh)}
+    for c in inputs["cases"]:
+        cfg = get_arch(c["arch"]).reduced().replace(**c.get("cfg", {}))
+        with moe_paths() as paths, seq_paths() as seq:
+            r = run_steps(cfg, c["params"], c, mesh,
+                          rules_of(c["rules"], cfg, mesh), device)
+        r.update(paths=paths.calls, drops=paths.drops, seq=seq.calls)
+        out[c["name"]] = r
+    out["faults"] = {}
+    for fault, name in inputs["faults"].items():
+        c = next(c for c in inputs["cases"] if c["name"] == name)
+        cfg = get_arch(c["arch"]).reduced().replace(**c.get("cfg", {}))
+        with SEQ_FAULTS[fault]():
+            r = run_steps(cfg, c["params"], c, mesh,
+                          rules_of(c["rules"], cfg, mesh), device,
+                          counted=False, serve=False, state=False)
+        out["faults"][fault] = {k: r[k] for k in ("loss", "grad_norm")}
+    out["staged"] = coll.stats()
+    return out
+
+
+class seq_paths:
+    """While installed, counts the calls of the sequence-parallel paths
+    (``ops.attention_seq``, ``ops.decode_over_blocks``, ``ops.ssd_seq``,
+    ``ssm.conv_seq``) and of ``ops.merge_partials``, a checkpointed
+    body's recompute included (``calls``), and the all-gathers each
+    issues in its forward, calls and bytes (``gathers``: K/V, the decode
+    partials', the SSD's state exchange, the conv's halo; their adjoints,
+    reduce-scatters, run in the backward)."""
+
+    NAMES = (("ops", "attention_seq"), ("ops", "decode_over_blocks"),
+             ("ops", "merge_partials"), ("ops", "ssd_seq"),
+             ("ssm", "conv_seq"))
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import ssm
+        mods = {"ops": ops, "ssm": ssm}
+        self.calls = {n: 0 for _, n in self.NAMES}
+        self.gathers = {n: {"all_gather_calls": 0, "all_gather_bytes": 0}
+                        for _, n in self.NAMES}
+        self._real = [(mods[m], n, getattr(mods[m], n))
+                      for m, n in self.NAMES]
+        for mod, n, fn in self._real:
+            def counted(*a, _fn=fn, _n=n, **k):
+                self.calls[_n] += 1
+                before = coll.stats()
+                out = _fn(*a, **k)
+                after = coll.stats()
+                for key, v in self.gathers[_n].items():
+                    self.gathers[_n][key] = v + after.get(key, 0) - \
+                        before.get(key, 0)
+                return out
+            setattr(mod, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, n, fn in self._real:
+            setattr(mod, n, fn)
+
+    def report(self) -> Dict[str, Any]:
+        """The forward gathers of each path that ran (``merge_partials``'
+        within ``decode_over_blocks``')."""
+        return {n: dict(self.gathers[n], calls=self.calls[n])
+                for _, n in self.NAMES
+                if self.calls[n] and n != "merge_partials"}
+
+
+def _requiring(*arrays):
+    return [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+
+
+def _grads(out, ins, g) -> list:
+    return [t.numpy() for t in torch.autograd.grad(out, ins, g)]
+
+
+def seq_ops_case(mesh, inputs, device) -> Dict[str, Any]:
+    """Each sequence-parallel op on this rank's block of ``inputs``' whole
+    numpy tensors, the sequence split over the model axis: attention
+    (``attention_seq``: out, dq, dk, dv) in each of ``inputs["attention"]``
+    (causal, window), decode (``decode_over_blocks`` with B6's partial,
+    and with the windowed decode's: out) at each ``kv_len``, the SSD
+    (``ssd_seq``: y, its partial and its whole final state, dx, da, db,
+    dc of y·gy + h·gh) and the conv (``conv_seq``: out, dx, dw)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    coll.stage_through_host(device)
+    entry = "model"
+    mine = lambda a, dim=1: sh.block(torch.from_numpy(a), sh.PartitionSpec(
+        *([None] * dim + [entry])), mesh).contiguous().numpy()
+    out = {"coords": sh.coordinates(mesh)}
+    a = inputs["attn"]
+    for causal, window in inputs["attention"]:
+        q, k, v = _requiring(mine(a["q"]), mine(a["k"]), mine(a["v"]))
+        o = ops.attention_seq(q, k, v, entry, mesh, causal=causal,
+                              window=window)
+        out[("attention", causal, window)] = [o.detach().numpy()] + _grads(
+            o, (q, k, v), torch.from_numpy(mine(a["g"])))
+    d = inputs["decode"]
+    q = torch.from_numpy(d["q"])
+    kb, vb = (torch.from_numpy(mine(d[n])) for n in ("k", "v"))
+    for lens in d["kv_len"]:
+        kv_len = torch.tensor(lens, dtype=torch.int32)
+        lo = (kv_len - d["window"]).clamp_min(0)
+        out[("decode", tuple(lens))] = [
+            ops.decode_over_blocks(ops.b6_partial(), q, kb, vb, None, kv_len,
+                                   entry, mesh).numpy(),
+            ops.decode_over_blocks(attn.window_partial, q, kb, vb, lo,
+                                   kv_len, entry, mesh).numpy()]
+    z = inputs["ssd"]
+    x, a_, b, c = _requiring(*(mine(z[n]) for n in ("x", "a", "b", "c")))
+    y, h_part = ops.ssd_seq(x, a_, b, c, entry, mesh, chunk=z["chunk"],
+                            partial_state=True)
+    loss = (y * torch.from_numpy(mine(z["gy"]))).sum() + \
+        (h_part * torch.from_numpy(z["gh"])).sum()
+    with torch.no_grad():
+        _, h_whole = ops.ssd_seq(x, a_, b, c, entry, mesh, chunk=z["chunk"])
+    out["ssd"] = [y.detach().numpy(), h_part.detach().numpy(),
+                  h_whole.numpy()] + _grads(loss, (x, a_, b, c), None)
+    v = inputs["conv"]
+    x, w = _requiring(mine(v["x"]), v["w"])
+    o = ssm.conv_seq(x, w, entry, mesh)
+    out["conv"] = [o.detach().numpy()] + _grads(
+        o, (x, w), torch.from_numpy(mine(v["g"])))
+    return out
+
+
+def local_prefill(cfg, tokens, decode, mesh=None, rules=None):
+    """Reduced ``cfg``'s prefill of ``tokens`` (numpy (B, S)) into a cache
+    of S + len(decode) rows and its decode steps, on one device or, with
+    a live ``mesh``, on this rank's plain block of the tokens with
+    ``rules`` and the global (B, S) installed (the rank-local path
+    ``_torch_ep_ranks.prefill_case`` takes): the logits of the prefill's
+    last position and of each decode step, the rank's rows."""
+    model = build(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0), torch.float32)
+    tok = torch.from_numpy(np.asarray(tokens))
+    B, S = tok.shape
+    spec = sh.PartitionSpec(None, None) if mesh is None else \
+        sh.token_spec((B, S, 1), rules, mesh)[:2]
+    rows = (lambda t: t) if mesh is None else \
+        (lambda t: sh.block(t, sh.PartitionSpec(spec[0]), mesh))
+    out = []
+    with torch.no_grad():
+        with sh.activation_sharding(rules, mesh, (B, S)):
+            lg, cache = model.prefill(params, {"tokens": sh.block(
+                tok, spec, mesh) if mesh is not None else tok},
+                max_len=S + len(decode), cache_dtype=torch.float32)
+        out.append(lg)
+        with sh.activation_sharding(rules, mesh, (B, 1)):
+            for t in decode:
+                lg, cache = model.decode_step(params, cache, rows(
+                    torch.from_numpy(np.asarray(t))))
+                out.append(lg)
+    return {"logits": torch.stack(out).numpy(), "spec": tuple(spec)}
+
+
+def local_prefill_case(mesh, inputs, device) -> Dict[str, Any]:
+    """``local_prefill`` of each of ``inputs["archs"]`` on this rank under
+    ``dp_heavy_rules()``, its calls of the sequence-parallel paths."""
+    coll.stage_through_host(device)
+    out = {"coords": sh.coordinates(mesh)}
+    for arch in inputs["archs"]:
+        with seq_paths() as seq:
+            r = local_prefill(get_arch(arch).reduced(), inputs["tokens"],
+                              inputs["decode"], mesh, sh.dp_heavy_rules())
+        out[arch] = dict(r, seq=seq.calls)
+    return out
+
+
+CASES = {"steps": steps_case, "moe": moe_case, "encdec": encdec_case,
+         "seq": seq_case, "seq_ops": seq_ops_case,
+         "local_prefill": local_prefill_case}

@@ -550,6 +550,31 @@ def test_decode_kernel_head_dims_and_groups(cuda, D, G, pairing):
     assert torch.equal(got, da.decode_attention_cuda(q, k, v, lens))
 
 
+@pytest.mark.parametrize("S", [16, 2000, 2048, 16384])
+@pytest.mark.parametrize("D,G", [(16, 2), (256, 4), (128, 8)])
+def test_decode_kernel_lse_equals_plain(cuda, S, D, G):
+    """B6 with ``return_lse``: each head's log-sum-exp (natural log) from
+    the kernel's last merge, at one cluster of splits and at several
+    (the split counts a rank's block of a sequence-sharded cache takes),
+    kv_len 0 (LSE_EMPTY, output 0), 1, S, past S and ragged; the output as
+    without lse, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(S + D + G)
+    Hkv = 2
+    kv_len = [0, 1, S, S + 5, max(1, S // 3), max(1, S - 7)]
+    B = len(kv_len)
+    q = torch.randn((B, G * Hkv, D), generator=g, device=cuda)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=cuda)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=cuda)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    out, lse = da.decode_attention_cuda(q, k, v, lens, return_lse=True)
+    want, want_lse = da.decode_attention_torch(q, k, v, lens,
+                                               return_lse=True)
+    _close(out, want, torch.float32)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert bool((lse[0] == fa.LSE_EMPTY).all()) and not bool(out[0].any())
+    assert torch.equal(out, da.decode_attention_cuda(q, k, v, lens))
+
+
 @pytest.mark.parametrize("pairing", list(PAIRINGS))
 @pytest.mark.parametrize("D,Hq,Hkv,Sq,Sk,window", [
     (128, 2, 2, 300, 300, None),       # G 1: 128 positions a block

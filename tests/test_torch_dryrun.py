@@ -285,15 +285,9 @@ def test_param_counts_and_model_flops_equal_reference(family,
         assert rec["model_flops"] == jrl.model_flops(total, active, s.kind,
                                                      tokens)
         # every family's steps are traced partitioned on the fake (16, 16)
-        # mesh, but where the rules split a sequence (the reduced configs'
-        # decode caches under dp_heavy_rules: kv_seq over model); those
-        # cells stay analytic and say why
-        traced = not (family != "ssm" and shape == "decode_32k")
-        if traced:
-            assert "analytic" not in rec and rec["roofline"]["chips"] == 256
-        else:
-            assert rec["analytic"] and "roofline" not in rec
-            assert rec["reason"]
+        # mesh, the reduced configs' decode caches under dp_heavy_rules
+        # (kv_seq over model) through decode over a sequence-sharded cache
+        assert "analytic" not in rec and rec["roofline"]["chips"] == 256
 
 
 @pytest.mark.parametrize("mk", ["single", "multi"])

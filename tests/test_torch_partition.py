@@ -32,7 +32,7 @@ step-by-step recurrence (``impl="ref"``; its blocked SSD is what
 ``test_torch_lm.py`` avoids) and its attention blocked.
 
 A faulted partition (the first model-axis all-reduce dropped) fails the
-gate; attention whose sequence the rules split raises; every family's
+gate; attention whose sequence the rules split runs; every family's
 parameters are placed (the encdec and vlm families' steps are
 ``test_torch_partition_encdec.py``'s).
 """
@@ -285,16 +285,21 @@ def test_faulted_partition_is_rejected(runs):
 
 def test_split_sequences_and_moe_are_refused(runs):
     """Reduced gemma3-1b's one kv head does not divide a 2-way model axis,
-    so ``rules_for`` puts the sequence there: the prefill raises,
-    naming sequence-parallel attention, instead of gathering it; on the
-    (4, 1) mesh it runs. No family is refused any more: the encdec and vlm
-    families' parameters are placed on a fake (2, 2) mesh as the resolver
-    gives them (their steps: ``test_torch_partition_encdec.py``); the MoE
-    family's are (``test_torch_partition_moe.py``)."""
-    for r in runs["port"][(2, 2)]:
-        assert "sequence-parallel attention" in r["refusal"]
-    for r in runs["port"][(4, 1)]:
-        assert r["refusal"] is None
+    so ``rules_for`` puts the sequence there: the prefill runs
+    sequence-parallel attention (``test_torch_partition_seq.py`` holds
+    those steps to the reference's) and its logits equal the (4, 1)
+    mesh's, whose ranks hold whole sequences. No layout and no family is
+    refused any more: the encdec and vlm families' parameters are placed
+    on a fake (2, 2) mesh as the resolver gives them (their steps:
+    ``test_torch_partition_encdec.py``); the MoE family's are
+    (``test_torch_partition_moe.py``)."""
+    whole = runs["port"][(4, 1)][0]["refusal"]["logits"]
+    for w in WORLDS:
+        for r in runs["port"][w]:
+            assert r["refusal"]["error"] is None
+            np.testing.assert_allclose(r["refusal"]["logits"], whole,
+                                       atol=TOL["logits"][0],
+                                       rtol=TOL["logits"][1])
     assert set(PARTITIONED_FAMILIES) == {get_arch(a).family for a in ARCHS}
     desc = MeshShape(("data", "model"), (2, 2))
     for arch in ("seamless-m4t-medium", "llava-next-34b"):
