@@ -2,7 +2,8 @@
 reference's ``launch/steps.py``.
 
 ``make_train_step`` builds the fwd+bwd+AdamW step with gradient
-accumulation over microbatches (the count from ``choose_microbatch``);
+accumulation over microbatches (the count from ``choose_microbatch``),
+each of its phases a span of ``obs/steps.py`` while a profiler records;
 ``make_serve_step`` the one-token decode step; ``make_prefill_step`` the
 full-sequence cache build. ``build_shardings``, ``batch_shardings``,
 ``cache_shardings`` and ``opt_state_struct_and_sharding`` resolve every
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.registry import Model, cache_leaves
+from repro_torch.obs import steps as spans
 from repro_torch.optim import AdamWState, adamw_init, adamw_update
 from repro_torch.optim import make_schedule
 from repro_torch.parallel import sharding as sh
@@ -248,21 +250,27 @@ def make_train_step(model: Model, shape: ShapeConfig, mesh=None,
 
     def train_step(params, opt_state: AdamWState,
                    batch: Mapping[str, torch.Tensor], step):
-        with on_mesh(mesh, rules):
-            named = dict(params.named_parameters())
+        named = dict(params.named_parameters())
+        with spans.step(next(iter(named.values())).device), \
+                on_mesh(mesh, rules):
             g_acc = grad_buffers(named, grad_dtype)
             losses = []
             for i in range(accum):
-                mb = {k: microbatch(v, accum, i) for k, v in batch.items()}
-                loss = model.loss(params, mb, impl=impl)
-                grads = torch.autograd.grad(loss, list(named.values()),
-                                            allow_unused=True)
-                accumulate(g_acc, dict(zip(named, grads)))
-                losses.append(loss.detach())
-                del loss, grads
-            mean_loss = finish_grads(g_acc, losses)
-            _, opt_state, stats = adamw_update(named, g_acc, opt_state,
-                                               lr_fn(step))
+                with spans.span(spans.MICROBATCH):
+                    mb = {k: microbatch(v, accum, i)
+                          for k, v in batch.items()}
+                    with spans.span(spans.FORWARD):
+                        loss = model.loss(params, mb, impl=impl)
+                    with spans.span(spans.BACKWARD):
+                        grads = torch.autograd.grad(
+                            loss, list(named.values()), allow_unused=True)
+                        accumulate(g_acc, dict(zip(named, grads)))
+                    losses.append(loss.detach())
+                    del loss, grads
+            with spans.span(spans.ADAMW):
+                mean_loss = finish_grads(g_acc, losses)
+                _, opt_state, stats = adamw_update(named, g_acc, opt_state,
+                                                   lr_fn(step))
             return (params, opt_state, _whole(mean_loss),
                     _whole(stats["grad_norm"]))
 

@@ -11,7 +11,8 @@ its count), each collective (and ``collectives.stats()``), each MoE
 route. ``recomputing()`` tells a consumer which run it is in: a launch
 counter counts both (the card does both), a record of the forward's
 choices (routes, drops, the paths a MoE layer takes) reads the first
-forward only.
+forward only. While a profiler records, each recompute is the span
+``train.recompute`` (``obs/steps.py``).
 
 Nothing random runs in a body (no dropout), so no RNG state is saved.
 """
@@ -21,6 +22,8 @@ import contextlib
 
 import torch
 from torch.utils import checkpoint as _cp
+
+from repro_torch.obs import steps as spans
 
 _DEPTH = [0]
 
@@ -35,7 +38,8 @@ def recomputing() -> bool:
 def _recompute():
     _DEPTH[0] += 1
     try:
-        yield
+        with spans.span(spans.RECOMPUTE):
+            yield
     finally:
         _DEPTH[0] -= 1
 

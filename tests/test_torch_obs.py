@@ -52,7 +52,6 @@ from repro_torch.apps import ALL_APPS, synth_packets
 from repro_torch.core import graph
 from repro_torch.core.executor import ParallelDataPlane
 from repro_torch.obs import flight
-from repro_torch.obs.runlog import RunLogger
 
 PKGS = (obs, jobs)
 
@@ -265,11 +264,10 @@ def _read_dir(d):
 
 
 def test_obs_dump_artifacts_are_byte_identical(tmp_path):
-    """``Obs.dump``'s three files, and ``RunLogger``'s rows beside them,
-    under a fixed clock: the same bytes from both packages, and the dumped
-    trace loads back with the same answers."""
-    from repro.obs.runlog import RunLogger as JRunLogger
-    for pkg, logger in ((obs, RunLogger), (jobs, JRunLogger)):
+    """``Obs.dump``'s three files under a fixed clock: the same bytes from
+    both packages, and the dumped trace loads back with the same
+    answers."""
+    for pkg in PKGS:
         o = pkg.Obs(seed=3, clock=_clock())
         o.metrics.counter("c_total").inc()
         o.metrics.histogram("lat_s", tenant="t").observe_many([0.1, 0.2])
@@ -279,23 +277,9 @@ def test_obs_dump_artifacts_are_byte_identical(tmp_path):
         assert sorted(paths) == ["metrics", "prom", "trace"]
         tr = pkg.load_trace(paths["trace"])
         assert tr.query(name="hello")[0].tenant == "t"
-        log = logger("r", out_dir=str(tmp_path / pkg.__name__ / "log"),
-                     echo=None)
-        log.emit("x,1.5,ok")
-        log.emit("a note")
-        log.artifact(o, "obs")
-        log.close()
     got = _read_dir(tmp_path / "repro_torch.obs" / "art")
     assert got == _read_dir(tmp_path / "repro.obs" / "art")
     assert b"c_total 1" in got["run.metrics.prom"]
-    logs = [json.loads(p.read_text()) for p in
-            (tmp_path / "repro_torch.obs" / "log" / "meta.json",
-             tmp_path / "repro.obs" / "log" / "meta.json")]
-    assert logs[0]["rows"] == logs[1]["rows"] == 2
-    assert [(tmp_path / d / "log" / "rows.jsonl").read_text()
-            for d in ("repro_torch.obs", "repro.obs")] == \
-        ['{"name": "x", "us_per_call": 1.5, "derived": "ok"}\n'
-         '{"note": "a note"}\n'] * 2
 
 
 def test_snapshot_compile_caches_reads_the_ports_graph():
